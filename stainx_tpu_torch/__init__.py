@@ -1,0 +1,15 @@
+"""stainx_tpu_torch: the PyTorch / CUDA port of ``stainx_tpu``.
+
+Stain normalization for histopathology with the ``fit / transform /
+fit_transform`` API of ``stainx_tpu``. The compute runs on an NVIDIA Hopper
+card (H100) through hand-written CUDA kernels (``csrc/``), built at first
+use; the same entry points run on the CPU through the kernels' plain
+PyTorch versions when the caller passes ``device="cpu"``. There is no
+backend knob: the device decides the route.
+
+Ported so far: :class:`Macenko` (reference-mode fit and transform).
+"""
+
+from stainx_tpu_torch.normalizers import Macenko
+
+__all__ = ["Macenko"]

@@ -1,0 +1,104 @@
+"""Hand-written CUDA kernels for Hopper, built at first use.
+
+Counterpart of ``stainx_tpu/kernels/__init__.py``. Each ``csrc/*.cu`` source
+is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
+plain C interface, under ``build/stainx_tpu_torch/`` at the root of the
+checkout (``build/`` is git-ignored), and loaded with :mod:`ctypes`. Every
+source is compiled by its own ``nvcc`` process, all started together. A
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and never confused with an old build.
+
+Nothing here runs at import time: the CPU path never builds, and a failed
+build raises instead of falling back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "stainx_tpu_torch"
+
+# -fmad=false keeps every a*b+c as a rounded product and a rounded sum, the
+# order the plain PyTorch versions evaluate in, so the on-card comparison of
+# a kernel with its plain version sees only summation-order and libm ulps.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
+
+
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every ``csrc/*.cu`` that has no current build, one ``nvcc``
+    per source, all in parallel. Returns ``{source stem: library path}``.
+    Raises ``RuntimeError`` with the compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {src.stem: (src, _lib_path(src)) for src in sorted(CSRC.glob("*.cu"))}
+    procs = {}
+    for stem, (src, lib) in paths.items():
+        if lib.is_file():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[stem] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            lib,
+        )
+    failures = []
+    for stem, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {stem}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {stem: lib for stem, (_src, lib) in paths.items()}
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, building all sources first
+    if needed. Declares the shared error-string helper."""
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[stem]))
+            lib.stainx_error_string.argtypes = [ctypes.c_int]
+            lib.stainx_error_string.restype = ctypes.c_char_p
+            _libs[stem] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code other than 0."""
+    if code != 0:
+        msg = lib.stainx_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

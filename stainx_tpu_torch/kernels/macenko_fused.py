@@ -1,0 +1,301 @@
+"""The Macenko fit and transform kernels: wrappers, plain versions, counts.
+
+Counterpart of ``stainx_tpu/kernels/macenko_fused.py``. Each wrapper takes
+an (N, 3, H, W) uint8 or float32 tensor. On a CUDA tensor it launches its
+hand-written kernel from ``csrc/macenko_fused.cu`` (built at first use) or
+raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper
+counts its kernel launches in its ``launches`` attribute.
+
+The plain versions repeat the kernels' arithmetic on batched tensors:
+
+- OD from the raw values (uint8 through int32, float as ``I·255``);
+- the β-mask; at transform, all pixels when fewer than 3 survive;
+- the 10 masked moments about OD−1, products in float32, summed in float64
+  (the kernels sum in float64 in a fixed order: no float atomics);
+- covariance from the moments and the closed-form eigh of
+  :mod:`stainx_tpu_torch.ops.eigh3` (``acos``/``cos``);
+- the diamond pseudo-angle of the stain-plane projection, its α and 100−α
+  nearest-rank selections, and the inverse map to (cos, sin);
+- H/E ordering, the 2×2 normal rows with the ±1e12 inverse clamp;
+- the 99th-percentile concentrations over all pixels and, at transform,
+  the sign-preserving maxC scale and ``clip(240·exp(−HE·C), 0, 255)``,
+  truncated for uint8.
+
+Selections are exact: the element at the nearest rank of the monotone
+integer keys, always an actual element of the data.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stainx_tpu_torch import kernels
+from stainx_tpu_torch.ops.eigh3 import eigh3_top2
+from stainx_tpu_torch.ops.macenko import (
+    ALPHA,
+    BETA,
+    IO,
+    optical_density,
+    rescale_and_reconstruct,
+)
+from stainx_tpu_torch.ops.percentile import (
+    kth_smallest,
+    nearest_rank_index,
+    static_nearest_rank_index,
+)
+
+SEED_STATE_LEN = 7  # 4 terminal keys + 2 miss streaks + valid flag (JAX layout)
+_DTYPES = (torch.uint8, torch.float32)
+
+
+def seed_state_init(device: str | torch.device = "cpu") -> torch.Tensor:
+    """Fresh cross-call state, the (7,) int32 zeros of the JAX kernels. The
+    port passes it through unchanged."""
+    return torch.zeros(SEED_STATE_LEN, dtype=torch.int32, device=device)
+
+
+# --------------------------------------------------------- plain helpers
+def od_from_planes(x: torch.Tensor, is_uint8: bool) -> torch.Tensor:
+    """OD of raw (R, 3, P) values as float32."""
+    if is_uint8:
+        return -torch.log((x.to(torch.int32).to(torch.float32) + 1.0) / IO)
+    return optical_density(x.to(torch.float32))
+
+
+def masked_moments(od: torch.Tensor, weight: torch.Tensor):
+    """Integer count (R,) and the 9 sums (R, 9) of ``y = OD − 1`` over the
+    pixels where ``weight`` (R, P) is true: Σy0, Σy1, Σy2, Σy0², Σy0y1,
+    Σy0y2, Σy1², Σy1y2, Σy2². Products are float32, sums float64, results
+    float32."""
+    y0, y1, y2 = (od - 1.0).unbind(1)
+    terms = (y0, y1, y2, y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2)
+    sums = torch.stack(
+        [torch.where(weight, t, 0.0).to(torch.float64).sum(-1) for t in terms], dim=-1
+    )
+    return weight.sum(-1), sums.to(torch.float32)
+
+
+def cov_from_moments(cnt: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+    """Covariance (R, 3, 3) from :func:`masked_moments`; zeros when cnt ≤ 1."""
+    cnt = cnt.to(torch.float32)
+    s0, s1, s2, xx, xy, xz, yy, yz, zz = sums.unbind(-1)
+    safe = torch.clamp(cnt, min=1.0)
+    mu = (s0 / safe, s1 / safe, s2 / safe)
+    den = torch.clamp(cnt - 1.0, min=1.0)
+    ok = cnt > 1.0
+
+    def entry(s, i, j):
+        return torch.where(ok, (s - cnt * mu[i] * mu[j]) / den, 0.0)
+
+    a00, a01, a02 = entry(xx, 0, 0), entry(xy, 0, 1), entry(xz, 0, 2)
+    a11, a12, a22 = entry(yy, 1, 1), entry(yz, 1, 2), entry(zz, 2, 2)
+    rows = [torch.stack(r, -1) for r in ((a00, a01, a02), (a01, a11, a12), (a02, a12, a22))]
+    return torch.stack(rows, dim=-2)
+
+
+def pseudo_angle(t0: torch.Tensor, t1: torch.Tensor) -> torch.Tensor:
+    """Diamond angle, order-isomorphic to atan2(t1, t0), range (−2, 2]."""
+    s = t0.abs() + t1.abs() + 1e-37
+    a = t1 / s
+    return torch.where(t0 >= 0, a, torch.where(t1 >= 0, 2.0 - a, -2.0 - a))
+
+
+def dir_from_pseudo(p: torch.Tensor):
+    """(cos, sin) of the direction a diamond angle encodes."""
+    ap = p.abs()
+    u = torch.where(ap <= 1.0, 1.0 - ap, torch.where(p > 1.0, 1.0 - p, 1.0 + p))
+    v = torch.where(ap <= 1.0, p, torch.where(p > 1.0, 2.0 - p, -2.0 - p))
+    norm = torch.sqrt(u * u + v * v)
+    inv = torch.where(norm > 1e-30, 1.0 / norm, 0.0)
+    return u * inv, v * inv
+
+
+def he_from_phi(evecs, cos_lo, sin_lo, cos_hi, sin_hi) -> torch.Tensor:
+    """Extreme stain vectors and H/E ordering: (R, 3, 2) → HE (R, 3, 2)."""
+    v_mid, v_max = evecs[..., 0], evecs[..., 1]
+    v_lo = v_mid * cos_lo[:, None] + v_max * sin_lo[:, None]
+    v_hi = v_mid * cos_hi[:, None] + v_max * sin_hi[:, None]
+    swap = (v_lo[:, 0] > v_hi[:, 0])[:, None]
+    return torch.stack(
+        [torch.where(swap, v_lo, v_hi), torch.where(swap, v_hi, v_lo)], dim=-1
+    )
+
+
+def normal_rows(he: torch.Tensor):
+    """Rows (m0, m1), each (R, 3), of the 2×2 normal-equation inverse of the
+    HE columns; 1/det is clamped to ±1e12 so (anti)parallel columns stay
+    finite."""
+    h0, h1 = he[..., 0], he[..., 1]
+
+    def dot(u, v):
+        return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
+
+    a, b, c = dot(h0, h0), dot(h0, h1), dot(h1, h1)
+    inv_det = torch.clamp(1.0 / (a * c - b * b), -1e12, 1e12)[:, None]
+    m0 = (c[:, None] * h0 - b[:, None] * h1) * inv_det
+    m1 = (a[:, None] * h1 - b[:, None] * h0) * inv_det
+    return m0, m1
+
+
+def _project(od: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ_c od_c · w_c for (R, 3, P) planes and (R, 3) weights, left to right."""
+    return od[:, 0] * w[:, 0, None] + od[:, 1] * w[:, 1, None] + od[:, 2] * w[:, 2, None]
+
+
+def _stain_params(od: torch.Tensor, fallback: bool):
+    """The statistics both kernels share, for rows of OD (R, 3, P):
+    returns HE (R, 3, 2), concentration planes c0, c1 (R, P) and their 99th
+    percentiles maxc (R, 2)."""
+    rows, _, p = od.shape
+    bmask = torch.amin(od, dim=1) >= BETA
+    cnt, sums = masked_moments(od, bmask)
+    phi_mask = bmask
+    if fallback:
+        use_all = cnt < 3
+        cnt_all, sums_all = masked_moments(od, torch.ones_like(bmask))
+        cnt = torch.where(use_all, cnt_all, cnt)
+        sums = torch.where(use_all[:, None], sums_all, sums)
+        phi_mask = bmask | use_all[:, None]
+
+    evecs = eigh3_top2(cov_from_moments(cnt, sums))
+    pseudo = pseudo_angle(_project(od, evecs[..., 0]), _project(od, evecs[..., 1]))
+    ranks = torch.stack(
+        [nearest_rank_index(ALPHA, cnt), nearest_rank_index(100 - ALPHA, cnt)], dim=-1
+    )
+    phi = kth_smallest(pseudo, ranks, phi_mask)
+    cos_lo, sin_lo = dir_from_pseudo(phi[:, 0])
+    cos_hi, sin_hi = dir_from_pseudo(phi[:, 1])
+    he = he_from_phi(evecs, cos_lo, sin_lo, cos_hi, sin_hi)
+
+    m0, m1 = normal_rows(he)
+    c0, c1 = _project(od, m0), _project(od, m1)
+    idx99 = torch.full((2 * rows,), static_nearest_rank_index(99, p), device=od.device)
+    maxc = kth_smallest(torch.stack([c0, c1], dim=1).reshape(2 * rows, p), idx99)
+    return he, c0, c1, maxc.reshape(rows, 2)
+
+
+def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
+    """Plain PyTorch version of the transform kernel (B1)."""
+    _check_images(images, "macenko_transform_mega")
+    n, c, h, w = images.shape
+    is_uint8 = images.dtype == torch.uint8
+    od = od_from_planes(images.reshape(n, 3, h * w), is_uint8)
+    _he, c0, c1, maxc = _stain_params(od, fallback=True)
+    rgb = rescale_and_reconstruct(c0, c1, maxc[:, 0], maxc[:, 1], target_max_conc, stain_matrix)
+    if is_uint8:
+        rgb = rgb.to(torch.int32).to(torch.uint8)
+    return rgb.reshape(n, c, h, w)
+
+
+def macenko_fit_mega_plain(images):
+    """Plain PyTorch version of the fit kernel (B2): the N images' pixels
+    pooled channel-major into one row."""
+    _check_images(images, "macenko_fit_mega")
+    n, _, h, w = images.shape
+    od = od_from_planes(images.reshape(n, 3, h * w), images.dtype == torch.uint8)
+    pooled = od.transpose(0, 1).reshape(1, 3, n * h * w)
+    he, _c0, _c1, maxc = _stain_params(pooled, fallback=False)
+    return he[0], maxc[0]
+
+
+# --------------------------------------------------------------- wrappers
+def _check_images(images: torch.Tensor, what: str) -> None:
+    if images.dim() != 4 or images.shape[1] != 3:
+        raise ValueError(f"{what} expects (N, 3, H, W) images, got shape {tuple(images.shape)}")
+    if images.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes uint8 or float32 images, got {images.dtype}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.library("macenko_fused")
+    if not getattr(lib, "_stainx_declared", False):
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.stainx_macenko_transform_mega.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, ptr
+        ]
+        lib.stainx_macenko_transform_mega.restype = i32
+        lib.stainx_macenko_fit_mega.argtypes = [ptr, ptr, i64, i64, i32, i32, i64, ptr]
+        lib.stainx_macenko_fit_mega.restype = i32
+        lib._stainx_declared = True
+    return lib
+
+
+def _check_cuda(images: torch.Tensor, what: str) -> None:
+    if images.device.type != "cuda":
+        raise ValueError(f"{what}: images on {images.device}; expected a CUDA or CPU tensor")
+    if not images.is_contiguous():
+        raise ValueError(f"{what} needs contiguous images")
+
+
+def _params(t: torch.Tensor, device, numel: int, name: str) -> torch.Tensor:
+    t = torch.as_tensor(t).to(device=device, dtype=torch.float32).contiguous()
+    if t.numel() != numel:
+        raise ValueError(f"{name} must have {numel} entries, got shape {tuple(t.shape)}")
+    return t
+
+
+def _vec4(p: int, *tensors: torch.Tensor) -> bool:
+    """Whether rows can be read 4 pixels at a time (16-byte aligned planes)."""
+    return p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def macenko_transform_mega(images, stain_matrix, target_max_conc) -> torch.Tensor:
+    """Macenko transform (B1): (N, 3, H, W) uint8/float32 → normalized batch
+    of the same shape and dtype, values in [0, 255]. One launch per call,
+    one thread block per image."""
+    _check_images(images, "macenko_transform_mega")
+    if images.device.type == "cpu":
+        return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
+    _check_cuda(images, "macenko_transform_mega")
+    dev = images.device
+    he = _params(stain_matrix, dev, 6, "stain_matrix")
+    tmc = _params(target_max_conc, dev, 2, "target_max_conc")
+    out = torch.empty_like(images)
+    n, _, h, w = images.shape
+    p = h * w
+    if out.numel() == 0:
+        return out
+    if p >= 2**31:
+        raise ValueError(f"macenko_transform_mega takes images below 2^31 pixels, got {p}")
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.stainx_macenko_transform_mega(
+            images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(),
+            n, p, int(images.dtype == torch.uint8), int(_vec4(p, images, out)),
+            static_nearest_rank_index(99, p), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(lib, code, "macenko_transform_mega")
+    macenko_transform_mega.launches += 1
+    return out
+
+
+def macenko_fit_mega(images):
+    """Pooled Macenko fit (B2): (N, 3, H, W) uint8/float32 → ``(stain_matrix
+    (3, 2) float32, max_concentrations (2,) float32)``. One launch per call,
+    one thread block for the whole pool."""
+    _check_images(images, "macenko_fit_mega")
+    if images.device.type == "cpu":
+        return macenko_fit_mega_plain(images)
+    _check_cuda(images, "macenko_fit_mega")
+    n, _, h, w = images.shape
+    p = h * w
+    if n * p == 0 or n * p >= 2**31:
+        raise ValueError(f"macenko_fit_mega pools 1 to 2^31-1 pixels, got {n * p}")
+    dev = images.device
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.stainx_macenko_fit_mega(
+            images.data_ptr(), out.data_ptr(), n, p,
+            int(images.dtype == torch.uint8), int(_vec4(p, images)),
+            static_nearest_rank_index(99, n * p), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(lib, code, "macenko_fit_mega")
+    macenko_fit_mega.launches += 1
+    return out[:6].reshape(3, 2), out[6:8]
+
+
+macenko_transform_mega.launches = 0
+macenko_fit_mega.launches = 0
