@@ -7,9 +7,10 @@ use; the same entry points run on the CPU through the kernels' plain
 PyTorch versions when the caller passes ``device="cpu"``. There is no
 backend knob: the device decides the route.
 
-Ported so far: :class:`Macenko` (reference-mode fit and transform).
+Ported so far: :class:`Macenko` (reference-mode fit and transform),
+:class:`Reinhard` and :class:`HistogramMatching`.
 """
 
-from stainx_tpu_torch.normalizers import Macenko
+from stainx_tpu_torch.normalizers import HistogramMatching, Macenko, Reinhard
 
-__all__ = ["Macenko"]
+__all__ = ["HistogramMatching", "Macenko", "Reinhard"]

@@ -3,7 +3,8 @@
 A reference fitted with ``stainx_tpu`` (its ``state`` dict, or the ``.npz``
 file its ``save_state`` writes) becomes the port's tensors, so
 ``stainx_tpu_torch.Macenko().load_state(state_from_jax(...))`` gives the
-same transform. Reads numpy arrays only: JAX is not imported.
+same transform, and likewise for ``Reinhard`` and ``HistogramMatching``.
+Reads numpy arrays only: JAX is not imported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ def state_from_jax(
     """Fitted state of a ``stainx_tpu`` normalizer as float32 tensors on
     ``device`` (default ``cuda:0``). ``state`` is the JAX normalizer's
     ``state`` dict (numpy or JAX arrays) or a path to its ``save_state``
-    ``.npz``; keys (``_stain_matrix``, ``_target_max_conc``) are kept, and
+    ``.npz``. Keys are kept as they are (Macenko: ``_stain_matrix``,
+    ``_target_max_conc``; Reinhard: ``_reference_mean``,
+    ``_reference_std``; HistogramMatching: ``_ref_histograms_256``), and
     entries that are ``None`` are dropped."""
     if isinstance(state, (str, os.PathLike)):
         with np.load(state) as data:

@@ -9,7 +9,8 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and never confused with an old build.
 
 Nothing here runs at import time: the CPU path never builds, and a failed
-build raises instead of falling back.
+build raises instead of falling back. The input checks and the grid sizing
+that the wrappers share live here too.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "stainx_tpu_torch"
@@ -102,3 +105,28 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.stainx_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_rgb_batch(images: torch.Tensor, what: str) -> None:
+    """Raise unless ``images`` is an (N, 3, H, W) uint8 or float32 tensor,
+    what the Macenko and Reinhard kernels take."""
+    if images.dim() != 4 or images.shape[1] != 3:
+        raise ValueError(f"{what} expects (N, 3, H, W) images, got shape {tuple(images.shape)}")
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"{what} takes uint8 or float32 images, got {images.dtype}")
+
+
+def check_cuda(tensor: torch.Tensor, what: str) -> None:
+    """Raise unless ``tensor`` is a contiguous CUDA tensor, as a kernel reads
+    it (a CPU tensor never gets here: the wrappers run the plain version)."""
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {tensor.device}; expected a CUDA or CPU tensor")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous tensor")
+
+
+def grid_blocks(items: int, device: torch.device) -> int:
+    """Blocks of a grid-stride launch of 256-thread blocks over ``items``
+    work items, one a thread, at most 8 blocks (2048 threads) an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-items // 256), sms * 8))

@@ -47,7 +47,6 @@ from stainx_tpu_torch.ops.percentile import (
 )
 
 SEED_STATE_LEN = 7  # 4 terminal keys + 2 miss streaks + valid flag (JAX layout)
-_DTYPES = (torch.uint8, torch.float32)
 
 
 def seed_state_init(device: str | torch.device = "cpu") -> torch.Tensor:
@@ -178,7 +177,7 @@ def _stain_params(od: torch.Tensor, fallback: bool):
 
 def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
     """Plain PyTorch version of the transform kernel (B1)."""
-    _check_images(images, "macenko_transform_mega")
+    kernels.check_rgb_batch(images, "macenko_transform_mega")
     n, c, h, w = images.shape
     is_uint8 = images.dtype == torch.uint8
     od = od_from_planes(images.reshape(n, 3, h * w), is_uint8)
@@ -192,7 +191,7 @@ def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch
 def macenko_fit_mega_plain(images):
     """Plain PyTorch version of the fit kernel (B2): the N images' pixels
     pooled channel-major into one row."""
-    _check_images(images, "macenko_fit_mega")
+    kernels.check_rgb_batch(images, "macenko_fit_mega")
     n, _, h, w = images.shape
     od = od_from_planes(images.reshape(n, 3, h * w), images.dtype == torch.uint8)
     pooled = od.transpose(0, 1).reshape(1, 3, n * h * w)
@@ -201,13 +200,6 @@ def macenko_fit_mega_plain(images):
 
 
 # --------------------------------------------------------------- wrappers
-def _check_images(images: torch.Tensor, what: str) -> None:
-    if images.dim() != 4 or images.shape[1] != 3:
-        raise ValueError(f"{what} expects (N, 3, H, W) images, got shape {tuple(images.shape)}")
-    if images.dtype not in _DTYPES:
-        raise TypeError(f"{what} takes uint8 or float32 images, got {images.dtype}")
-
-
 def _lib() -> ctypes.CDLL:
     lib = kernels.library("macenko_fused")
     if not getattr(lib, "_stainx_declared", False):
@@ -220,13 +212,6 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_macenko_fit_mega.restype = i32
         lib._stainx_declared = True
     return lib
-
-
-def _check_cuda(images: torch.Tensor, what: str) -> None:
-    if images.device.type != "cuda":
-        raise ValueError(f"{what}: images on {images.device}; expected a CUDA or CPU tensor")
-    if not images.is_contiguous():
-        raise ValueError(f"{what} needs contiguous images")
 
 
 def _params(t: torch.Tensor, device, numel: int, name: str) -> torch.Tensor:
@@ -245,10 +230,10 @@ def macenko_transform_mega(images, stain_matrix, target_max_conc) -> torch.Tenso
     """Macenko transform (B1): (N, 3, H, W) uint8/float32 → normalized batch
     of the same shape and dtype, values in [0, 255]. One launch per call,
     one thread block per image."""
-    _check_images(images, "macenko_transform_mega")
+    kernels.check_rgb_batch(images, "macenko_transform_mega")
     if images.device.type == "cpu":
         return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
-    _check_cuda(images, "macenko_transform_mega")
+    kernels.check_cuda(images, "macenko_transform_mega")
     dev = images.device
     he = _params(stain_matrix, dev, 6, "stain_matrix")
     tmc = _params(target_max_conc, dev, 2, "target_max_conc")
@@ -275,10 +260,10 @@ def macenko_fit_mega(images):
     """Pooled Macenko fit (B2): (N, 3, H, W) uint8/float32 → ``(stain_matrix
     (3, 2) float32, max_concentrations (2,) float32)``. One launch per call,
     one thread block for the whole pool."""
-    _check_images(images, "macenko_fit_mega")
+    kernels.check_rgb_batch(images, "macenko_fit_mega")
     if images.device.type == "cpu":
         return macenko_fit_mega_plain(images)
-    _check_cuda(images, "macenko_fit_mega")
+    kernels.check_cuda(images, "macenko_fit_mega")
     n, _, h, w = images.shape
     p = h * w
     if n * p == 0 or n * p >= 2**31:

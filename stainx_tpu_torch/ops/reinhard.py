@@ -1,0 +1,84 @@
+"""Reinhard stain normalization on tensors: fit and transform.
+
+Counterpart of ``stainx_tpu/ops/reinhard.py``: batch-global LAB mean and
+std (Bessel-corrected), z-score against the source statistics with a
+``+1e-8`` eps, rescale to the reference statistics, LAB→RGB, clamp, dtype
+restore. Both entry points route to the kernel wrappers of
+:mod:`stainx_tpu_torch.kernels.reinhard_fused`, the JAX package's
+``use_pallas=True`` route: the fit is the LAB-moments kernel plus
+:func:`moments_to_mean_std` (the additive form of
+``reinhard_fit_sharded``), the transform the moments kernel, then the
+fused apply kernel. A CUDA tensor launches the kernels, a CPU tensor runs
+their plain PyTorch versions. The kernels take uint8 and float32; other
+float dtypes are cast to float32 [0, 1] around them and cast back.
+
+Source statistics are **batch-global**: mean and std over N·H·W at once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stainx_tpu_torch.ops import color
+
+# Moments accumulate about this shift (the middle of the 8-bit LAB encoding)
+# so that Σx² − (Σx)²/n does not cancel; the centre does not change the
+# mean and std algebraically.
+LAB_MOMENT_CENTER = 128.0
+
+_KERNEL_DTYPES = (torch.uint8, torch.float32)
+
+
+def lab_moments(images: torch.Tensor) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """Per-channel CENTERED LAB pixel count, sum and sum of squares of an
+    (N, 3, H, W) batch: ``(n, (3,), (3,))``. Sums are taken in float64 and
+    returned as float32; ``n`` is the exact count N·H·W. Consume with
+    :func:`moments_to_mean_std`. (The JAX package's ``weights`` and
+    ``valid_rows`` belong to its distributed layer, not ported yet.)"""
+    lab = color.rgb_to_lab(images, channel_axis=1) - LAB_MOMENT_CENTER
+    n = float(lab.shape[0] * lab.shape[2] * lab.shape[3])
+    s = lab.to(torch.float64).sum(dim=(0, 2, 3))
+    sq = (lab * lab).to(torch.float64).sum(dim=(0, 2, 3))
+    return n, s.to(torch.float32), sq.to(torch.float32)
+
+
+def moments_to_mean_std(n: float, s: torch.Tensor, sq: torch.Tensor):
+    """Bessel-corrected mean and std from centred additive moments: the
+    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``."""
+    mean_c = s / n
+    var = torch.clamp(sq - n * mean_c * mean_c, min=0.0) / max(n - 1.0, 1.0)
+    return mean_c + LAB_MOMENT_CENTER, torch.sqrt(var)
+
+
+def _kernel_input(images: torch.Tensor) -> torch.Tensor:
+    if images.dtype in _KERNEL_DTYPES:
+        return images.contiguous()
+    return color.normalize_to_float(images).contiguous()
+
+
+def _source_stats(x: torch.Tensor):
+    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_moments
+
+    s1, s2 = reinhard_moments(x)
+    return moments_to_mean_std(float(x.shape[0] * x.shape[2] * x.shape[3]), s1, s2)
+
+
+def reinhard_fit(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference LAB mean and std over the whole (N, 3, H, W) batch, each (3,)."""
+    return _source_stats(_kernel_input(images))
+
+
+def reinhard_transform(
+    images: torch.Tensor, reference_mean: torch.Tensor, reference_std: torch.Tensor
+) -> torch.Tensor:
+    """Transform an (N, 3, H, W) batch to the reference LAB statistics. The
+    output has the input's dtype: uint8 in [0, 255] (truncated), floats in
+    [0, 1]."""
+    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_apply
+
+    x = _kernel_input(images)
+    lab_mean, lab_std = _source_stats(x)
+    out = reinhard_apply(x, lab_mean, lab_std, reference_mean, reference_std)
+    if images.dtype not in _KERNEL_DTYPES:
+        out = color.preserve_dtype(out, images.dtype)
+    return out

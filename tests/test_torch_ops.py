@@ -108,6 +108,65 @@ class TestColor:
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+def _rgb(dtype, shape=(2, 3, 9, 11), seed=21):
+    raw = np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
+    return raw if dtype == "uint8" else (raw / 255.0).astype(np.float32)
+
+
+def _to_layout(x, layout):
+    return np.ascontiguousarray(np.transpose(x, (0, 2, 3, 1))) if layout == "nhwc" else x
+
+
+class TestLab:
+    """RGB↔LAB against the JAX package: atol 1e-3 in LAB units (the two
+    libraries' float32 pow differ by an ulp or two, scaled by up to 500 in
+    ``a``) and 1e-5 in RGB [0, 1]."""
+
+    @pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_rgb_to_lab_matches_jax(self, dtype, layout):
+        x = _to_layout(_rgb(dtype), layout)
+        axis = -1 if layout == "nhwc" else 1
+        want = np.asarray(jax_color.rgb_to_lab(jnp.asarray(x), channel_axis=axis))
+        got = color.rgb_to_lab(torch.as_tensor(x), channel_axis=axis)
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+    @pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_lab_to_rgb_matches_jax(self, dtype, layout):
+        lab = np.asarray(jax_color.rgb_to_lab(jnp.asarray(_rgb(dtype, seed=22))))
+        # Push some LAB values off the sRGB gamut so the clip is exercised.
+        lab = _to_layout(lab * np.float32(1.1) - np.float32(5.0), layout)
+        axis = 3 if layout == "nhwc" else -3
+        want = np.asarray(jax_color.lab_to_rgb(jnp.asarray(lab), channel_axis=axis))
+        got = color.lab_to_rgb(torch.as_tensor(lab), channel_axis=axis).numpy()
+        assert got.min() >= 0.0 and got.max() <= 1.0
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+    @pytest.mark.parametrize("dtype", ["uint8", "float32", "float16", "bfloat16"])
+    def test_images_to_uint8_is_exact(self, dtype):
+        rng = np.random.default_rng(23)
+        x = rng.uniform(-0.2, 1.2, (2, 3, 6, 7)).astype(np.float32)
+        if dtype == "uint8":
+            x = rng.integers(0, 256, x.shape).astype(np.uint8)
+        want, want_scale = jax_color.images_to_uint8(jnp.asarray(x).astype(dtype))
+        got, got_scale = color.images_to_uint8(torch.as_tensor(x).to(getattr(torch, dtype)))
+        assert got.dtype == torch.uint8 and got_scale == want_scale == (dtype != "uint8")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize(
+        "shape,axis,match",
+        [((1, 3, 4, 4), 0, "channel_axis must be one of"), ((3, 4, 4), 1, "expected a 4D batch")],
+    )
+    def test_nchw_raises_like_jax(self, shape, axis, match):
+        x = np.zeros(shape, np.float32)
+        with pytest.raises(ValueError, match=match):
+            jax_color._nchw(jnp.asarray(x), axis)
+        with pytest.raises(ValueError, match=match):
+            color._nchw(torch.as_tensor(x), axis)
+
+
 def _spd(seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((64, 3)).astype(np.float32) * rng.uniform(0.1, 3.0, 3)
