@@ -20,22 +20,47 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and B8c on a (C, P) input) on the batch, a ragged batch and an all-white
    tile, an unaligned and a 130-channel input, and the LUT apply (B8b,
    uint8 and float32 output) with a sorted and an out-of-range LUT and on
-   the unaligned and 130-channel inputs, all exact; two runs of each kernel
-   bit-identical;
-4. each path through the public API at 64×3×512² uint8, with the launch
-   counts set to 0 just before it and read just after:
-   ``Macenko().fit(ref).transform(batch)`` (oracle MAE ≤ 0.35 on 8 of the
-   images), ``Reinhard().fit(ref).transform(batch)`` and
+   the unaligned and 130-channel inputs, all exact; the streaming tier: the
+   exact selection (B6) bit for bit on (1, 2²⁴), (512, 224²) and ragged
+   (3, 1 000 003) fields, K = 2, with and without init, with sentinels,
+   ranks past the count and an empty row, and K = 10 (two launches); the
+   multi-block fit (B5) against B2's plain version on the 256×3×224²
+   float32 pool of path (a), the 64×3×512² batch and the reference (HE atol
+   2e-5, maxC rtol 1e-4); the multi-block transform (B4) against B1's plain
+   version on 4×3×2048² and 1×3×4096² uint8, 1×3×2048² float32, a ragged
+   1×3×1999×2011, an all-white 2048² tile, 1×3×8192² uint8, the 64×3×512²
+   batch and path (a)'s 256×3×224² float32 batch, and B1 on 256×3×224²
+   uint8 and float32 (≤ 1 grey level); B6 bit for bit on every field that
+   the main path, path (a) and path (b) feed it, and that B4 and B5 feed it
+   at 64×3×512² uint8, 256×3×224² float32 and 4×3×2048² uint8 (each
+   selection recorded as the call makes it, with the field kernel's (min,
+   max, count) init held exact); two runs of each kernel bit-identical;
+4. each path through the public API, with the launch counts set to 0 just
+   before it and read just after:
+   ``Macenko().fit(ref).transform(batch)`` at 64×3×512² uint8 (oracle MAE
+   ≤ 0.35 on 8 of the images), ``Reinhard().fit(ref).transform(batch)`` and
    ``HistogramMatching().fit(ref).transform(batch)``; the Reinhard and
    histogram-matching oracle gates (≤ 1 grey level) run the public API on
    the first 8 images, since both take batch-global statistics; one NHWC
-   ``HistogramMatching(channel_axis=-1)`` run;
+   ``HistogramMatching(channel_axis=-1)`` run; path (a), the batch-mode
+   ``StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None)``
+   on 256×3×224² float32 (oracle fitted on the same pool, MAE ≤ 0.35 on 8
+   images), also with ``batch_ref_index=0``, and Reinhard and histogram
+   matching in batch mode once each; WSI tiles, ``Macenko().fit(tile)
+   .transform(tiles)`` on 256×3×224² uint8 with one of the tiles as the
+   reference (MAE ≤ 0.35 on 8 tiles); path (b), ``Macenko().fit(ref)
+   .transform(batch)`` on 4×3×2048² and 1×3×4096² uint8 (MAE ≤ 0.35 on one
+   image). Each Macenko path must launch the kernels written beside it;
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
    same function, that call; the public-API fit and transform of each
-   normalizer (the transform also replayed, for the device's busy time and
-   idle share); the histogram on an all-white batch.
+   normalizer and the Macenko paths (also replayed, for the device's busy
+   time and idle share, which the kernel time ``torch.profiler`` records
+   cross-checks); the histogram on an all-white batch; the sweep of
+   B1 against B4 and of B2 against B5 over sizes, in three rounds with
+   their spread, that sets the route ladder of
+   ``stainx_tpu_torch/ops/macenko.py``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -62,7 +87,10 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # reconstruction, 26.
 OPS_PER_PIXEL_FIT = 63
 OPS_PER_PIXEL_TRANSFORM = 89
+SWEEP_ROUNDS = 3  # rounds of the B1/B4 and B2/B5 sweep that sets the route ladder
 TPU_SOURCE = "stainx_tpu/kernels/macenko_fused.py"
+TPU_STREAM = "stainx_tpu/kernels/macenko_stream.py"
+TPU_SELECT = "stainx_tpu/kernels/selection_stream.py"
 TPU_REINHARD = "stainx_tpu/kernels/reinhard_fused.py"
 TPU_HISTOGRAM = "stainx_tpu/kernels/histogram.py"
 # float32 operations of one accurate powf on its common path as nvcc 12.9
@@ -113,10 +141,8 @@ def event_ms(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, inputs, iters: int) -> float:
-    """Mean ms per call of ``fn`` replayed from CUDA graphs, one captured
-    per input after a warm-up call: the device's time for the call's
-    launches, without the host's cost of issuing them."""
+def capture_graphs(fn, inputs) -> list:
+    """One CUDA graph of ``fn`` per input, captured after a warm-up call."""
     import torch
 
     for x in inputs:
@@ -128,6 +154,14 @@ def graph_ms(fn, inputs, iters: int) -> float:
         with torch.cuda.graph(graph):
             fn(x)
         graphs.append(graph)
+    return graphs
+
+
+def replay_ms(graphs, iters: int) -> float:
+    """Mean ms per replay over ``iters`` replays cycling ``graphs``, after
+    one replay of each."""
+    import torch
+
     for graph in graphs:
         graph.replay()
     torch.cuda.synchronize()
@@ -138,6 +172,32 @@ def graph_ms(fn, inputs, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, inputs, iters: int) -> float:
+    """Mean ms per call of ``fn`` replayed from CUDA graphs, one captured
+    per input: the device's time for the call's launches, without the
+    host's cost of issuing them."""
+    return replay_ms(capture_graphs(fn, inputs), iters)
+
+
+def profiled_ms(fn, inputs, iters: int):
+    """Mean device time per call of ``fn``: the sum of the CUDA kernel and
+    memset times ``torch.profiler`` records over ``iters`` eager calls, or
+    None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return device_us / 1e3 / iters if device_us > 0 else None
 
 
 def main() -> int:
@@ -158,10 +218,22 @@ def main() -> int:
     import numpy as np
     import numpy_reference as oracle
 
-    from stainx_tpu_torch import HistogramMatching, Macenko, Reinhard, kernels
+    from stainx_tpu_torch import (
+        HistogramMatching,
+        Macenko,
+        Reinhard,
+        StainNormalizerTransform,
+        kernels,
+    )
     from stainx_tpu_torch.kernels import histogram as hk
     from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import macenko_stream as ms
     from stainx_tpu_torch.kernels import reinhard_fused as rf
+    from stainx_tpu_torch.kernels import selection_stream as ss
+    from stainx_tpu_torch.kernels.selection import unkey
+    from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops.eigh3 import eigh3_top2
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
     from stainx_tpu_torch.testing import synthetic_he_batch
 
@@ -190,7 +262,6 @@ def main() -> int:
     he_k, mc_k = mf.macenko_fit_mega(ref)
     he_p, mc_p = mf.macenko_fit_mega_plain(ref)
     torch.cuda.synchronize()
-    fit_err = max((he_k - he_p).abs().max().item(), (mc_k - mc_p).abs().max().item())
     mc_rel = ((mc_k - mc_p).abs() / mc_p.abs()).max().item()
     print(f"B2 fit 1x3x{SIZE}^2 u8: HE max|d| {(he_k - he_p).abs().max().item():.3g} "
           f"(atol 2e-5), maxC max rel {mc_rel:.3g} (rtol 1e-4)")
@@ -207,20 +278,20 @@ def main() -> int:
         torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
         torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
 
-    def check_transform(label, x, he, mc):
-        out_k = mf.macenko_transform_mega(x, he, mc)
+    def check_transform(label, x, he, mc, kernel=mf.macenko_transform_mega, name="B1"):
+        out_k = kernel(x, he, mc)
         out_p = mf.macenko_transform_mega_plain(x, he, mc)
-        again = mf.macenko_transform_mega(x, he, mc)
+        again = kernel(x, he, mc)
         torch.cuda.synchronize()
         err = (out_k.float() - out_p.float()).abs().max().item()
-        print(f"B1 transform {label}: max|d| {err:.3g} grey levels (tolerance 1)")
+        print(f"{name} transform {label}: max|d| {err:.3g} grey levels (tolerance 1)")
         require(out_k.dtype == x.dtype and out_k.shape == x.shape, f"{label}: dtype or shape")
         require(torch.isfinite(out_k.float()).all(), f"{label}: non-finite output")
         require(err <= 1.0, f"{label}: kernel and plain differ by {err}")
         require(torch.equal(again, out_k), f"{label}: two runs differ")
         return out_k, err
 
-    _, b1_err = check_transform(f"{BATCH}x3x{SIZE}^2 u8", batch, he_k, mc_k)
+    check_transform(f"{BATCH}x3x{SIZE}^2 u8", batch, he_k, mc_k)
     check_transform(f"8x3x{SIZE}^2 f32", batch[:8].float() / 255.0, he_k, mc_k)
     ragged = dev_u8(synthetic_he_batch(2, 71, 73, seed=args.seed + 7))
     check_transform("2x3x71x73 u8 (ragged, scalar loads)", ragged, he_k, mc_k)
@@ -315,15 +386,188 @@ def main() -> int:
             require(torch.equal(a_k, a_p), f"{label}: apply_lut differs from plain")
             require(torch.equal(again, a_k), f"{label}: two B8b runs differ")
 
-    # 4. The main path through the public API.
-    mf.macenko_fit_mega.launches = mf.macenko_transform_mega.launches = 0
-    normalizer = Macenko()
-    out = normalizer.fit(ref).transform(batch)
+    # The streaming tier. B6, the exact selection, bit for bit.
+    def select_case(rows, p, seed):
+        """A field with duplicates, +inf sentinels, a rank past the count
+        and, when there are several rows, an empty last row."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.round(torch.randn(rows, p, generator=g, device=dev) * 64.0) / 64.0
+        x = torch.where(x > 1.5, torch.inf, x)
+        if rows > 1:
+            x[-1] = torch.inf
+        ranks = torch.randint(0, p, (rows, 2), generator=g, device=dev, dtype=torch.int32)
+        ranks[0, 1] = p + 7
+        valid = x < torch.inf
+        return x, ranks, (x.amin(1), torch.where(valid, x, -torch.inf).amax(1), valid.sum(1))
+
+    def check_select(label, x, ranks, init):
+        s_k = ss.kth_smallest_streaming(x, ranks, init)
+        s_p = ss.kth_smallest_streaming_plain(x, ranks, init)
+        again = ss.kth_smallest_streaming(x, ranks, init)
+        torch.cuda.synchronize()
+        same = torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+        print(f"B6 select {label}: bit-exact {same}")
+        require(same, f"{label}: B6 differs from its plain version")
+        require(torch.equal(again.view(torch.int32), s_k.view(torch.int32)),
+                f"{label}: two B6 runs differ")
+
+    for rows, p in [(1, 1 << 24), (512, 224 * 224), (3, 1_000_003)]:
+        x, ranks, init = select_case(rows, p, args.seed + rows)
+        check_select(f"({rows}, {p}) K=2", x, ranks, None)
+        check_select(f"({rows}, {p}) K=2 with init", x, ranks, init)
+    # More ranks than one launch serves: two launches, 8 ranks and 2.
+    many = torch.cat([ranks] * 5, dim=1) // torch.arange(1, 11, device=dev, dtype=torch.int32)
+    check_select(f"({rows}, {p}) K=10 with init", x, many, init)
+    del x
+
+    # B5, the multi-block fit, against B2's plain version.
+    def check_fit_stream(label, x):
+        he5, mc5 = ms.macenko_fit_stream(x)
+        he2, mc2 = mf.macenko_fit_mega_plain(x)
+        again = ms.macenko_fit_stream(x)
+        torch.cuda.synchronize()
+        he_err = (he5 - he2).abs().max().item()
+        rel = ((mc5 - mc2).abs() / mc2.abs()).max().item()
+        print(f"B5 fit {label}: HE max|d| {he_err:.3g} (atol 2e-5), maxC max rel {rel:.3g} "
+              "(rtol 1e-4)")
+        torch.testing.assert_close(he5, he2, atol=2e-5, rtol=0)
+        torch.testing.assert_close(mc5, mc2, atol=0, rtol=1e-4)
+        require(torch.equal(again[0], he5) and torch.equal(again[1], mc5),
+                f"{label}: two B5 runs differ")
+        return max(he_err, (mc5 - mc2).abs().max().item())
+
+    def dev_f32(a):
+        return dev_u8(a).float() / 255.0
+
+    # Path (a): the README's batch-mode configuration (bench_batch_mode.py).
+    A_BATCH, A_SIZE = 256, 224
+    a_px = A_SIZE * A_SIZE
+    pool_a = dev_f32(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 224))
+    pool_a_b = dev_f32(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 225,
+                                          he_scale=1.1))
+    b5_err = check_fit_stream(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a)
+    check_fit_stream(f"{BATCH}x3x{SIZE}^2 u8", batch)
+    check_fit_stream(f"1x3x{SIZE}^2 u8 (the reference)", ref)
+
+    # B4, the multi-block transform, against B1's plain version.
+    def check_b4(label, x):
+        return check_transform(label, x, he_k, mc_k, ms.macenko_transform_stream, "B4")
+
+    big4 = dev_u8(synthetic_he_batch(4, 2048, 2048, seed=args.seed + 2048))
+    big4_b = dev_u8(synthetic_he_batch(4, 2048, 2048, seed=args.seed + 2049, he_scale=1.1))
+    big1 = dev_u8(synthetic_he_batch(1, 4096, 4096, seed=args.seed + 4096))
+    big1_b = dev_u8(synthetic_he_batch(1, 4096, 4096, seed=args.seed + 4097, he_scale=1.1))
+    _, b4_err = check_b4("4x3x2048^2 u8 (path (b))", big4)
+    check_b4("1x3x4096^2 u8 (path (b))", big1)
+    check_b4("1x3x2048^2 f32", big4[:1].float() / 255.0)
+    check_b4("1x3x1999x2011 u8 (ragged, scalar loads)",
+             dev_u8(synthetic_he_batch(1, 1999, 2011, seed=args.seed + 1999)))
+    white_out, _ = check_b4("all-white 1x3x2048^2 (fallback)",
+                            torch.full((1, 3, 2048, 2048), 255, dtype=torch.uint8, device=dev))
+    flat = white_out.reshape(3, -1)
+    require((flat.amax(1) == flat.amin(1)).all(), "B4: the white tile did not stay uniform")
+    huge = dev_u8(synthetic_he_batch(1, 8192, 8192, seed=args.seed + 8192))
+    check_b4("1x3x8192^2 u8", huge)
+    del huge, white_out, flat
+    check_b4(f"{BATCH}x3x{SIZE}^2 u8 (the main path)", batch)
+    check_b4(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch, extra)", pool_a)
+    torch.cuda.empty_cache()
+
+    # B1 and B2 at the shapes of WSI tiles (256x3x224^2 uint8, a 224^2
+    # reference tile), and B1 on path (a)'s float32 batch. (B4 is held on
+    # that batch above as an extra: no path runs it there.)
+    tiles_b = dev_u8(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 227,
+                                        he_scale=1.1))
+    _, b1_err = check_transform(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", tiles_b, he_k, mc_k)
+    check_transform(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a, he_k, mc_k)
+    he_x, mc_x = mf.macenko_fit_mega(tiles_b[:1])
+    he_xp, mc_xp = mf.macenko_fit_mega_plain(tiles_b[:1])
     torch.cuda.synchronize()
-    launches = {"macenko_fit_mega": mf.macenko_fit_mega.launches,
-                "macenko_transform_mega": mf.macenko_transform_mega.launches}
-    print(f"main path launches: {launches}")
-    require(all(n > 0 for n in launches.values()), "a kernel of the main path never launched")
+    fit_err = max((he_x - he_xp).abs().max().item(), (mc_x - mc_xp).abs().max().item())
+    print(f"B2 fit 1x3x{A_SIZE}^2 u8 (a WSI tile as reference): max|d| {fit_err:.3g}")
+    torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
+    torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
+
+    # B6 on the fields B4 and B5 feed it: every selection of a call is
+    # recorded as the call makes it (the pseudo-angle field with its ranks
+    # and (min, max, count) init from the field kernel, then the stacked
+    # concentration fields with the 99th-percentile rank), held bit for bit
+    # against the plain version and run again. The init is held exact too.
+    def check_b6_fields(label, call):
+        select, seen = ms.select_on_device, []
+
+        def record(x, ranks, init3):
+            out = select(x, ranks, init3)
+            seen.append((x, ranks, init3, out))
+            return out
+
+        ms.select_on_device = record
+        try:
+            call()
+        finally:
+            ms.select_on_device = select
+        require(len(seen) in (2, 4), f"{label}: {len(seen)} selections, a B4 or B5 call makes 2")
+        for x, ranks, init3, out in seen:
+            init, init_txt = None, ""
+            if init3 is not None:
+                keys = init3[:, :2].to(torch.int64) & 0xFFFFFFFF
+                init = (unkey(keys[:, 0]), unkey(keys[:, 1]), init3[:, 2])
+                valid = x < torch.inf
+                cnt = valid.sum(1)
+                some = cnt > 0
+                init_ok = (torch.equal(init[2].to(torch.int64), cnt)
+                           and torch.equal(init[0][some], x.amin(1)[some])
+                           and torch.equal(init[1][some],
+                                           torch.where(valid, x, -torch.inf).amax(1)[some]))
+                require(init_ok, f"{label}: the field kernel's init is not exact")
+                init_txt = ", init exact"
+            plain = ss.kth_smallest_streaming_plain(x, ranks, init)
+            again = select(x, ranks, init3)
+            torch.cuda.synchronize()
+            same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+            print(f"B6 on {label}: field {tuple(x.shape)} K={ranks.shape[1]}"
+                  f"{' with init' if init3 is not None else ''}: bit-exact {same}{init_txt}")
+            require(same, f"{label}: B6 differs from its plain version on the path's field")
+            require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+                    f"{label}: two B6 runs differ on the path's field")
+        del seen
+
+    check_b6_fields(f"the main path's fit and transform, {BATCH}x3x{SIZE}^2 u8",
+                    lambda: Macenko().fit(ref).transform(batch))
+    check_b6_fields(f"path (a)'s forward, {A_BATCH}x3x{A_SIZE}^2 f32",
+                    lambda: StainNormalizerTransform("macenko", mode="batch",
+                                                     batch_ref_index=None)(pool_a))
+    check_b6_fields("path (b)'s fit and transform, 4x3x2048^2 u8",
+                    lambda: Macenko().fit(ref).transform(big4))
+    for label, x in [(f"{BATCH}x3x{SIZE}^2 u8", batch),
+                     (f"{A_BATCH}x3x{A_SIZE}^2 f32", pool_a), ("4x3x2048^2 u8", big4)]:
+        check_b6_fields(f"B5 {label}", lambda x=x: ms.macenko_fit_stream(x))
+        check_b6_fields(f"B4 {label}", lambda x=x: ms.macenko_transform_stream(x, he_k, mc_k))
+    torch.cuda.empty_cache()
+
+    # 4. The paths through the public API. Each Macenko path must launch
+    # exactly the kernels written beside it: B2 and B1, or B5 and B4 with
+    # two B6 launches each (the H100 ladder of stainx_tpu_torch/ops/macenko.py).
+    macenko_wrappers = [mf.macenko_fit_mega, mf.macenko_transform_mega, ms.macenko_fit_stream,
+                        ms.macenko_transform_stream, ss.kth_smallest_streaming]
+
+    def launches(b2=0, b1=0, b5=0, b4=0):
+        return {"macenko_fit_mega": b2, "macenko_transform_mega": b1, "macenko_fit_stream": b5,
+                "macenko_transform_stream": b4, "kth_smallest_streaming": 2 * (b5 + b4)}
+
+    def drive_macenko(label, path, want):
+        for w in macenko_wrappers:
+            w.launches = 0
+        result = path()
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in macenko_wrappers}
+        print(f"{label} launches: {counts}")
+        require(counts == want, f"{label}: launches {counts}, the path must launch {want}")
+        return result, counts
+
+    normalizer = Macenko()
+    out, _ = drive_macenko(f"main path, Macenko {BATCH}x3x{SIZE}^2 u8",
+                           lambda: normalizer.fit(ref).transform(batch), launches(b5=1, b4=1))
     require(out.is_cuda and out.dtype == torch.uint8 and out.shape == batch.shape,
             "main path output is not a uint8 batch of the input shape on the card")
     ref_np, sub = ref.cpu().numpy(), batch[:8].cpu().numpy()
@@ -369,6 +613,78 @@ def main() -> int:
           f"equal to NCHW {torch.equal(nhwc_out.permute(0, 3, 1, 2), hm_out)}")
     require(torch.equal(nhwc_out.permute(0, 3, 1, 2), hm_out), "NHWC and NCHW outputs differ")
 
+    # Path (a): the batch-mode training transform, a fit of the whole pooled
+    # batch every forward, on float32 in [0, 1] (output in [0, 1]).
+    def mae_255(got01, expect255):
+        return float(np.abs(got01.cpu().numpy() * 255.0 - expect255).mean())
+
+    pool_np = pool_a.cpu().numpy()
+    transform_a = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None)
+    out_a, a_launches = drive_macenko(
+        f"path (a), batch mode {A_BATCH}x3x{A_SIZE}^2 f32", lambda: transform_a(pool_a),
+        launches(b5=1, b1=1))
+    require(out_a.is_cuda and out_a.dtype == torch.float32 and out_a.shape == pool_a.shape,
+            "path (a) output is not a float32 batch of the input shape on the card")
+    require(bool(torch.isfinite(out_a).all()) and 0.0 <= out_a.min() and out_a.max() <= 1.0,
+            "path (a) output is not finite in [0, 1]")
+    he_a, mc_a = oracle.macenko_fit(pool_np)
+    mae_a = mae_255(out_a[:8], oracle.macenko_transform(pool_np[:8], he_a, mc_a))
+    print(f"path (a) oracle MAE on 8 images (oracle fitted on the same {A_BATCH}-image pool): "
+          f"{mae_a:.4f} (gate 0.35)")
+    require(mae_a <= 0.35, f"path (a): oracle MAE {mae_a} above 0.35")
+
+    transform_a0 = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=0)
+    out_a0, _ = drive_macenko(
+        "path (a), batch_ref_index=0", lambda: transform_a0(pool_a), launches(b2=1, b1=1))
+    he_a0, mc_a0 = oracle.macenko_fit(pool_np[:1])
+    mae_a0 = mae_255(out_a0[:8], oracle.macenko_transform(pool_np[:8], he_a0, mc_a0))
+    print(f"path (a), batch_ref_index=0: oracle MAE on 8 images {mae_a0:.4f} (gate 0.35)")
+    require(mae_a0 <= 0.35, f"path (a), batch_ref_index=0: oracle MAE {mae_a0} above 0.35")
+
+    for method, wrappers in [("reinhard", [rf.reinhard_moments, rf.reinhard_apply]),
+                             ("histogram_matching", [hk.histogram_256, hk.apply_lut])]:
+        for w in wrappers:
+            w.launches = 0
+        res = StainNormalizerTransform(method, mode="batch", batch_ref_index=None)(pool_a)
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"{method} batch mode {A_BATCH}x3x{A_SIZE}^2 f32 launches: {counts}")
+        require(all(n > 0 for n in counts.values()), f"a kernel of {method} batch mode never launched")
+        require(res.shape == pool_a.shape and bool(torch.isfinite(res).all()),
+                f"{method} batch mode output")
+
+    # WSI tiles: 256x3x224^2 uint8 tiles normalized to a 224^2 reference tile.
+    tiles_np = synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 226)
+    tiles, tile_ref = dev_u8(tiles_np), dev_u8(tiles_np[:1])
+    norm_t = Macenko()
+    out_t, t_launches = drive_macenko(
+        f"WSI tiles, Macenko {A_BATCH}x3x{A_SIZE}^2 u8 with a {A_SIZE}^2 reference",
+        lambda: norm_t.fit(tile_ref).transform(tiles), launches(b2=1, b1=1))
+    require(out_t.is_cuda and out_t.dtype == torch.uint8 and out_t.shape == tiles.shape,
+            "WSI tiles: output is not a uint8 batch of the input shape on the card")
+    he_t, mc_t = oracle.macenko_fit(tiles_np[:1])
+    expect_t = oracle.macenko_transform(tiles_np[:8], he_t, mc_t).astype(np.float32)
+    mae_t = float(np.abs(out_t[:8].cpu().numpy().astype(np.float32) - expect_t).mean())
+    print(f"WSI tiles: oracle MAE on 8 tiles {mae_t:.4f} (gate 0.35)")
+    require(mae_t <= 0.35, f"WSI tiles: oracle MAE {mae_t} above 0.35")
+
+    # Path (b): whole-slide regions, a 512^2 reference fit then large rows.
+    b_normalizers = {}
+    b_launches = {}
+    for label, x in [("4x3x2048^2", big4), ("1x3x4096^2", big1)]:
+        norm_b = Macenko()
+        out_b, b_launches[label] = drive_macenko(
+            f"path (b), Macenko {label} u8", lambda: norm_b.fit(ref).transform(x),
+            launches(b5=1, b4=1))
+        require(out_b.is_cuda and out_b.dtype == torch.uint8 and out_b.shape == x.shape,
+                f"path (b) {label}: output is not a uint8 batch of the input shape on the card")
+        expect_b = oracle.macenko_transform(x[:1].cpu().numpy(), he_o, mc_o).astype(np.float32)
+        mae_b = float(np.abs(out_b[:1].cpu().numpy().astype(np.float32) - expect_b).mean())
+        print(f"path (b) {label}: oracle MAE on 1 image {mae_b:.4f} (gate 0.35)")
+        require(mae_b <= 0.35, f"path (b) {label}: oracle MAE {mae_b} above 0.35")
+        b_normalizers[label] = norm_b
+    del out_a0, out_b
+
     # 5. Timing: CUDA events, warm-up first, two distinct inputs cycled. A
     # kernel's time is its wrapper replayed from CUDA graphs, the device's
     # time (the wrapper's own small ops, such as the LUT table, included);
@@ -383,15 +699,20 @@ def main() -> int:
 
     def api_ms(label, fn, inputs):
         eager, busy = event_ms(fn, inputs, 20), graph_ms(fn, inputs, 20)
+        prof = profiled_ms(fn, inputs, 5)
+        prof_txt = "not measured" if prof is None else f"{prof:.4f} ms (idle {1.0 - prof / eager:.3f})"
         print(f"public API {label}: {eager:.4f} ms/batch ({BATCH * SIZE * SIZE / eager / 1e3:.1f} "
-              f"MPix/s), device busy {busy:.4f} ms, idle share {1.0 - busy / eager:.3f}")
+              f"MPix/s), device busy {busy:.4f} ms, idle share {1.0 - busy / eager:.3f}; "
+              f"kernel time in torch.profiler {prof_txt}")
         return eager
 
     pair = [batch, batch_b]
-    ms_t = kernel_ms("B1 macenko_transform_mega", lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair)
-    ms_tp = event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair, 3)
-    ms_f = kernel_ms("B2 macenko_fit_mega", mf.macenko_fit_mega, [ref, ref_b])
-    ms_fp = event_ms(mf.macenko_fit_mega_plain, [ref, ref_b], 5)
+    kernel_ms(f"B1 macenko_transform_mega {BATCH}x3x{SIZE}^2 u8",
+              lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair)
+    print(f"B1 plain {BATCH}x3x{SIZE}^2 u8: "
+          f"{event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair, 3):.4f} ms")
+    kernel_ms(f"B2 macenko_fit_mega 1x3x{SIZE}^2 u8", mf.macenko_fit_mega, [ref, ref_b])
+    print(f"B2 plain 1x3x{SIZE}^2 u8: {event_ms(mf.macenko_fit_mega_plain, [ref, ref_b], 5):.4f} ms")
     api_ms("Macenko transform", normalizer.transform, pair)
     print(f"public API Macenko fit 1x3x{SIZE}^2: "
           f"{event_ms(lambda x: Macenko().fit(x), [ref, ref_b], 20):.4f} ms")
@@ -425,9 +746,157 @@ def main() -> int:
               f"fit {BATCH}x3x{SIZE}^2 "
               f"{event_ms(lambda x, cls=norm_cls: cls().fit(x), pair, 10):.4f} ms")
 
+    # The streaming tier, B1 and B2 at the shapes their paths give them.
+    pair_a, pair_t = [pool_a, pool_a_b], [tiles, tiles_b]
+    ms_t = kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)",
+                     lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_t)
+    ms_tp = event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair_t, 2)
+    singles = [tiles[:1], tiles_b[:1]]
+    ms_f = kernel_ms(f"B2 macenko_fit_mega 1x3x{A_SIZE}^2 u8 (a WSI tile as reference)",
+                     mf.macenko_fit_mega, singles)
+    ms_fp = event_ms(mf.macenko_fit_mega_plain, singles, 5)
+    pair_b = [big4, big4_b]
+    ms_b4 = kernel_ms("B4 macenko_transform_stream 4x3x2048^2 u8 (path (b))",
+                      lambda x: ms.macenko_transform_stream(x, he_k, mc_k), pair_b)
+    ms_b4_p = event_ms(lambda x: ms.macenko_transform_stream_plain(x, he_k, mc_k), pair_b, 2)
+    kernel_ms("B4 macenko_transform_stream 1x3x4096^2 u8 (path (b))",
+              lambda x: ms.macenko_transform_stream(x, he_k, mc_k), [big1, big1_b])
+    kernel_ms(f"B4 macenko_transform_stream {BATCH}x3x{SIZE}^2 u8 (the main path)",
+              lambda x: ms.macenko_transform_stream(x, he_k, mc_k), pair)
+    ms_b5 = kernel_ms(f"B5 macenko_fit_stream {A_BATCH}x3x{A_SIZE}^2 f32 (path (a))",
+                      ms.macenko_fit_stream, pair_a)
+    ms_b5_p = event_ms(ms.macenko_fit_stream_plain, pair_a, 2)
+    kernel_ms(f"B5 macenko_fit_stream 1x3x{SIZE}^2 u8 (the main path's reference)",
+              ms.macenko_fit_stream, [ref, ref_b])
+
+    def angle_field(images):
+        """The pooled pseudo-angle field B5 selects on (+inf off the beta-
+        mask), its alpha and 100-alpha ranks and its (min, max, count) init,
+        from the plain steps."""
+        n, _, h, w = images.shape
+        od = mf.od_from_planes(images.reshape(n, 3, h * w), images.dtype == torch.uint8)
+        od = od.transpose(0, 1).reshape(1, 3, n * h * w)
+        member = od.amin(1) >= mk.BETA
+        cnt, sums = mf.masked_moments(od, member)
+        evecs = eigh3_top2(mf.cov_from_moments(cnt, sums))
+        field = torch.where(member, mf.pseudo_angle(mf._project(od, evecs[..., 0]),
+                                                    mf._project(od, evecs[..., 1])), torch.inf)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
+        top = torch.where(member, field, -torch.inf).amax(-1)
+        return field.contiguous(), ranks, (field.amin(-1), top, cnt)
+
+    fields = [angle_field(x) for x in pair_a]
+    ms_b6 = kernel_ms(f"B6 kth_smallest_streaming (1, {A_BATCH * a_px}) K=2 with init "
+                      "(path (a)'s angle field)", lambda t: ss.kth_smallest_streaming(*t), fields)
+    ms_b6_p = event_ms(lambda t: ss.kth_smallest_streaming_plain(*t), fields, 3)
+    host_ranks = [f[1][0].tolist() for f in fields]
+    ms_b6_lib = event_ms(
+        lambda i: [torch.kthvalue(fields[i][0][0], r + 1) for r in host_ranks[i]], [0, 1], 3)
+    del fields
+
+    def path_ms(label, fn, inputs, n_img, n_px):
+        eager, busy = event_ms(fn, inputs, 10), graph_ms(fn, inputs, 10)
+        prof = profiled_ms(fn, inputs, 5)
+        prof_txt = "not measured" if prof is None else f"{prof:.4f} ms (idle {1.0 - prof / eager:.3f})"
+        print(f"{label}: {eager:.4f} ms called ({n_px / eager / 1e3:.1f} MPix/s, "
+              f"{n_img / eager * 1e3:.0f} img/s), device busy {busy:.4f} ms, idle share "
+              f"{1.0 - busy / eager:.3f}; kernel time in torch.profiler {prof_txt}")
+
+    path_ms(f"path (a) forward, batch mode {A_BATCH}x3x{A_SIZE}^2 f32", transform_a, pair_a,
+            A_BATCH, A_BATCH * a_px)
+    path_ms("path (a) forward, batch_ref_index=0", transform_a0, pair_a, A_BATCH, A_BATCH * a_px)
+    path_ms(f"WSI tiles Macenko.transform {A_BATCH}x3x{A_SIZE}^2 u8", norm_t.transform, pair_t,
+            A_BATCH, A_BATCH * a_px)
+    path_ms(f"main path Macenko.transform {BATCH}x3x{SIZE}^2 u8", normalizer.transform, pair,
+            BATCH, BATCH * SIZE * SIZE)
+    path_ms("path (b) Macenko.transform 4x3x2048^2 u8", b_normalizers["4x3x2048^2"].transform,
+            pair_b, 4, 4 * 2048 * 2048)
+    path_ms("path (b) Macenko.transform 1x3x4096^2 u8", b_normalizers["1x3x4096^2"].transform,
+            [big1, big1_b], 1, 4096 * 4096)
+
+    # The route ladder: B1 against B4 and B2 against B5 over sizes, in
+    # SWEEP_ROUNDS rounds, each kernel called as a user calls it and
+    # replayed from the same CUDA graphs for its device time. A kernel wins a
+    # size only where its slowest round, as called, beats the other's
+    # fastest; where the rounds overlap there is no winner, and the ladder
+    # (ops/macenko.py) keeps the one-block kernel there.
+    print(f"route ladder: STREAM_MIN_ELEMS {mk.STREAM_MIN_ELEMS}, STREAM_MIN_ELEMS_F32 "
+          f"{mk.STREAM_MIN_ELEMS_F32}, STREAM_MAX_ROWS {mk.STREAM_MAX_ROWS}, "
+          f"FIT_STREAM_MIN_ELEMS {mk.FIT_STREAM_MIN_ELEMS} (float32 "
+          f"{mk.FIT_STREAM_MIN_ELEMS_F32})")
+
+    def sweep_inputs(n, side, dtype, seed):
+        xs = [dev_u8(synthetic_he_batch(n, side, side, seed=seed + k)) for k in range(2)]
+        return [x.float() / 255.0 for x in xs] if dtype == "f32" else xs
+
+    unearned, kept = [], []
+
+    def race(label, contenders, xs, route):
+        it = 3 if xs[0].numel() > 3e7 else 10
+        graphs = {name: capture_graphs(fn, xs) for name, fn in contenders}
+        called = {name: [] for name, _ in contenders}
+        device = {name: [] for name, _ in contenders}
+        for _ in range(SWEEP_ROUNDS):
+            for name, fn in contenders:
+                called[name].append(event_ms(fn, xs, it))
+                device[name].append(replay_ms(graphs[name], it))
+        del graphs
+        (one, _), (multi, _) = contenders
+        winner = ("none" if max(called[one]) >= min(called[multi])
+                  and max(called[multi]) >= min(called[one])
+                  else one if max(called[one]) < min(called[multi]) else multi)
+        routed = multi if route == "stream" else one
+        if routed == multi and winner != multi:
+            unearned.append(label)
+        elif routed == one and winner == multi:
+            kept.append(label)
+        spans = "; ".join(
+            f"{name} {min(called[name]):.4f}-{max(called[name]):.4f} ms called, "
+            f"{min(device[name]):.4f}-{max(device[name]):.4f} on the device"
+            for name, _ in contenders)
+        print(f"sweep {label}: {spans}; faster in every round: {winner}; route: {routed}")
+
+    types = {"u8": torch.uint8, "f32": torch.float32}
+    for n, side, dtype in [(4, 224, "u8"), (4, 256, "u8"), (4, 320, "u8"), (4, 352, "u8"),
+                           (4, 384, "u8"), (4, 512, "u8"), (4, 2048, "u8"), (16, 224, "u8"),
+                           (16, 256, "u8"), (16, 320, "u8"), (16, 384, "u8"), (16, 512, "u8"),
+                           (16, 1024, "u8"), (64, 224, "u8"), (64, 256, "u8"), (64, 320, "u8"),
+                           (64, 384, "u8"), (64, 512, "u8"), (80, 512, "u8"), (96, 512, "u8"),
+                           (112, 512, "u8"), (128, 256, "u8"), (128, 512, "u8"), (256, 64, "u8"),
+                           (256, 128, "u8"), (256, 224, "u8"), (256, 256, "u8"), (4, 160, "f32"),
+                           (4, 224, "f32"), (4, 256, "f32"), (4, 288, "f32"), (16, 160, "f32"),
+                           (16, 224, "f32"), (16, 288, "f32"), (64, 160, "f32"), (64, 224, "f32"),
+                           (64, 256, "f32"), (64, 288, "f32"), (96, 224, "f32"), (128, 224, "f32"),
+                           (192, 224, "f32"), (256, 128, "f32"), (256, 160, "f32"),
+                           (256, 192, "f32"), (256, 224, "f32")]:
+        race(f"transform {n}x3x{side}^2 {dtype}",
+             [("B1", lambda x: mf.macenko_transform_mega(x, he_k, mc_k)),
+              ("B4", lambda x: ms.macenko_transform_stream(x, he_k, mc_k))],
+             sweep_inputs(n, side, dtype, args.seed + 300),
+             mk.transform_route(n, side * side, types[dtype]))
+    for n, side, dtype in [(1, 128, "u8"), (1, 224, "u8"), (1, 256, "u8"), (1, 288, "u8"),
+                           (1, 320, "u8"), (1, 384, "u8"), (1, 416, "u8"), (1, 448, "u8"),
+                           (1, 512, "u8"), (4, 128, "u8"), (4, 256, "u8"), (1, 192, "f32"),
+                           (1, 224, "f32"), (1, 256, "f32"), (1, 288, "f32"), (1, 320, "f32"),
+                           (2, 224, "f32"), (4, 224, "f32"), (256, 224, "f32")]:
+        race(f"fit {n}x3x{side}^2 {dtype}",
+             [("B2", mf.macenko_fit_mega), ("B5", ms.macenko_fit_stream)],
+             sweep_inputs(n, side, dtype, args.seed + 400),
+             mk.fit_route(n * side * side, types[dtype]))
+    print(f"sweep: the ladder gives the multi-block kernel a size it did not win in every "
+          f"round at {unearned or 'no size'}; it keeps the one-block kernel where the "
+          f"multi-block one won (host-cost margin, row cap) at {kept or 'no size'}")
+
     n_px = BATCH * SIZE * SIZE
-    b1_bound, b1_by = bound_ms(2 * 3 * n_px, OPS_PER_PIXEL_TRANSFORM * n_px)
-    b2_bound, b2_by = bound_ms(3 * SIZE * SIZE + 8 * 4, OPS_PER_PIXEL_FIT * SIZE * SIZE)
+    n_a, n_b = A_BATCH * a_px, 4 * 2048 * 2048
+    b1_bound, b1_by = bound_ms(2 * 3 * n_a, OPS_PER_PIXEL_TRANSFORM * n_a)
+    b2_bound, b2_by = bound_ms(3 * a_px + 8 * 4, OPS_PER_PIXEL_FIT * a_px)
+    b4_bound, b4_by = bound_ms(2 * 3 * n_b, OPS_PER_PIXEL_TRANSFORM * n_b)
+    b5_bound, b5_by = bound_ms(3 * 4 * n_a + 8 * 4, OPS_PER_PIXEL_FIT * n_a)
+    # B6 reads the field once, the ranks and the init, and writes K values;
+    # it needs one compare an element for each of its K ranks.
+    b6_bound, b6_by = bound_ms(4 * n_a + 2 * 4 + 3 * 4 + 2 * 4, 2 * n_a)
     b7b_bound, b7b_by = bound_ms(3 * n_px + 6 * 4, OPS_PER_PIXEL_MOMENTS_U8 * n_px)
     b7a_bound, b7a_by = bound_ms(2 * 3 * n_px + 12 * 4, OPS_PER_PIXEL_APPLY_U8 * n_px)
     b8a_bound, b8a_by = bound_ms(3 * n_px + 3 * 256 * 4, 0)
@@ -439,14 +908,29 @@ def main() -> int:
     rows = [
         {"name": "macenko_transform_mega", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_fused.cu", "replaces": f"{TPU_SOURCE}:529",
-         "launches": launches["macenko_transform_mega"], "max_abs_err": b1_err,
+         "launches": t_launches["macenko_transform_mega"], "max_abs_err": b1_err,
          "ms": ms_t, "plain_ms": ms_tp, "bound_ms": b1_bound, "bound_by": b1_by,
          "library_ms": None},
         {"name": "macenko_fit_mega", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_fused.cu", "replaces": f"{TPU_SOURCE}:748",
-         "launches": launches["macenko_fit_mega"], "max_abs_err": fit_err,
+         "launches": t_launches["macenko_fit_mega"], "max_abs_err": fit_err,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": None},
+        {"name": "macenko_transform_stream", "route": "cuda",
+         "source": "stainx_tpu_torch/csrc/macenko_stream.cu", "replaces": f"{TPU_STREAM}:769",
+         "launches": b_launches["4x3x2048^2"]["macenko_transform_stream"], "max_abs_err": b4_err,
+         "ms": ms_b4, "plain_ms": ms_b4_p, "bound_ms": b4_bound, "bound_by": b4_by,
+         "library_ms": None},
+        {"name": "macenko_fit_stream", "route": "cuda",
+         "source": "stainx_tpu_torch/csrc/macenko_stream.cu", "replaces": f"{TPU_STREAM}:872",
+         "launches": a_launches["macenko_fit_stream"], "max_abs_err": b5_err,
+         "ms": ms_b5, "plain_ms": ms_b5_p, "bound_ms": b5_bound, "bound_by": b5_by,
+         "library_ms": None},
+        {"name": "kth_smallest_streaming", "route": "cuda",
+         "source": "stainx_tpu_torch/csrc/selection.cu", "replaces": f"{TPU_SELECT}:381",
+         "launches": a_launches["kth_smallest_streaming"], "max_abs_err": 0.0,
+         "ms": ms_b6, "plain_ms": ms_b6_p, "bound_ms": b6_bound, "bound_by": b6_by,
+         "library_ms": ms_b6_lib},
         {"name": "reinhard_moments", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/reinhard_fused.cu", "replaces": f"{TPU_REINHARD}:192",
          "launches": r_launches["reinhard_moments"], "max_abs_err": b7b_err,

@@ -7,10 +7,13 @@ use; the same entry points run on the CPU through the kernels' plain
 PyTorch versions when the caller passes ``device="cpu"``. There is no
 backend knob: the device decides the route.
 
-Ported so far: :class:`Macenko` (reference-mode fit and transform),
-:class:`Reinhard` and :class:`HistogramMatching`.
+Ported so far: :class:`Macenko` (fit and transform, with the multi-block
+kernels for large rows and pools), :class:`Reinhard`,
+:class:`HistogramMatching`, and the training-pipeline
+:class:`StainNormalizerTransform` (reference and batch modes).
 """
 
 from stainx_tpu_torch.normalizers import HistogramMatching, Macenko, Reinhard
+from stainx_tpu_torch.transforms import StainNormalizerTransform
 
-__all__ = ["HistogramMatching", "Macenko", "Reinhard"]
+__all__ = ["HistogramMatching", "Macenko", "Reinhard", "StainNormalizerTransform"]

@@ -5,8 +5,9 @@ is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface, under ``build/stainx_tpu_torch/`` at the root of the
 checkout (``build/`` is git-ignored), and loaded with :mod:`ctypes`. Every
 source is compiled by its own ``nvcc`` process, all started together. A
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and never confused with an old build.
+library's file name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and never confused with an old build.
 
 Nothing here runs at import time: the CPU path never builds, and a failed
 build raises instead of falling back. The input checks and the grid sizing
@@ -53,7 +54,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
@@ -130,3 +134,11 @@ def grid_blocks(items: int, device: torch.device) -> int:
     work items, one a thread, at most 8 blocks (2048 threads) an SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-items // 256), sms * 8))
+
+
+def row_blocks(rows: int, items: int, device: torch.device) -> int:
+    """Blocks a row gets in a (blocks, rows) launch of 256-thread blocks over
+    rows of ``items`` work items each: about 8 blocks (2048 threads) an SM
+    over all rows, at least one a row, and no more than one per 256 items."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-sms * 8 // max(rows, 1)), -(-items // 256)))

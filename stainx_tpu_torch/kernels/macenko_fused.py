@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from stainx_tpu_torch import kernels
+from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming_plain
 from stainx_tpu_torch.ops.eigh3 import eigh3_top2
 from stainx_tpu_torch.ops.macenko import (
     ALPHA,
@@ -143,10 +144,13 @@ def _project(od: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return od[:, 0] * w[:, 0, None] + od[:, 1] * w[:, 1, None] + od[:, 2] * w[:, 2, None]
 
 
-def _stain_params(od: torch.Tensor, fallback: bool):
+def _stain_params(od: torch.Tensor, fallback: bool, stream: bool = False):
     """The statistics both kernels share, for rows of OD (R, 3, P):
     returns HE (R, 3, 2), concentration planes c0, c1 (R, P) and their 99th
-    percentiles maxc (R, 2)."""
+    percentiles maxc (R, 2). With ``stream`` the selections run as the
+    streaming kernels (B4, B5) run them: on fields with +inf sentinels
+    through B6's plain version, the angles with their (min, max, count)
+    init. Both forms select the same elements."""
     rows, _, p = od.shape
     bmask = torch.amin(od, dim=1) >= BETA
     cnt, sums = masked_moments(od, bmask)
@@ -163,40 +167,57 @@ def _stain_params(od: torch.Tensor, fallback: bool):
     ranks = torch.stack(
         [nearest_rank_index(ALPHA, cnt), nearest_rank_index(100 - ALPHA, cnt)], dim=-1
     )
-    phi = kth_smallest(pseudo, ranks, phi_mask)
+    if stream:
+        field = torch.where(phi_mask, pseudo, torch.inf)
+        top = torch.where(phi_mask, pseudo, -torch.inf).amax(-1)
+        phi = kth_smallest_streaming_plain(field, ranks, (field.amin(-1), top, cnt))
+    else:
+        phi = kth_smallest(pseudo, ranks, phi_mask)
     cos_lo, sin_lo = dir_from_pseudo(phi[:, 0])
     cos_hi, sin_hi = dir_from_pseudo(phi[:, 1])
     he = he_from_phi(evecs, cos_lo, sin_lo, cos_hi, sin_hi)
 
     m0, m1 = normal_rows(he)
     c0, c1 = _project(od, m0), _project(od, m1)
-    idx99 = torch.full((2 * rows,), static_nearest_rank_index(99, p), device=od.device)
-    maxc = kth_smallest(torch.stack([c0, c1], dim=1).reshape(2 * rows, p), idx99)
+    idx99 = torch.full((2 * rows, 1), static_nearest_rank_index(99, p), device=od.device)
+    conc = torch.stack([c0, c1], dim=1).reshape(2 * rows, p)
+    select = kth_smallest_streaming_plain if stream else kth_smallest
+    maxc = select(conc, idx99)
     return he, c0, c1, maxc.reshape(rows, 2)
 
 
-def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
-    """Plain PyTorch version of the transform kernel (B1)."""
-    kernels.check_rgb_batch(images, "macenko_transform_mega")
+def transform_plain(images, stain_matrix, target_max_conc, stream: bool = False):
+    """The plain transform of B1 (and, with ``stream``, of B4)."""
     n, c, h, w = images.shape
     is_uint8 = images.dtype == torch.uint8
     od = od_from_planes(images.reshape(n, 3, h * w), is_uint8)
-    _he, c0, c1, maxc = _stain_params(od, fallback=True)
+    _he, c0, c1, maxc = _stain_params(od, fallback=True, stream=stream)
     rgb = rescale_and_reconstruct(c0, c1, maxc[:, 0], maxc[:, 1], target_max_conc, stain_matrix)
     if is_uint8:
         rgb = rgb.to(torch.int32).to(torch.uint8)
     return rgb.reshape(n, c, h, w)
 
 
-def macenko_fit_mega_plain(images):
-    """Plain PyTorch version of the fit kernel (B2): the N images' pixels
-    pooled channel-major into one row."""
-    kernels.check_rgb_batch(images, "macenko_fit_mega")
+def fit_plain(images, stream: bool = False):
+    """The plain fit of B2 (and, with ``stream``, of B5): the N images'
+    pixels pooled channel-major into one row."""
     n, _, h, w = images.shape
     od = od_from_planes(images.reshape(n, 3, h * w), images.dtype == torch.uint8)
     pooled = od.transpose(0, 1).reshape(1, 3, n * h * w)
-    he, _c0, _c1, maxc = _stain_params(pooled, fallback=False)
+    he, _c0, _c1, maxc = _stain_params(pooled, fallback=False, stream=stream)
     return he[0], maxc[0]
+
+
+def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
+    """Plain PyTorch version of the transform kernel (B1)."""
+    kernels.check_rgb_batch(images, "macenko_transform_mega")
+    return transform_plain(images, stain_matrix, target_max_conc)
+
+
+def macenko_fit_mega_plain(images):
+    """Plain PyTorch version of the fit kernel (B2)."""
+    kernels.check_rgb_batch(images, "macenko_fit_mega")
+    return fit_plain(images)
 
 
 # --------------------------------------------------------------- wrappers

@@ -1,0 +1,134 @@
+"""Exact multi-block rank selection (B6): wrapper, plain version, count.
+
+Counterpart of ``stainx_tpu/kernels/selection_stream.py``.
+:func:`kth_smallest_streaming` takes an (R, P) float32 field with +inf
+sentinels and (R, K) int32 ranks and returns the (R, K) float32 values at
+those nearest ranks among each row's elements below +inf. A rank past the
+count takes the row's largest element; a row with no element gives +inf.
+On a CUDA tensor it launches the radix select of ``csrc/selection.cu``
+(built at first use) or raises; on a CPU tensor it runs the plain version,
+which sorts the monotone keys of each row. Both give the JAX package's
+``kth_smallest_streaming`` bit for bit.
+
+``init`` is per row ``(min_vals, max_vals, counts)`` over the elements
+below +inf, the conventions of the JAX ``_init_keys``: a count of 0 gives
++inf, and the kernel starts its descent at the common leading key bytes of
+min and max. It must be exact where it is given. The ranks and the init may
+be tensors on the card: the wrapper reads nothing back to the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stainx_tpu_torch import kernels
+from stainx_tpu_torch.kernels.selection import monotone_key, unkey
+
+SENTINEL_KEY = 0xFF800000  # monotone_key(+inf)
+MAX_RANKS = 8  # ranks one launch serves (csrc/selection.cu kMaxK)
+MAX_ROWS = 65535  # rows one launch serves (the grid's y extent)
+STATE_BYTES = 16  # csrc/selection.cu SelState
+
+
+def init_keys(min_vals, max_vals, counts) -> torch.Tensor:
+    """(R, 3) int32 of a value-space init: the uint32 bits of the min and
+    max monotone keys, and the count."""
+    def key_bits(v: torch.Tensor) -> torch.Tensor:
+        bits = v.to(torch.float32).contiguous().view(torch.int32)
+        return bits ^ torch.where(bits < 0, -1, -(2**31)).to(torch.int32)
+
+    return torch.stack([key_bits(min_vals), key_bits(max_vals), counts.to(torch.int32)], dim=1)
+
+
+def kth_smallest_streaming_plain(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
+    """Plain PyTorch version of B6: sort each row's monotone keys and read
+    the key at the clamped rank."""
+    rows, p = x.shape
+    k = ranks.shape[1]
+    if p == 0:
+        return torch.full((rows, k), torch.inf, dtype=torch.float32, device=x.device)
+    keys = monotone_key(x)
+    n = (keys < SENTINEL_KEY).sum(-1)
+    r = torch.minimum(ranks.to(torch.int64).clamp(min=0), (n - 1).clamp(min=0)[:, None])
+    out = unkey(torch.sort(keys, dim=-1).values.gather(-1, r))
+    empty = n == 0
+    if init is not None:
+        empty = empty | (init[2].to(x.device) == 0)
+    return torch.where(empty[:, None], torch.inf, out)
+
+
+# --------------------------------------------------------------- wrappers
+def _lib() -> ctypes.CDLL:
+    lib = kernels.library("selection")
+    if not getattr(lib, "_stainx_declared", False):
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.stainx_kth_smallest_streaming.argtypes = [
+            ptr, i64, i64, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr
+        ]
+        lib.stainx_kth_smallest_streaming.restype = i32
+        lib._stainx_declared = True
+    return lib
+
+
+def select_on_device(x: torch.Tensor, ranks: torch.Tensor, init3: torch.Tensor | None):
+    """B6 on a contiguous (R, P) float32 CUDA field with (R, K) int32 CUDA
+    ranks and an optional (R, 3) int32 key-space init (:func:`init_keys`),
+    all left on the card. One launch per 8 ranks."""
+    rows, p = x.shape
+    k_all = ranks.shape[1]
+    dev = x.device
+    if rows == 0 or p == 0 or k_all == 0:
+        return torch.full((rows, k_all), torch.inf, dtype=torch.float32, device=dev)
+    if rows > MAX_ROWS:
+        raise ValueError(f"kth_smallest_streaming takes at most {MAX_ROWS} rows, got {rows}")
+    if p >= 2**31:
+        raise ValueError(f"kth_smallest_streaming takes rows below 2^31 elements, got {p}")
+    vec = 4 if p % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    blocks_x = kernels.row_blocks(rows, p // vec, dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for k0 in range(0, k_all, MAX_RANKS):
+        r = ranks[:, k0:k0 + MAX_RANKS].contiguous()
+        k = r.shape[1]
+        out = torch.empty((rows, k), dtype=torch.float32, device=dev)
+        state = torch.empty(rows * k * STATE_BYTES, dtype=torch.uint8, device=dev)
+        hist = torch.empty((rows, k, 256), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.stainx_kth_smallest_streaming(
+                x.data_ptr(), rows, p, r.data_ptr(), k,
+                None if init3 is None else init3.data_ptr(), state.data_ptr(),
+                hist.data_ptr(), out.data_ptr(), vec, blocks_x, stream,
+            )
+        kernels.check(lib, code, "kth_smallest_streaming")
+        kth_smallest_streaming.launches += 1
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
+    """Exact nearest-rank selection (B6): (R, P) float32 with +inf
+    sentinels, ranks (R, K) int32 → (R, K) float32. ``init`` is an optional
+    tuple of (R,) ``(min_vals, max_vals, counts)``. One launch a call (per 8
+    ranks)."""
+    if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"kth_smallest_streaming expects x (R, P) and ranks (R, K), got "
+            f"{tuple(x.shape)} and {tuple(ranks.shape)}"
+        )
+    if x.device.type == "cpu":
+        return kth_smallest_streaming_plain(x, ranks, init)
+    if x.dtype != torch.float32:
+        raise TypeError(f"kth_smallest_streaming takes a float32 field, got {x.dtype}")
+    kernels.check_cuda(x, "kth_smallest_streaming")
+    dev = x.device
+    ranks = ranks.to(device=dev, dtype=torch.int32)
+    init3 = None
+    if init is not None:
+        init3 = init_keys(*(torch.as_tensor(v).to(dev) for v in init)).contiguous()
+    return select_on_device(x, ranks, init3)
+
+
+kth_smallest_streaming.launches = 0
