@@ -34,7 +34,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the main path, path (a) and path (b) feed it, and that B4 and B5 feed it
    at 64×3×512² uint8, 256×3×224² float32 and 4×3×2048² uint8 (each
    selection recorded as the call makes it, with the field kernel's (min,
-   max, count) init held exact); two runs of each kernel bit-identical;
+   max, count) init held exact); the exact row select (B3) bit for bit on
+   (64, 512²) K=2, (128, 512²) K=1, (256, 224²) K=2, (512, 224²) K=1 and
+   ragged (3, 1 000 003) fields with sentinels, ties, ranks past the count
+   and an empty row, on a row of ±0.0 and an all-+inf row, with K = 10 (two
+   launches), and on every field that paths (c) and (d) feed B3 and B6
+   (recorded as the calls make them); two runs of each kernel
+   bit-identical;
 4. each path through the public API, with the launch counts set to 0 just
    before it and read just after:
    ``Macenko().fit(ref).transform(batch)`` at 64×3×512² uint8 (oracle MAE
@@ -50,7 +56,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    .transform(tiles)`` on 256×3×224² uint8 with one of the tiles as the
    reference (MAE ≤ 0.35 on 8 tiles); path (b), ``Macenko().fit(ref)
    .transform(batch)`` on 4×3×2048² and 1×3×4096² uint8 (MAE ≤ 0.35 on one
-   image). Each Macenko path must launch the kernels written beside it;
+   image); path (c), the staged route, ``Macenko(precision=...).fit(ref)
+   .transform(batch)`` at 64×3×512² bfloat16 under "stable" and "fast" and
+   at float16, and path (d), the batch-mode transform on 256×3×224²
+   float16 (oracle MAE ≤ 0.35 on 8 images, the oracle run on the float32
+   values of the same low-precision input). Each Macenko path must launch
+   the kernels written beside it;
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
@@ -60,7 +71,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cross-checks); the histogram on an all-white batch; the sweep of
    B1 against B4 and of B2 against B5 over sizes, in three rounds with
    their spread, that sets the route ladder of
-   ``stainx_tpu_torch/ops/macenko.py``.
+   ``stainx_tpu_torch/ops/macenko.py``; B3 at the shapes of paths (c) and
+   (d), on their own fields, with ``torch.kthvalue`` as the library call;
+   the staged paths (c) and (d); and the sweep of B3 against B6 over rows
+   and row lengths, in three rounds, that sets ``SELECT_STREAM_MIN_ELEMS``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -93,6 +107,15 @@ TPU_STREAM = "stainx_tpu/kernels/macenko_stream.py"
 TPU_SELECT = "stainx_tpu/kernels/selection_stream.py"
 TPU_REINHARD = "stainx_tpu/kernels/reinhard_fused.py"
 TPU_HISTOGRAM = "stainx_tpu/kernels/histogram.py"
+TPU_ROWS = "stainx_tpu/kernels/selection.py"
+# The selections paths (c) and (d) make, in order, under the threshold
+# SELECT_STREAM_MIN_ELEMS of stainx_tpu_torch/ops/macenko.py: (c) fits a
+# 512^2 reference (angles (1, 512^2) K=2, concentrations (2, 512^2) K=1)
+# and transforms 64 images ((64, 512^2) K=2, (128, 512^2) K=1); (d) fits
+# the 256x224^2 pool (1, 12 845 056) and transforms its 256 images
+# ((256, 224^2) K=2, (512, 224^2) K=1).
+PATH_C_SELECTS = ["B3", "B3", "B3", "B3"]
+PATH_D_SELECTS = ["B6", "B6", "B3", "B3"]
 # float32 operations of one accurate powf on its common path as nvcc 12.9
 # compiles it for sm_90a (cuobjdump -sass of a kernel that only calls
 # powf): 11 FADD, 9 FMUL and 19 FFMA, an FFMA counted as two, beside one
@@ -229,11 +252,12 @@ def main() -> int:
     from stainx_tpu_torch.kernels import macenko_fused as mf
     from stainx_tpu_torch.kernels import macenko_stream as ms
     from stainx_tpu_torch.kernels import reinhard_fused as rf
+    from stainx_tpu_torch.kernels import selection as sel
     from stainx_tpu_torch.kernels import selection_stream as ss
     from stainx_tpu_torch.kernels.selection import unkey
     from stainx_tpu_torch.ops import macenko as mk
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
-    from stainx_tpu_torch.ops.percentile import nearest_rank_index
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
     from stainx_tpu_torch.testing import synthetic_he_batch
 
@@ -545,15 +569,105 @@ def main() -> int:
         check_b6_fields(f"B4 {label}", lambda x=x: ms.macenko_transform_stream(x, he_k, mc_k))
     torch.cuda.empty_cache()
 
+    # B3, the exact row select, bit for bit against its plain version.
+    def check_b3(label, x, ranks):
+        s_k = sel.kth_smallest_pallas(x, ranks)
+        s_p = sel.kth_smallest_pallas_plain(x, ranks)
+        again = sel.kth_smallest_pallas(x, ranks)
+        torch.cuda.synchronize()
+        same = torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+        print(f"B3 select {label}: bit-exact {same}")
+        require(same, f"{label}: B3 differs from its plain version")
+        require(torch.equal(again.view(torch.int32), s_k.view(torch.int32)),
+                f"{label}: two B3 runs differ")
+        return s_k
+
+    print(f"B3 keeps the keys of rows of up to {sel.resident_max(dev)} elements in shared memory")
+    px = SIZE * SIZE
+    for rows, p, k in [(64, px, 2), (2 * BATCH, px, 1), (A_BATCH, a_px, 2),
+                       (2 * A_BATCH, a_px, 1), (3, 1_000_003, 2)]:
+        x, ranks, _ = select_case(rows, p, args.seed + 11 * rows + k)
+        check_b3(f"({rows}, {p}) K={k}", x, ranks[:, 2 - k:])
+    many = torch.cat([ranks] * 5, dim=1) // torch.arange(1, 11, device=dev, dtype=torch.int32)
+    check_b3(f"({rows}, {p}) K=10 (two launches)", x, many)
+    del x
+    inf = float("inf")
+    edge = check_b3("[3, 1, inf, -0, 0, 2] and an all-+inf row",
+                    torch.tensor([[3.0, 1.0, inf, -0.0, 0.0, 2.0], [inf] * 6], device=dev),
+                    torch.tensor([[0, 5, 1, 2], [0, 1, 2, 3]], device=dev, dtype=torch.int32))
+    require(bool(torch.signbit(edge[0, 0])) and edge[0, 0] == 0 and edge[0, 1] == 3
+            and edge[0, 3] == 1 and bool(torch.isinf(edge[1]).all()),
+            f"B3 conventions: -0.0 first, a rank past the count the largest, +inf rows: {edge}")
+
+    # B3 and B6 on every field the staged paths feed them, recorded as the
+    # calls make them.
+    def record_selects(call):
+        """Run ``call`` with the staged route's selection recorded; returns
+        its result and, per selection in order, (kernel, field, ranks, init,
+        output), the init being B6's (min, max, count) as the route makes it."""
+        select, seen = mk._select, []
+
+        def record(x, ranks, n_valid):
+            out = select(x, ranks, n_valid)
+            if mk.select_route(*x.shape) == "stream":
+                top = torch.where(x != torch.inf, x, -torch.inf).amax(1)
+                seen.append(("B6", x, ranks, (x.amin(1), top, n_valid.to(torch.int32)), out))
+            else:
+                seen.append(("B3", x, ranks, None, out))
+            return out
+
+        mk._select = record
+        try:
+            result = call()
+        finally:
+            mk._select = select
+        return result, seen
+
+    def check_staged_fields(label, call, want):
+        _, seen = record_selects(call)
+        kinds = [name for name, *_ in seen]
+        require(kinds == want, f"{label}: selections {kinds}, the path makes {want}")
+        for name, x, ranks, init, out in seen:
+            if name == "B3":
+                plain = sel.kth_smallest_pallas_plain(x, ranks)
+                again = sel.kth_smallest_pallas(x, ranks)
+            else:
+                plain = ss.kth_smallest_streaming_plain(x, ranks, init)
+                again = ss.kth_smallest_streaming(x, ranks, init)
+            torch.cuda.synchronize()
+            same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+            print(f"{name} on {label}: field {tuple(x.shape)} K={ranks.shape[1]}: bit-exact {same}")
+            require(same, f"{label}: {name} differs from its plain version on the path's field")
+            require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+                    f"{label}: two {name} runs differ on the path's field")
+
+    def low(x, dtype):
+        """A uint8 batch as float [0, 1] in ``dtype``."""
+        return (x.float() / 255.0).to(dtype)
+
+    bf16, f16 = torch.bfloat16, torch.float16
+    ref_bf, batch_bf, batch_bf_b = low(ref, bf16), low(batch, bf16), low(batch_b, bf16)
+    pool_h, pool_h_b = pool_a.to(f16), pool_a_b.to(f16)
+    check_staged_fields(f"path (c)'s fit and transform, {BATCH}x3x{SIZE}^2 bf16",
+                        lambda: Macenko().fit(ref_bf).transform(batch_bf), PATH_C_SELECTS)
+    check_staged_fields(f"path (d)'s forward, {A_BATCH}x3x{A_SIZE}^2 f16",
+                        lambda: StainNormalizerTransform("macenko", mode="batch",
+                                                         batch_ref_index=None)(pool_h),
+                        PATH_D_SELECTS)
+    torch.cuda.empty_cache()
+
     # 4. The paths through the public API. Each Macenko path must launch
     # exactly the kernels written beside it: B2 and B1, or B5 and B4 with
-    # two B6 launches each (the H100 ladder of stainx_tpu_torch/ops/macenko.py).
+    # two B6 launches each (the H100 ladder of stainx_tpu_torch/ops/macenko.py);
+    # the staged route B3 and B6 directly (its select threshold).
     macenko_wrappers = [mf.macenko_fit_mega, mf.macenko_transform_mega, ms.macenko_fit_stream,
-                        ms.macenko_transform_stream, ss.kth_smallest_streaming]
+                        ms.macenko_transform_stream, ss.kth_smallest_streaming,
+                        sel.kth_smallest_pallas]
 
-    def launches(b2=0, b1=0, b5=0, b4=0):
+    def launches(b2=0, b1=0, b5=0, b4=0, b3=0, b6=0):
         return {"macenko_fit_mega": b2, "macenko_transform_mega": b1, "macenko_fit_stream": b5,
-                "macenko_transform_stream": b4, "kth_smallest_streaming": 2 * (b5 + b4)}
+                "macenko_transform_stream": b4, "kth_smallest_streaming": 2 * (b5 + b4) + b6,
+                "kth_smallest_pallas": b3}
 
     def drive_macenko(label, path, want):
         for w in macenko_wrappers:
@@ -685,6 +799,55 @@ def main() -> int:
         b_normalizers[label] = norm_b
     del out_a0, out_b
 
+    # Path (c): the staged route (bfloat16 and float16 input) on the main
+    # path's configuration. The oracle runs on the float32 values of the
+    # same low-precision input, fit and transform; outputs are float [0, 255].
+    def oracle_mae(out, ref_x, batch_x, n=8):
+        he_x, mc_x = oracle.macenko_fit(ref_x.float().cpu().numpy())
+        expect_x = oracle.macenko_transform(batch_x[:n].float().cpu().numpy(), he_x, mc_x)
+        return float(np.abs(out[:n].float().cpu().numpy() - expect_x).mean())
+
+    c_normalizers, c_launches = {}, {}
+    ref_h, batch_h = low(ref, f16), low(batch, f16)
+    c_want = launches(b3=PATH_C_SELECTS.count("B3"), b6=PATH_C_SELECTS.count("B6"))
+    for label, dtype, precision, ref_x, batch_x in [
+        ("bf16 stable", bf16, "stable", ref_bf, batch_bf),
+        ("bf16 fast", bf16, "fast", ref_bf, batch_bf),
+        ("f16 stable", f16, "stable", ref_h, batch_h),
+    ]:
+        norm_c = Macenko(precision=precision)
+        out_c, c_launches[label] = drive_macenko(
+            f"path (c), Macenko(precision={precision!r}) {BATCH}x3x{SIZE}^2 {label.split()[0]}",
+            lambda: norm_c.fit(ref_x).transform(batch_x), c_want)
+        require(out_c.is_cuda and out_c.dtype == dtype and out_c.shape == batch.shape,
+                f"path (c) {label}: output is not a {dtype} batch of the input shape on the card")
+        require(bool(torch.isfinite(out_c).all()), f"path (c) {label}: non-finite output")
+        mae_c = oracle_mae(out_c, ref_x, batch_x)
+        print(f"path (c) {label}: oracle MAE on 8 images {mae_c:.4f} (gate 0.35)")
+        require(mae_c <= 0.35, f"path (c) {label}: oracle MAE {mae_c} above 0.35")
+        c_normalizers[label] = norm_c
+    fast_moved = (c_normalizers["bf16 fast"].transform(batch_bf).float()
+                  != c_normalizers["bf16 stable"].transform(batch_bf).float()).float().mean().item()
+    print(f"path (c): bfloat16 reconstruction under 'fast' moves {fast_moved:.3f} of the outputs")
+    require(fast_moved > 0.05, "path (c): 'fast' did not reconstruct in bfloat16")
+    del out_c
+
+    # Path (d): the batch-mode training transform on float16, the pool fit
+    # every forward (output float16 in [0, 1]).
+    transform_d = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None)
+    out_d, d_launches = drive_macenko(
+        f"path (d), batch mode {A_BATCH}x3x{A_SIZE}^2 f16", lambda: transform_d(pool_h),
+        launches(b3=PATH_D_SELECTS.count("B3"), b6=PATH_D_SELECTS.count("B6")))
+    require(out_d.is_cuda and out_d.dtype == f16 and out_d.shape == pool_h.shape,
+            "path (d) output is not a float16 batch of the input shape on the card")
+    require(bool(torch.isfinite(out_d).all()) and 0.0 <= out_d.min() and out_d.max() <= 1.0,
+            "path (d) output is not finite in [0, 1]")
+    mae_d = oracle_mae(out_d.float() * 255.0, pool_h, pool_h)
+    print(f"path (d) oracle MAE on 8 images (oracle fitted on the same {A_BATCH}-image pool): "
+          f"{mae_d:.4f} (gate 0.35)")
+    require(mae_d <= 0.35, f"path (d): oracle MAE {mae_d} above 0.35")
+    del out_d
+
     # 5. Timing: CUDA events, warm-up first, two distinct inputs cycled. A
     # kernel's time is its wrapper replayed from CUDA graphs, the device's
     # time (the wrapper's own small ops, such as the LUT table, included);
@@ -795,13 +958,50 @@ def main() -> int:
         lambda i: [torch.kthvalue(fields[i][0][0], r + 1) for r in host_ranks[i]], [0, 1], 3)
     del fields
 
+    # B3 at the shapes of paths (c) and (d), on the fields those paths give
+    # it for their two inputs. The library call is torch.kthvalue: one call
+    # where every row has the same rank and no sentinel (the concentration
+    # fields), else one a row and rank.
+    def staged_fields(call):
+        return [(x, ranks) for name, x, ranks, _init, _out in record_selects(call)[1]
+                if name == "B3"]
+
+    norm_cf = Macenko().fit(ref_bf)
+    c_fields = [staged_fields(lambda x=x: norm_cf.transform(x)) for x in (batch_bf, batch_bf_b)]
+    d_fields = [staged_fields(lambda x=x: StainNormalizerTransform(
+        "macenko", mode="batch", batch_ref_index=None)(x)) for x in (pool_h, pool_h_b)]
+    b3_ms = {}
+    for path, fields in [("c", c_fields), ("d", d_fields)]:
+        for i in range(len(fields[0])):
+            pair_f = [f[i] for f in fields]
+            rows_f, p_f = pair_f[0][0].shape
+            k_f = pair_f[0][1].shape[1]
+            label = f"B3 kth_smallest_pallas ({rows_f}, {p_f}) K={k_f} (path ({path}))"
+            on_card = kernel_ms(label, lambda t: sel.kth_smallest_pallas(*t), pair_f)
+            plain = event_ms(lambda t: sel.kth_smallest_pallas_plain(*t), pair_f, 3)
+            host = [t[1].tolist() for t in pair_f]
+            if k_f == 1:
+                lib = event_ms(lambda j: torch.kthvalue(pair_f[j][0], host[j][0][0] + 1, dim=1),
+                               [0, 1], 5)
+            else:
+                lib = event_ms(lambda j: [torch.kthvalue(pair_f[j][0][r], q + 1)
+                                          for r, qs in enumerate(host[j]) for q in qs], [0, 1], 1)
+            print(f"{label}: plain {plain:.4f} ms, library (torch.kthvalue) {lib:.4f} ms")
+            b3_ms[path, i] = (on_card, plain, lib, rows_f, p_f, k_f)
+    del c_fields, d_fields
+
     def path_ms(label, fn, inputs, n_img, n_px):
-        eager, busy = event_ms(fn, inputs, 10), graph_ms(fn, inputs, 10)
+        fn(inputs[0])
+        segments = torch.cuda.memory_stats()["segment.all.allocated"]
+        eager = event_ms(fn, inputs, 10)
+        segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
+        busy = graph_ms(fn, inputs, 10)
         prof = profiled_ms(fn, inputs, 5)
         prof_txt = "not measured" if prof is None else f"{prof:.4f} ms (idle {1.0 - prof / eager:.3f})"
         print(f"{label}: {eager:.4f} ms called ({n_px / eager / 1e3:.1f} MPix/s, "
               f"{n_img / eager * 1e3:.0f} img/s), device busy {busy:.4f} ms, idle share "
-              f"{1.0 - busy / eager:.3f}; kernel time in torch.profiler {prof_txt}")
+              f"{1.0 - busy / eager:.3f}; kernel time in torch.profiler {prof_txt}; "
+              f"{segments} device allocations by the caching allocator while called")
 
     path_ms(f"path (a) forward, batch mode {A_BATCH}x3x{A_SIZE}^2 f32", transform_a, pair_a,
             A_BATCH, A_BATCH * a_px)
@@ -814,6 +1014,15 @@ def main() -> int:
             pair_b, 4, 4 * 2048 * 2048)
     path_ms("path (b) Macenko.transform 1x3x4096^2 u8", b_normalizers["1x3x4096^2"].transform,
             [big1, big1_b], 1, 4096 * 4096)
+    for label, x_pair in [("bf16 stable", [batch_bf, batch_bf_b]),
+                          ("bf16 fast", [batch_bf, batch_bf_b]),
+                          ("f16 stable", [batch_h, low(batch_b, f16)])]:
+        path_ms(f"path (c) Macenko.transform {BATCH}x3x{SIZE}^2 {label}",
+                c_normalizers[label].transform, x_pair, BATCH, BATCH * SIZE * SIZE)
+    print(f"public API Macenko fit 1x3x{SIZE}^2 bf16: "
+          f"{event_ms(lambda x: Macenko().fit(x), [ref_bf, low(ref_b, bf16)], 20):.4f} ms")
+    path_ms(f"path (d) forward, batch mode {A_BATCH}x3x{A_SIZE}^2 f16", transform_d,
+            [pool_h, pool_h_b], A_BATCH, A_BATCH * a_px)
 
     # The route ladder: B1 against B4 and B2 against B5 over sizes, in
     # SWEEP_ROUNDS rounds, each kernel called as a user calls it and
@@ -833,7 +1042,7 @@ def main() -> int:
     unearned, kept = [], []
 
     def race(label, contenders, xs, route):
-        it = 3 if xs[0].numel() > 3e7 else 10
+        it = 3 if (xs[0][0] if isinstance(xs[0], tuple) else xs[0]).numel() > 3e7 else 10
         graphs = {name: capture_graphs(fn, xs) for name, fn in contenders}
         called = {name: [] for name, _ in contenders}
         device = {name: [] for name, _ in contenders}
@@ -888,6 +1097,43 @@ def main() -> int:
           f"round at {unearned or 'no size'}; it keeps the one-block kernel where the "
           f"multi-block one won (host-cost margin, row cap) at {kept or 'no size'}")
 
+    # The staged route's select threshold: B3 (a block a row) against B6 as
+    # the route calls it (with its min, max and count init), on angle-like
+    # fields (30 % sentinels, the alpha and 100-alpha ranks) and
+    # concentration-like ones (no sentinel, the 99th percentile).
+    print(f"select threshold: SELECT_STREAM_MIN_ELEMS {mk.SELECT_STREAM_MIN_ELEMS}, "
+          f"SELECT_STREAM_MAX_ROWS {mk.SELECT_STREAM_MAX_ROWS}")
+    unearned.clear()
+    kept.clear()
+
+    def select_inputs(rows, p, k, seed):
+        out = []
+        for j in range(2):
+            g = torch.Generator(device=dev).manual_seed(seed + j)
+            x = torch.randn(rows, p, generator=g, device=dev)
+            if k == 2:
+                x = torch.where(torch.rand(rows, p, generator=g, device=dev) < 0.3, torch.inf, x)
+                cnt = (x < torch.inf).sum(1)
+                ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                                     nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
+            else:
+                cnt = torch.full((rows,), p, device=dev)
+                ranks = torch.full((rows, 1), static_nearest_rank_index(99, p), device=dev)
+            out.append((x, ranks.to(torch.int32), cnt))
+        return out
+
+    for p in [a_px, SIZE * SIZE, 1 << 19, 1 << 20, 1 << 22, A_BATCH * a_px]:
+        for rows in [1, 2, 8, 16, 32, 64, 128, 256, 512]:
+            if rows * p > 1 << 28:
+                continue
+            for k in (2, 1):
+                race(f"select ({rows}, {p}) K={k}",
+                     [("B3", lambda t: sel.kth_smallest_pallas(t[0], t[1])),
+                      ("B6", lambda t: mk._stream_select(*t))],
+                     select_inputs(rows, p, k, args.seed + 500), mk.select_route(rows, p))
+    print(f"select sweep: the threshold gives B6 a size it did not win in every round at "
+          f"{unearned or 'no size'}; it keeps B3 where B6 won at {kept or 'no size'}")
+
     n_px = BATCH * SIZE * SIZE
     n_a, n_b = A_BATCH * a_px, 4 * 2048 * 2048
     b1_bound, b1_by = bound_ms(2 * 3 * n_a, OPS_PER_PIXEL_TRANSFORM * n_a)
@@ -901,6 +1147,15 @@ def main() -> int:
     b7a_bound, b7a_by = bound_ms(2 * 3 * n_px + 12 * 4, OPS_PER_PIXEL_APPLY_U8 * n_px)
     b8a_bound, b8a_by = bound_ms(3 * n_px + 3 * 256 * 4, 0)
     b8b_bound, b8b_by = bound_ms(2 * 3 * n_px + 3 * 256 * 4, 0)
+    # B3 reads its field and ranks once and writes K values a row; one
+    # compare an element for each rank. Printed for every timed shape; the
+    # kernel line carries path (d)'s concentration field.
+    for (path, i), (on_card, plain, lib, rows_f, p_f, k_f) in sorted(b3_ms.items()):
+        bound, by = bound_ms(4 * rows_f * p_f + 2 * 4 * rows_f * k_f, k_f * rows_f * p_f)
+        print(f"B3 ({rows_f}, {p_f}) K={k_f} (path ({path})): {on_card:.4f} ms on the device, "
+              f"bound {bound:.4f} ms by {by}, plain {plain:.4f} ms, torch.kthvalue {lib:.4f} ms")
+    ms_b3, ms_b3_p, ms_b3_lib, rows_3, p_3, k_3 = b3_ms["d", 1]
+    b3_bound, b3_by = bound_ms(4 * rows_3 * p_3 + 2 * 4 * rows_3 * k_3, k_3 * rows_3 * p_3)
     print(f"B7b bound: bytes {3 * n_px / HBM_BYTES_PER_S * 1e3:.4f} ms, float32 operations "
           f"{OPS_PER_PIXEL_MOMENTS_U8 * n_px / F32_OPS_PER_S * 1e3:.4f} ms; B7a bound: bytes "
           f"{6 * n_px / HBM_BYTES_PER_S * 1e3:.4f} ms, float32 operations "
@@ -951,6 +1206,11 @@ def main() -> int:
          "launches": h_launches["apply_lut"], "max_abs_err": 0.0,
          "ms": ms_b8b, "plain_ms": ms_b8b_p, "bound_ms": b8b_bound, "bound_by": b8b_by,
          "library_ms": ms_b8b_lib},
+        {"name": "kth_smallest_pallas", "route": "cuda",
+         "source": "stainx_tpu_torch/csrc/select_rows.cu", "replaces": f"{TPU_ROWS}:1222",
+         "launches": d_launches["kth_smallest_pallas"], "max_abs_err": 0.0,
+         "ms": ms_b3, "plain_ms": ms_b3_p, "bound_ms": b3_bound, "bound_by": b3_by,
+         "library_ms": ms_b3_lib},
     ]
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

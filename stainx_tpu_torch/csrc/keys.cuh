@@ -1,6 +1,7 @@
 // Monotone integer keys of float32 values and the warp-aggregated histogram
 // add, shared by the exact radix selections of macenko_fused.cu (inside
-// B1/B2) and selection.cu (B6). Host twin: stainx_tpu_torch/kernels/selection.py.
+// B1/B2), selection.cu (B6) and select_rows.cu (B3). Host twin:
+// stainx_tpu_torch/kernels/selection.py.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,12 +24,13 @@ __device__ __forceinline__ float unkey(uint32_t k) {
   return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xFFFFFFFFu));
 }
 
-// Adds one to hist[bin] for every lane of the warp, bin kBins meaning none;
-// lanes with the same bin are added by one shared-memory atomic of their
-// leader. Every lane of the warp must call it.
-__device__ __forceinline__ void hist_add(unsigned int* hist, unsigned bin) {
+// Adds one to hist[bin] for every lane of the warp, a bin of `bins` or more
+// meaning none; lanes with the same bin are added by one shared-memory
+// atomic of their leader. Every lane of the warp must call it.
+__device__ __forceinline__ void hist_add(unsigned int* hist, unsigned bin,
+                                         unsigned bins = kBins) {
   const unsigned peers = __match_any_sync(kFull, bin);
-  if (bin < kBins && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
+  if (bin < bins && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
     atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
   }
 }

@@ -24,9 +24,8 @@ import ctypes
 import torch
 
 from stainx_tpu_torch import kernels
-from stainx_tpu_torch.kernels.selection import monotone_key, unkey
+from stainx_tpu_torch.kernels.selection import kth_smallest_pallas_plain
 
-SENTINEL_KEY = 0xFF800000  # monotone_key(+inf)
 MAX_RANKS = 8  # ranks one launch serves (csrc/selection.cu kMaxK)
 MAX_ROWS = 65535  # rows one launch serves (the grid's y extent)
 STATE_BYTES = 16  # csrc/selection.cu SelState
@@ -43,20 +42,13 @@ def init_keys(min_vals, max_vals, counts) -> torch.Tensor:
 
 
 def kth_smallest_streaming_plain(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
-    """Plain PyTorch version of B6: sort each row's monotone keys and read
-    the key at the clamped rank."""
-    rows, p = x.shape
-    k = ranks.shape[1]
-    if p == 0:
-        return torch.full((rows, k), torch.inf, dtype=torch.float32, device=x.device)
-    keys = monotone_key(x)
-    n = (keys < SENTINEL_KEY).sum(-1)
-    r = torch.minimum(ranks.to(torch.int64).clamp(min=0), (n - 1).clamp(min=0)[:, None])
-    out = unkey(torch.sort(keys, dim=-1).values.gather(-1, r))
-    empty = n == 0
-    if init is not None:
-        empty = empty | (init[2].to(x.device) == 0)
-    return torch.where(empty[:, None], torch.inf, out)
+    """Plain PyTorch version of B6: B3's plain version (sort each row's
+    monotone keys, read the key at the clamped rank), with +inf for a row
+    whose init count is 0."""
+    out = kth_smallest_pallas_plain(x, ranks)
+    if init is None:
+        return out
+    return torch.where((init[2].to(x.device) == 0)[:, None], torch.inf, out)
 
 
 # --------------------------------------------------------------- wrappers

@@ -25,8 +25,12 @@ class Macenko(NormalizerTemplate):
     normalize_to_0_1 : bool
         Divide output by 255 so results land in [0, 1]. Default False.
     precision : {"stable", "fast"}
-        Validated at construction. Both run the same exact kernels, as on
-        the JAX package's ``pallas`` backend, so ``fast`` trades nothing.
+        Validated at construction. As on the JAX package's ``pallas``
+        backend: for uint8 and float32 input both run the same exact
+        kernels, so ``fast`` trades nothing there; for every other dtype
+        (bfloat16, float16, float64: the staged route) ``fast`` runs the
+        reconstruction in bfloat16, and the statistics, selections and
+        solves stay float32 and exact.
 
     Non-finite float pixels are not validated; results on them are
     unspecified, and the CUDA and plain routes may differ there.
@@ -74,7 +78,9 @@ class Macenko(NormalizerTemplate):
     def _transform_impl(self, images: torch.Tensor) -> torch.Tensor:
         self._validate_layout(images, "transform")
         self._validate_fitted_params()
-        return macenko_ops.macenko_transform(images, self._stain_matrix, self._target_max_conc)
+        return macenko_ops.macenko_transform(
+            images, self._stain_matrix, self._target_max_conc, precision=self._precision
+        )
 
     @staticmethod
     def _validate_layout(images: torch.Tensor, stage: str) -> None:

@@ -1,14 +1,30 @@
 """Macenko stain normalization on tensors: fit and transform.
 
 Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
-α=1). Both entry points route by size to the kernel wrappers of
-:mod:`stainx_tpu_torch.kernels.macenko_fused` (B1, B2: one thread block per
-image or pool) or :mod:`stainx_tpu_torch.kernels.macenko_stream` (B4, B5:
-a row split across many blocks): a CUDA tensor launches the hand-written
-kernel, a CPU tensor runs its plain PyTorch version. The
-kernels take uint8 and float32; other float dtypes are cast to float32
-[0, 1] around the kernel and cast back, so bf16, f16 and f64 run on the
-card too.
+α=1), routed as that module routes on the JAX package's ``pallas`` backend:
+
+- uint8 and float32 go by size to the kernel wrappers of
+  :mod:`stainx_tpu_torch.kernels.macenko_fused` (B1, B2: one thread block
+  per image or pool) or :mod:`stainx_tpu_torch.kernels.macenko_stream` (B4,
+  B5: a row split across many blocks). These kernels are exact, so
+  ``precision`` has nothing to trade there.
+- Every other dtype (bfloat16, float16, float64), which those kernels do
+  not take, runs the staged pipeline: OD, the β-mask (with the <3-pixel
+  fallback at transform only), the two-pass masked covariance,
+  ``eigh3_top2``, the stain-plane projection, ``atan2``, the α and 100−α
+  angle percentiles, H/E from the extremes, the 2×2 concentrations, their
+  99th percentiles, the reconstruction in ``recon_dtype`` (bfloat16 under
+  ``precision="fast"``) and the cast back to the input dtype. Its steps
+  are plain PyTorch, as the JAX package leaves them to XLA; its selections
+  go to B3 (:func:`~stainx_tpu_torch.kernels.selection.kth_smallest_pallas`,
+  one thread block a row) or, for at most :data:`SELECT_STREAM_MAX_ROWS`
+  rows of at least :data:`SELECT_STREAM_MIN_ELEMS` elements, to B6
+  (:func:`~stainx_tpu_torch.kernels.selection_stream.kth_smallest_streaming`)
+  with the rows' (min, max, count) init. Both selections are exact, so the
+  route never changes an output.
+
+A CUDA tensor launches the hand-written kernels, a CPU tensor runs their
+plain PyTorch versions.
 
 ``seed_state`` is the (7,) int32 cross-call state of the JAX kernels. The
 CUDA kernels run the images of a batch in parallel and need no probe seeds,
@@ -21,6 +37,8 @@ from __future__ import annotations
 import torch
 
 from stainx_tpu_torch.ops import color
+from stainx_tpu_torch.ops.eigh3 import eigh3_top2
+from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
 
 IO = 240.0
 BETA = 0.15
@@ -50,6 +68,23 @@ STREAM_MAX_ROWS = 64
 # 102 400 float32 (320²; B2 0.83 ms).
 FIT_STREAM_MIN_ELEMS = 200_704
 FIT_STREAM_MIN_ELEMS_F32 = 102_400
+# The staged pipeline's selections, from the three-round sweep of B3
+# against B6 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule
+# of the ladder above. B3 (one thread block a row) was faster as called in
+# every round at every row of up to 512^2 elements, from 1 to 512 rows; B6's
+# device time is lower for a few such rows, but its call costs 0.3-0.7 ms
+# of host time. At 524 288 elements B6 also won most cells of up to 16
+# rows as called (0.30-0.43 ms), but B3's device time there (0.47-0.62 ms)
+# stays below the slowest host-bound call seen (0.76 ms), so B3 keeps them.
+# From 1 048 576 elements B6, which spreads a row over the card, won every
+# round for up to 32 rows (one overlap in the first sweep, 32 rows of
+# 1 048 576 at K=1; at 4 194 304: 2.65-2.67 ms against B3's
+# 4.88-4.93 for 32 rows), and B3 won from 64 rows on (one wave of blocks:
+# 1.26-1.33 ms against 1.59-2.86 at 1 048 576; 4.88-4.97 against 5.67-5.71
+# at 4 194 304). So B6 takes rows of at least SELECT_STREAM_MIN_ELEMS
+# elements when there are at most SELECT_STREAM_MAX_ROWS of them.
+SELECT_STREAM_MIN_ELEMS = 1_048_576
+SELECT_STREAM_MAX_ROWS = 32
 
 
 def transform_route(n: int, p: int, dtype: torch.dtype) -> str:
@@ -63,6 +98,13 @@ def fit_route(pixels: int, dtype: torch.dtype) -> str:
     """``"stream"`` (B5) or ``"mega"`` (B2) for a pool of that many pixels."""
     floor = FIT_STREAM_MIN_ELEMS if dtype == torch.uint8 else FIT_STREAM_MIN_ELEMS_F32
     return "stream" if pixels >= floor else "mega"
+
+
+def select_route(rows: int, p: int) -> str:
+    """``"stream"`` (B6) or ``"rows"`` (B3) for a selection on ``rows``
+    rows of ``p`` elements in the staged pipeline."""
+    few_long_rows = p >= SELECT_STREAM_MIN_ELEMS and rows <= SELECT_STREAM_MAX_ROWS
+    return "stream" if few_long_rows else "rows"
 
 
 def optical_density(images_float: torch.Tensor) -> torch.Tensor:
@@ -84,43 +126,176 @@ def rescale_and_reconstruct(
     max_c1: torch.Tensor,
     target_max_conc: torch.Tensor,
     stain_matrix: torch.Tensor,
+    recon_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """maxC guard, concentration rescale and Beer–Lambert reconstruction.
     ``c0``/``c1`` are (N, P) concentration planes, ``max_c*`` their (N,)
-    99th percentiles; returns clipped RGB (N, 3, P) float32 in [0, 255]."""
+    99th percentiles; the rescaled concentrations and the stain matrix are
+    combined in ``recon_dtype``. Returns clipped RGB (N, 3, P) float32 in
+    [0, 255]."""
     tmc = target_max_conc.reshape(-1).to(device=c0.device, dtype=torch.float32)
-    cn0 = c0 * maxc_scale(tmc[0], max_c0)[:, None]
-    cn1 = c1 * maxc_scale(tmc[1], max_c1)[:, None]
-    stain = stain_matrix.to(device=c0.device, dtype=torch.float32)
-    od_recon = torch.stack([cn0 * stain[i, 0] + cn1 * stain[i, 1] for i in range(3)], dim=1)
+    cn0 = (c0 * maxc_scale(tmc[0], max_c0)[:, None]).to(recon_dtype)
+    cn1 = (c1 * maxc_scale(tmc[1], max_c1)[:, None]).to(recon_dtype)
+    stain = stain_matrix.to(device=c0.device, dtype=torch.float32).to(recon_dtype)
+    od_recon = torch.stack(
+        [(cn0 * stain[i, 0] + cn1 * stain[i, 1]).to(torch.float32) for i in range(3)], dim=1
+    )
     return torch.clamp(IO * torch.exp(-od_recon), 0.0, 255.0)
 
 
-def _kernel_input(images: torch.Tensor) -> torch.Tensor:
-    if images.dtype in _KERNEL_DTYPES:
-        return images.contiguous()
-    return color.normalize_to_float(images).contiguous()
+# ------------------------------------------------------------ staged route
+def _masked_cov_two_pass(od_c, weights: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """Σ w·(x−μ)(x−μ)ᵀ / (cnt−1) over three (N, P) OD planes ``od_c`` with
+    0/1 ``weights`` (N, P) and float counts (N,); zeros when cnt ≤ 1."""
+    safe_cnt = torch.clamp(cnt, min=1.0)
+    mu = [(weights * od_c[i]).sum(-1) / safe_cnt for i in range(3)]
+    centered = [od_c[i] - mu[i][:, None] for i in range(3)]
+    denom = torch.clamp(cnt - 1.0, min=1.0)
+    rows = []
+    for i in range(3):
+        wc_i = weights * centered[i]
+        rows.append(torch.stack([(wc_i * centered[j]).sum(-1) / denom for j in range(3)], dim=-1))
+    cov = torch.stack(rows, dim=-2)  # (N, 3, 3)
+    return torch.where((cnt > 1.0)[:, None, None], cov, 0.0)
 
 
+def _project_plane(od_c, evecs: torch.Tensor, dtype: torch.dtype):
+    """The two stain-plane projections Σ_c od_c·v_ck (N, P), evaluated in
+    ``dtype`` and returned as float32."""
+    out = []
+    for k in range(2):
+        acc = od_c[0].to(dtype) * evecs[:, 0, k].to(dtype)[:, None]
+        for i in (1, 2):
+            acc = acc + od_c[i].to(dtype) * evecs[:, i, k].to(dtype)[:, None]
+        out.append(acc.to(torch.float32))
+    return out[0], out[1]
+
+
+def _he_from_phi_extremes(evecs: torch.Tensor, min_phi: torch.Tensor, max_phi: torch.Tensor):
+    """The extreme stain vectors and H/E ordering: HE (N, 3, 2)."""
+    def extreme(phi):
+        return evecs[:, :, 0] * torch.cos(phi)[:, None] + evecs[:, :, 1] * torch.sin(phi)[:, None]
+
+    v_min, v_max = extreme(min_phi), extreme(max_phi)
+    swap = (v_min[:, 0] > v_max[:, 0])[:, None, None]
+    return torch.where(swap, torch.stack([v_min, v_max], -1), torch.stack([v_max, v_min], -1))
+
+
+def _concentrations_2x2(he: torch.Tensor, od_c):
+    """Least-squares concentrations (C0, C1), each (N, P), from the 2×2
+    normal equations of HE (N, 3, 2); 1/det is clamped to ±1e12 so
+    (anti)parallel columns stay finite."""
+    h0, h1 = he[:, :, 0], he[:, :, 1]
+    a, b, c = (h0 * h0).sum(-1), (h0 * h1).sum(-1), (h1 * h1).sum(-1)
+    inv_det = torch.clamp(1.0 / (a * c - b * b), -1e12, 1e12)
+    rhs0 = h0[:, 0, None] * od_c[0] + h0[:, 1, None] * od_c[1] + h0[:, 2, None] * od_c[2]
+    rhs1 = h1[:, 0, None] * od_c[0] + h1[:, 1, None] * od_c[1] + h1[:, 2, None] * od_c[2]
+    c0 = (c * inv_det)[:, None] * rhs0 - (b * inv_det)[:, None] * rhs1
+    c1 = (a * inv_det)[:, None] * rhs1 - (b * inv_det)[:, None] * rhs0
+    return c0, c1
+
+
+def _stream_select(xs: torch.Tensor, ranks: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """B6 with the caller-known init: the rows' min, max below +inf and
+    count replace the kernel's range discovery."""
+    from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming
+
+    top = torch.where(xs != torch.inf, xs, -torch.inf).amax(1)
+    return kth_smallest_streaming(xs, ranks, init=(xs.amin(1), top, n_valid.to(torch.int32)))
+
+
+def _select(xs: torch.Tensor, ranks: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """(R, K) values at ``ranks`` among the elements below +inf of each row
+    of ``xs`` (R, P), through B3 or B6 by :func:`select_route`."""
+    from stainx_tpu_torch.kernels.selection import kth_smallest_pallas
+
+    if select_route(*xs.shape) == "stream":
+        return _stream_select(xs, ranks, n_valid)
+    return kth_smallest_pallas(xs, ranks)
+
+
+def _stain_separate(od_c, mask: torch.Tensor, cnt: torch.Tensor):
+    """Masked covariance → stain plane → α and 100−α angle percentiles →
+    ordered H/E (N, 3, 2). Returns (HE, evecs). The projection stays
+    float32 under both precisions, as in the JAX package."""
+    cov = _masked_cov_two_pass(od_c, mask.to(torch.float32), cnt.to(torch.float32))
+    evecs = eigh3_top2(cov)
+    t0, t1 = _project_plane(od_c, evecs, torch.float32)
+    xs = torch.where(mask, torch.atan2(t1, t0), torch.inf)
+    ranks = torch.stack(
+        [nearest_rank_index(ALPHA, cnt), nearest_rank_index(100 - ALPHA, cnt)], dim=1
+    )
+    phi = _select(xs, ranks, cnt)
+    return _he_from_phi_extremes(evecs, phi[:, 0], phi[:, 1]), evecs
+
+
+def _max_concentrations(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """The 99th percentile of each row of C0 then of C1, over all pixels:
+    (2N,), the N rows of C0 first."""
+    rows, p = c0.shape
+    c_stack = torch.cat([c0, c1], dim=0)
+    dev = c0.device
+    idx99 = static_nearest_rank_index(99, p)
+    ranks = torch.full((2 * rows, 1), idx99, dtype=torch.int32, device=dev)
+    return _select(c_stack, ranks, torch.full((2 * rows,), p, device=dev))[:, 0]
+
+
+def _staged_transform(images, stain_matrix, target_max_conc, precision: str) -> torch.Tensor:
+    images_float = color.normalize_to_float(images)
+    n, c, h, w = images_float.shape
+    p = h * w
+    od = optical_density(images_float).reshape(n, 3, p)
+    od_c = (od[:, 0], od[:, 1], od[:, 2])
+    # β-mask, and all pixels where fewer than 3 survive.
+    mask = torch.minimum(torch.minimum(od_c[0], od_c[1]), od_c[2]) >= BETA
+    cnt = mask.sum(-1)
+    use_all = cnt < 3
+    he, _ = _stain_separate(od_c, mask | use_all[:, None], torch.where(use_all, p, cnt))
+    c0, c1 = _concentrations_2x2(he, od_c)
+    max_c = _max_concentrations(c0, c1)
+    recon_dtype = torch.bfloat16 if precision == "fast" else torch.float32
+    rgb = rescale_and_reconstruct(
+        c0, c1, max_c[:n], max_c[n:], target_max_conc, stain_matrix, recon_dtype
+    ).reshape(n, c, h, w)
+    return color.preserve_dtype(rgb, images.dtype, result_in_0_255_range=True)
+
+
+def _staged_fit(images):
+    images_float = color.normalize_to_float(images)
+    n, _, h, w = images_float.shape
+    ptot = n * h * w
+    od = optical_density(images_float)
+    od_c = tuple(od[:, i].reshape(1, ptot) for i in range(3))  # pooled planes
+    mask = torch.minimum(torch.minimum(od_c[0], od_c[1]), od_c[2]) >= BETA  # no fallback
+    he, _ = _stain_separate(od_c, mask, mask.sum(-1))
+    c0, c1 = _concentrations_2x2(he, od_c)
+    return he[0], _max_concentrations(c0, c1)
+
+
+# ------------------------------------------------------------ entry points
 def macenko_transform(
     images: torch.Tensor,
     stain_matrix: torch.Tensor,
     target_max_conc: torch.Tensor,
     seed_state: torch.Tensor | None = None,
+    precision: str = "stable",
 ):
     """Normalize an (N, 3, H, W) batch to the fitted stain matrix (3, 2) and
-    max concentrations (2,). Output range [0, 255] in the input dtype. With
-    ``seed_state`` the return is ``(out, seed_state)``."""
+    max concentrations (2,). Output range [0, 255] in the input dtype.
+    ``precision="fast"`` reconstructs in bfloat16 on the staged route (every
+    dtype but uint8 and float32). With ``seed_state`` the return is
+    ``(out, seed_state)``."""
     from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
 
-    x = _kernel_input(images)
-    if transform_route(x.shape[0], x.shape[2] * x.shape[3], x.dtype) == "stream":
-        kernel = macenko_stream.macenko_transform_stream
+    if images.dtype in _KERNEL_DTYPES:
+        x = images.contiguous()
+        if transform_route(x.shape[0], x.shape[2] * x.shape[3], x.dtype) == "stream":
+            kernel = macenko_stream.macenko_transform_stream
+        else:
+            kernel = macenko_fused.macenko_transform_mega
+        out = kernel(x, stain_matrix, target_max_conc)
     else:
-        kernel = macenko_fused.macenko_transform_mega
-    out = kernel(x, stain_matrix, target_max_conc)
-    if images.dtype not in _KERNEL_DTYPES:
-        out = color.preserve_dtype(out, images.dtype, result_in_0_255_range=True)
+        out = _staged_transform(images, stain_matrix, target_max_conc, precision)
     return (out, seed_state) if seed_state is not None else out
 
 
@@ -132,11 +307,13 @@ def macenko_fit(images: torch.Tensor, seed_state: torch.Tensor | None = None):
     ``seed_state`` the return is ``(he, maxc, seed_state)``."""
     from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
 
-    x = _kernel_input(images)
-    n, _, h, w = x.shape
-    if fit_route(n * h * w, x.dtype) == "stream":
-        kernel = macenko_stream.macenko_fit_stream
+    if images.dtype in _KERNEL_DTYPES:
+        x = images.contiguous()
+        n, _, h, w = x.shape
+        if fit_route(n * h * w, x.dtype) == "stream":
+            he, maxc = macenko_stream.macenko_fit_stream(x)
+        else:
+            he, maxc = macenko_fused.macenko_fit_mega(x)
     else:
-        kernel = macenko_fused.macenko_fit_mega
-    he, maxc = kernel(x)
+        he, maxc = _staged_fit(images)
     return (he, maxc, seed_state) if seed_state is not None else (he, maxc)

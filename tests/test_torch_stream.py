@@ -25,6 +25,7 @@ from stainx_tpu.ops import macenko as jax_mk
 from stainx_tpu_torch import Macenko, kernels
 from stainx_tpu_torch.kernels import macenko_fused as mf
 from stainx_tpu_torch.kernels import macenko_stream as ms
+from stainx_tpu_torch.kernels import selection as sel
 from stainx_tpu_torch.kernels import selection_stream as ss
 from stainx_tpu_torch.ops import macenko as mk
 
@@ -266,16 +267,23 @@ class TestRouteLadder:
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
     def test_other_floats_take_the_float32_ladder(self, monkeypatch, dtype):
-        """Other float dtypes are cast to float32 around the kernels, so the
-        float32 thresholds route them."""
+        """Other float dtypes no longer ride the float32 ladder: with its
+        thresholds cut small they still skip B5 and take the staged route,
+        whose selections go to B3 or, past the select threshold, to B6."""
         calls = []
         monkeypatch.setattr(mk, "STREAM_MIN_ELEMS_F32", 16 * 16)
         monkeypatch.setattr(mk, "FIT_STREAM_MIN_ELEMS_F32", 16 * 16)
-        monkeypatch.setattr(ms, "macenko_fit_stream", lambda x: calls.append(x.dtype) or
-                            ms.macenko_fit_stream_plain(x))
-        x = torch.as_tensor(_f32(_tiles(1, 16, 16, seed=2))).to(dtype)
+        monkeypatch.setattr(ms, "macenko_fit_stream", lambda x: calls.append("B5"))
+        monkeypatch.setattr(mk, "SELECT_STREAM_MIN_ELEMS", 16 * 16 * 2)
+        b3, b6 = sel.kth_smallest_pallas, ss.kth_smallest_streaming
+        monkeypatch.setattr(sel, "kth_smallest_pallas",
+                            lambda x, r: calls.append(("B3", x.shape)) or b3(x, r))
+        monkeypatch.setattr(ss, "kth_smallest_streaming",
+                            lambda x, r, init: calls.append(("B6", x.shape)) or b6(x, r, init))
+        x = torch.as_tensor(_f32(_tiles(2, 16, 16, seed=2))).to(dtype)
+        mk.macenko_fit(x[:1])
         mk.macenko_fit(x)
-        assert calls == [torch.float32]
+        assert calls == [("B3", (1, 256)), ("B3", (2, 256)), ("B6", (1, 512)), ("B6", (2, 512))]
 
     def test_main_path_sizes(self):
         """Where the H100 measurements put the port's configurations."""
