@@ -29,12 +29,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    2e-5, maxC rtol 1e-4); the multi-block transform (B4) against B1's plain
    version on 4×3×2048² and 1×3×4096² uint8, 1×3×2048² float32, a ragged
    1×3×1999×2011, an all-white 2048² tile, 1×3×8192² uint8, the 64×3×512²
-   batch and path (a)'s 256×3×224² float32 batch, and B1 on 256×3×224²
-   uint8 and float32 (≤ 1 grey level); B6 bit for bit on every field that
-   the main path, path (a) and path (b) feed it, and that B4 and B5 feed it
-   at 64×3×512² uint8, 256×3×224² float32 and 4×3×2048² uint8 (each
-   selection recorded as the call makes it, with the field kernel's (min,
-   max, count) init held exact); the exact row select (B3) bit for bit on
+   batch and path (a)'s 256×3×224² float32 batch, and B1 on 256×3×64²
+   and 256×3×224² uint8 and 256×3×224² float32 (≤ 1 grey level), B2 on a
+   64² and a 224² reference; B4 and B5 on both their routes
+   (cluster and streamed) wherever the rows fit a cluster; the selections
+   fused into B4 and B5 bit for bit against B6's plain version on the keys
+   the call selected on (written by a check-only entry with the kernels'
+   own device functions) for the main path's fit and transform, path (a)'s
+   pool and batch, path (b), a float32 2048² image and WSI tiles, on each
+   route; the exact row select (B3) bit for bit on
    (64, 512²) K=2, (128, 512²) K=1, (256, 224²) K=2, (512, 224²) K=1 and
    ragged (3, 1 000 003) fields with sentinels, ties, ranks past the count
    and an empty row, on a row of ±0.0 and an all-+inf row, with K = 10 (two
@@ -54,7 +57,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    images), also with ``batch_ref_index=0``, and Reinhard and histogram
    matching in batch mode once each; WSI tiles, ``Macenko().fit(tile)
    .transform(tiles)`` on 256×3×224² uint8 with one of the tiles as the
-   reference (MAE ≤ 0.35 on 8 tiles); path (b), ``Macenko().fit(ref)
+   reference (MAE ≤ 0.35 on 8 tiles); small patches, the same on
+   256×3×64² uint8 with a 64² reference patch; path (b), ``Macenko().fit(ref)
    .transform(batch)`` on 4×3×2048² and 1×3×4096² uint8 (MAE ≤ 0.35 on one
    image); path (c), the staged route, ``Macenko(precision=...).fit(ref)
    .transform(batch)`` at 64×3×512² bfloat16 under "stable" and "fast" and
@@ -65,7 +69,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
-   same function, that call; the public-API fit and transform of each
+   same function, that call; B4 and B5 at every path shape on their routes,
+   with their bounds, and B4 and B5 at the main path's shapes on every
+   cluster size; the public-API fit and transform of each
    normalizer and the Macenko paths (also replayed, for the device's busy
    time and idle share, which the kernel time ``torch.profiler`` records
    cross-checks); the histogram on an all-white batch; the sweep of
@@ -93,6 +99,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BATCH, SIZE = 64, 512  # the main path: bench.py's configuration
+P_SIZE = 64  # small patches: the one-block kernels' sizes on the ladder
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pixel needs, each formula evaluated once: OD 9,
@@ -254,7 +261,6 @@ def main() -> int:
     from stainx_tpu_torch.kernels import reinhard_fused as rf
     from stainx_tpu_torch.kernels import selection as sel
     from stainx_tpu_torch.kernels import selection_stream as ss
-    from stainx_tpu_torch.kernels.selection import unkey
     from stainx_tpu_torch.ops import macenko as mk
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
     from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
@@ -444,21 +450,33 @@ def main() -> int:
     check_select(f"({rows}, {p}) K=10 with init", x, many, init)
     del x
 
-    # B5, the multi-block fit, against B2's plain version.
+    # B5, the multi-block fit, against B2's plain version, on the route the
+    # wrapper takes and on the other where the rows fit a cluster.
+    def routes(x, fit):
+        n, _, h, w = x.shape
+        rows, row_len = (1, n * h * w) if fit else (n, h * w)
+        smem = kernels.device_limits(dev.index)[1]
+        default = ms.route(row_len, x.dtype, smem)
+        fits = ms.fits_cluster(row_len, x.element_size(), smem)
+        return [default] + [r for r in ("cluster", "stream") if r != default and fits]
+
     def check_fit_stream(label, x):
-        he5, mc5 = ms.macenko_fit_stream(x)
-        he2, mc2 = mf.macenko_fit_mega_plain(x)
-        again = ms.macenko_fit_stream(x)
-        torch.cuda.synchronize()
-        he_err = (he5 - he2).abs().max().item()
-        rel = ((mc5 - mc2).abs() / mc2.abs()).max().item()
-        print(f"B5 fit {label}: HE max|d| {he_err:.3g} (atol 2e-5), maxC max rel {rel:.3g} "
-              "(rtol 1e-4)")
-        torch.testing.assert_close(he5, he2, atol=2e-5, rtol=0)
-        torch.testing.assert_close(mc5, mc2, atol=0, rtol=1e-4)
-        require(torch.equal(again[0], he5) and torch.equal(again[1], mc5),
-                f"{label}: two B5 runs differ")
-        return max(he_err, (mc5 - mc2).abs().max().item())
+        err = 0.0
+        for force in routes(x, True):
+            he5, mc5 = ms.macenko_fit_stream(x, force=force)
+            he2, mc2 = mf.macenko_fit_mega_plain(x)
+            again = ms.macenko_fit_stream(x, force=force)
+            torch.cuda.synchronize()
+            he_err = (he5 - he2).abs().max().item()
+            rel = ((mc5 - mc2).abs() / mc2.abs()).max().item()
+            print(f"B5 fit {label}, {force} route: HE max|d| {he_err:.3g} (atol 2e-5), maxC max "
+                  f"rel {rel:.3g} (rtol 1e-4)")
+            torch.testing.assert_close(he5, he2, atol=2e-5, rtol=0)
+            torch.testing.assert_close(mc5, mc2, atol=0, rtol=1e-4)
+            require(torch.equal(again[0], he5) and torch.equal(again[1], mc5),
+                    f"{label}: two B5 runs differ")
+            err = max(err, he_err, (mc5 - mc2).abs().max().item())
+        return err
 
     def dev_f32(a):
         return dev_u8(a).float() / 255.0
@@ -473,15 +491,22 @@ def main() -> int:
     check_fit_stream(f"{BATCH}x3x{SIZE}^2 u8", batch)
     check_fit_stream(f"1x3x{SIZE}^2 u8 (the reference)", ref)
 
-    # B4, the multi-block transform, against B1's plain version.
+    # B4, the multi-block transform, against B1's plain version, on both
+    # routes where the rows fit a cluster.
     def check_b4(label, x):
-        return check_transform(label, x, he_k, mc_k, ms.macenko_transform_stream, "B4")
+        out, err = None, 0.0
+        for force in routes(x, False):
+            o, e = check_transform(f"{label}, {force} route", x, he_k, mc_k,
+                                   lambda *a, f=force: ms.macenko_transform_stream(*a, force=f),
+                                   "B4")
+            out, err = (o, e) if out is None else (out, max(err, e))
+        return out, err
 
     big4 = dev_u8(synthetic_he_batch(4, 2048, 2048, seed=args.seed + 2048))
     big4_b = dev_u8(synthetic_he_batch(4, 2048, 2048, seed=args.seed + 2049, he_scale=1.1))
     big1 = dev_u8(synthetic_he_batch(1, 4096, 4096, seed=args.seed + 4096))
     big1_b = dev_u8(synthetic_he_batch(1, 4096, 4096, seed=args.seed + 4097, he_scale=1.1))
-    _, b4_err = check_b4("4x3x2048^2 u8 (path (b))", big4)
+    check_b4("4x3x2048^2 u8 (path (b))", big4)
     check_b4("1x3x4096^2 u8 (path (b))", big1)
     check_b4("1x3x2048^2 f32", big4[:1].float() / 255.0)
     check_b4("1x3x1999x2011 u8 (ragged, scalar loads)",
@@ -493,80 +518,80 @@ def main() -> int:
     huge = dev_u8(synthetic_he_batch(1, 8192, 8192, seed=args.seed + 8192))
     check_b4("1x3x8192^2 u8", huge)
     del huge, white_out, flat
-    check_b4(f"{BATCH}x3x{SIZE}^2 u8 (the main path)", batch)
-    check_b4(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch, extra)", pool_a)
+    _, b4_main_err = check_b4(f"{BATCH}x3x{SIZE}^2 u8 (the main path)", batch)
+    check_b4(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch)", pool_a)
     torch.cuda.empty_cache()
 
-    # B1 and B2 at the shapes of WSI tiles (256x3x224^2 uint8, a 224^2
-    # reference tile), and B1 on path (a)'s float32 batch. (B4 is held on
-    # that batch above as an extra: no path runs it there.)
+    # B1 and B2 at the shapes of the small-patch path (256x3x64^2 uint8, a
+    # 64^2 reference patch), which the ladder gives them, and at those of
+    # WSI tiles (256x3x224^2 uint8, a 224^2 reference tile) and path (a)'s
+    # float32 batch, which it gives B4 and B5.
     tiles_b = dev_u8(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 227,
                                         he_scale=1.1))
-    _, b1_err = check_transform(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", tiles_b, he_k, mc_k)
+    patches = dev_u8(synthetic_he_batch(A_BATCH, P_SIZE, P_SIZE, seed=args.seed + 64))
+    patches_b = dev_u8(synthetic_he_batch(A_BATCH, P_SIZE, P_SIZE, seed=args.seed + 65,
+                                          he_scale=1.1))
+    _, b1_err = check_transform(f"{A_BATCH}x3x{P_SIZE}^2 u8 (small patches)", patches_b, he_k, mc_k)
+    check_transform(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", tiles_b, he_k, mc_k)
     check_transform(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a, he_k, mc_k)
-    he_x, mc_x = mf.macenko_fit_mega(tiles_b[:1])
-    he_xp, mc_xp = mf.macenko_fit_mega_plain(tiles_b[:1])
-    torch.cuda.synchronize()
-    fit_err = max((he_x - he_xp).abs().max().item(), (mc_x - mc_xp).abs().max().item())
-    print(f"B2 fit 1x3x{A_SIZE}^2 u8 (a WSI tile as reference): max|d| {fit_err:.3g}")
-    torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
-    torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
 
-    # B6 on the fields B4 and B5 feed it: every selection of a call is
-    # recorded as the call makes it (the pseudo-angle field with its ranks
-    # and (min, max, count) init from the field kernel, then the stacked
-    # concentration fields with the 99th-percentile rank), held bit for bit
-    # against the plain version and run again. The init is held exact too.
-    def check_b6_fields(label, call):
-        select, seen = ms.select_on_device, []
+    def check_fit_mega(label, x):
+        he_x, mc_x = mf.macenko_fit_mega(x)
+        he_xp, mc_xp = mf.macenko_fit_mega_plain(x)
+        torch.cuda.synchronize()
+        err = max((he_x - he_xp).abs().max().item(), (mc_x - mc_xp).abs().max().item())
+        print(f"B2 fit {label}: max|d| {err:.3g}")
+        torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
+        torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
+        return err
 
-        def record(x, ranks, init3):
-            out = select(x, ranks, init3)
-            seen.append((x, ranks, init3, out))
-            return out
+    fit_err = check_fit_mega(f"1x3x{P_SIZE}^2 u8 (a small patch as reference)", patches_b[:1])
+    check_fit_mega(f"1x3x{A_SIZE}^2 u8 (a WSI tile as reference)", tiles_b[:1])
 
-        ms.select_on_device = record
-        try:
-            call()
-        finally:
-            ms.select_on_device = select
-        require(len(seen) in (2, 4), f"{label}: {len(seen)} selections, a B4 or B5 call makes 2")
-        for x, ranks, init3, out in seen:
-            init, init_txt = None, ""
-            if init3 is not None:
-                keys = init3[:, :2].to(torch.int64) & 0xFFFFFFFF
-                init = (unkey(keys[:, 0]), unkey(keys[:, 1]), init3[:, 2])
-                valid = x < torch.inf
-                cnt = valid.sum(1)
-                some = cnt > 0
-                init_ok = (torch.equal(init[2].to(torch.int64), cnt)
-                           and torch.equal(init[0][some], x.amin(1)[some])
-                           and torch.equal(init[1][some],
-                                           torch.where(valid, x, -torch.inf).amax(1)[some]))
-                require(init_ok, f"{label}: the field kernel's init is not exact")
-                init_txt = ", init exact"
-            plain = ss.kth_smallest_streaming_plain(x, ranks, init)
-            again = select(x, ranks, init3)
-            torch.cuda.synchronize()
-            same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
-            print(f"B6 on {label}: field {tuple(x.shape)} K={ranks.shape[1]}"
-                  f"{' with init' if init3 is not None else ''}: bit-exact {same}{init_txt}")
-            require(same, f"{label}: B6 differs from its plain version on the path's field")
-            require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
-                    f"{label}: two B6 runs differ on the path's field")
-        del seen
+    # The selections fused into B4 and B5, bit for bit: a call's selected
+    # pseudo-angles and maxC (its RowParams) against B6's plain version on
+    # the keys that call selected on, which a check-only entry of the kernel
+    # source writes with the kernels' own device functions; the call run
+    # again must give the same bits.
+    def check_fused(label, x, fit, force):
+        def call():
+            out = None if fit else torch.empty_like(x)
+            return ms._run(x, out, he_k.contiguous(), mc_k.contiguous(), fit=fit, force=force)
 
-    check_b6_fields(f"the main path's fit and transform, {BATCH}x3x{SIZE}^2 u8",
-                    lambda: Macenko().fit(ref).transform(batch))
-    check_b6_fields(f"path (a)'s forward, {A_BATCH}x3x{A_SIZE}^2 f32",
-                    lambda: StainNormalizerTransform("macenko", mode="batch",
-                                                     batch_ref_index=None)(pool_a))
-    check_b6_fields("path (b)'s fit and transform, 4x3x2048^2 u8",
-                    lambda: Macenko().fit(ref).transform(big4))
-    for label, x in [(f"{BATCH}x3x{SIZE}^2 u8", batch),
-                     (f"{A_BATCH}x3x{A_SIZE}^2 f32", pool_a), ("4x3x2048^2 u8", big4)]:
-        check_b6_fields(f"B5 {label}", lambda x=x: ms.macenko_fit_stream(x))
-        check_b6_fields(f"B4 {label}", lambda x=x: ms.macenko_transform_stream(x, he_k, mc_k))
+        params, again = call(), call()
+        angles, conc = ms.kernel_keys(x, params, fit)
+        cnt = (angles < torch.inf).sum(1)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
+        top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
+        phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
+        idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
+                           device=dev)
+        maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
+        torch.cuda.synchronize()
+        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+        same_phi = torch.equal(bits(phi), bits(params[:, ms.PHI_COLUMNS]))
+        same_maxc = torch.equal(bits(maxc), bits(params[:, ms.MAXC_COLUMNS]))
+        print(f"fused selections of {'B5' if fit else 'B4'} {label}, {force} route: angles "
+              f"{tuple(angles.shape)} and concentrations {tuple(conc.shape)}: phi bit-exact "
+              f"{same_phi}, maxC bit-exact {same_maxc}")
+        require(same_phi and same_maxc, f"{label}: a fused selection differs from B6's plain version")
+        stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
+        require(torch.equal(bits(stats(params)), bits(stats(again))),
+                f"{label}: two runs' statistics differ")
+
+    for label, x, fit in [
+        (f"1x3x{SIZE}^2 u8 (the main path's reference)", ref, True),
+        (f"{BATCH}x3x{SIZE}^2 u8 (the main path)", batch, False),
+        (f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s pool)", pool_a, True),
+        (f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch)", pool_a, False),
+        ("4x3x2048^2 u8 (path (b))", big4, False),
+        ("1x3x2048^2 f32", big4[:1].float() / 255.0, False),
+        (f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", dev_u8(synthetic_he_batch(
+            A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 226)), False),
+    ]:
+        for force in routes(x, fit):
+            check_fused(label, x, fit, force)
     torch.cuda.empty_cache()
 
     # B3, the exact row select, bit for bit against its plain version.
@@ -657,16 +682,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. The paths through the public API. Each Macenko path must launch
-    # exactly the kernels written beside it: B2 and B1, or B5 and B4 with
-    # two B6 launches each (the H100 ladder of stainx_tpu_torch/ops/macenko.py);
-    # the staged route B3 and B6 directly (its select threshold).
+    # exactly the kernels written beside it: B2 or B5 and B1 or B4 (the H100
+    # ladder of stainx_tpu_torch/ops/macenko.py), B4 and B5 with no B6
+    # launch (they select inside their own kernels); the staged route B3 and
+    # B6 directly (its select threshold).
     macenko_wrappers = [mf.macenko_fit_mega, mf.macenko_transform_mega, ms.macenko_fit_stream,
                         ms.macenko_transform_stream, ss.kth_smallest_streaming,
                         sel.kth_smallest_pallas]
 
     def launches(b2=0, b1=0, b5=0, b4=0, b3=0, b6=0):
         return {"macenko_fit_mega": b2, "macenko_transform_mega": b1, "macenko_fit_stream": b5,
-                "macenko_transform_stream": b4, "kth_smallest_streaming": 2 * (b5 + b4) + b6,
+                "macenko_transform_stream": b4, "kth_smallest_streaming": b6,
                 "kth_smallest_pallas": b3}
 
     def drive_macenko(label, path, want):
@@ -680,8 +706,9 @@ def main() -> int:
         return result, counts
 
     normalizer = Macenko()
-    out, _ = drive_macenko(f"main path, Macenko {BATCH}x3x{SIZE}^2 u8",
-                           lambda: normalizer.fit(ref).transform(batch), launches(b5=1, b4=1))
+    out, main_launches = drive_macenko(f"main path, Macenko {BATCH}x3x{SIZE}^2 u8",
+                           lambda: normalizer.fit(ref).transform(batch),
+                                       launches(b5=1, b4=1))  # B6: 0
     require(out.is_cuda and out.dtype == torch.uint8 and out.shape == batch.shape,
             "main path output is not a uint8 batch of the input shape on the card")
     ref_np, sub = ref.cpu().numpy(), batch[:8].cpu().numpy()
@@ -736,7 +763,7 @@ def main() -> int:
     transform_a = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None)
     out_a, a_launches = drive_macenko(
         f"path (a), batch mode {A_BATCH}x3x{A_SIZE}^2 f32", lambda: transform_a(pool_a),
-        launches(b5=1, b1=1))
+        launches(b5=1, b4=1))  # B6: 0
     require(out_a.is_cuda and out_a.dtype == torch.float32 and out_a.shape == pool_a.shape,
             "path (a) output is not a float32 batch of the input shape on the card")
     require(bool(torch.isfinite(out_a).all()) and 0.0 <= out_a.min() and out_a.max() <= 1.0,
@@ -749,7 +776,7 @@ def main() -> int:
 
     transform_a0 = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=0)
     out_a0, _ = drive_macenko(
-        "path (a), batch_ref_index=0", lambda: transform_a0(pool_a), launches(b2=1, b1=1))
+        "path (a), batch_ref_index=0", lambda: transform_a0(pool_a), launches(b5=1, b4=1))  # B6: 0
     he_a0, mc_a0 = oracle.macenko_fit(pool_np[:1])
     mae_a0 = mae_255(out_a0[:8], oracle.macenko_transform(pool_np[:8], he_a0, mc_a0))
     print(f"path (a), batch_ref_index=0: oracle MAE on 8 images {mae_a0:.4f} (gate 0.35)")
@@ -771,9 +798,9 @@ def main() -> int:
     tiles_np = synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 226)
     tiles, tile_ref = dev_u8(tiles_np), dev_u8(tiles_np[:1])
     norm_t = Macenko()
-    out_t, t_launches = drive_macenko(
+    out_t, _ = drive_macenko(
         f"WSI tiles, Macenko {A_BATCH}x3x{A_SIZE}^2 u8 with a {A_SIZE}^2 reference",
-        lambda: norm_t.fit(tile_ref).transform(tiles), launches(b2=1, b1=1))
+        lambda: norm_t.fit(tile_ref).transform(tiles), launches(b5=1, b4=1))  # B6: 0
     require(out_t.is_cuda and out_t.dtype == torch.uint8 and out_t.shape == tiles.shape,
             "WSI tiles: output is not a uint8 batch of the input shape on the card")
     he_t, mc_t = oracle.macenko_fit(tiles_np[:1])
@@ -782,6 +809,21 @@ def main() -> int:
     print(f"WSI tiles: oracle MAE on 8 tiles {mae_t:.4f} (gate 0.35)")
     require(mae_t <= 0.35, f"WSI tiles: oracle MAE {mae_t} above 0.35")
 
+    # Small patches: 256x3x64^2 uint8 patches normalized to a 64^2 reference
+    # patch, the sizes the ladder leaves to the one-block kernels.
+    patches_np = patches.cpu().numpy()
+    norm_p = Macenko()
+    out_p, p_launches = drive_macenko(
+        f"small patches, Macenko {A_BATCH}x3x{P_SIZE}^2 u8 with a {P_SIZE}^2 reference",
+        lambda: norm_p.fit(patches[:1]).transform(patches), launches(b2=1, b1=1))  # B6: 0
+    require(out_p.is_cuda and out_p.dtype == torch.uint8 and out_p.shape == patches.shape,
+            "small patches: output is not a uint8 batch of the input shape on the card")
+    he_pt, mc_pt = oracle.macenko_fit(patches_np[:1])
+    expect_p = oracle.macenko_transform(patches_np[:8], he_pt, mc_pt).astype(np.float32)
+    mae_p = float(np.abs(out_p[:8].cpu().numpy().astype(np.float32) - expect_p).mean())
+    print(f"small patches: oracle MAE on 8 patches {mae_p:.4f} (gate 0.35)")
+    require(mae_p <= 0.35, f"small patches: oracle MAE {mae_p} above 0.35")
+
     # Path (b): whole-slide regions, a 512^2 reference fit then large rows.
     b_normalizers = {}
     b_launches = {}
@@ -789,7 +831,7 @@ def main() -> int:
         norm_b = Macenko()
         out_b, b_launches[label] = drive_macenko(
             f"path (b), Macenko {label} u8", lambda: norm_b.fit(ref).transform(x),
-            launches(b5=1, b4=1))
+            launches(b5=1, b4=1))  # B6: 0
         require(out_b.is_cuda and out_b.dtype == torch.uint8 and out_b.shape == x.shape,
                 f"path (b) {label}: output is not a uint8 batch of the input shape on the card")
         expect_b = oracle.macenko_transform(x[:1].cpu().numpy(), he_o, mc_o).astype(np.float32)
@@ -911,26 +953,81 @@ def main() -> int:
 
     # The streaming tier, B1 and B2 at the shapes their paths give them.
     pair_a, pair_t = [pool_a, pool_a_b], [tiles, tiles_b]
-    ms_t = kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)",
-                     lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_t)
-    ms_tp = event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair_t, 2)
-    singles = [tiles[:1], tiles_b[:1]]
-    ms_f = kernel_ms(f"B2 macenko_fit_mega 1x3x{A_SIZE}^2 u8 (a WSI tile as reference)",
-                     mf.macenko_fit_mega, singles)
-    ms_fp = event_ms(mf.macenko_fit_mega_plain, singles, 5)
+    pair_p = [patches, patches_b]
+    ms_b1 = kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{P_SIZE}^2 u8 (small patches)",
+                      lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_p)
+    ms_b1_p = event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair_p, 3)
+    ms_f = kernel_ms(f"B2 macenko_fit_mega 1x3x{P_SIZE}^2 u8 (a small patch as reference)",
+                     mf.macenko_fit_mega, [patches[:1], patches_b[:1]])
+    ms_fp = event_ms(mf.macenko_fit_mega_plain, [patches[:1], patches_b[:1]], 5)
+    kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 u8 (the WSI tiles' shape)",
+              lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_t)
+    kernel_ms(f"B2 macenko_fit_mega 1x3x{A_SIZE}^2 u8 (a WSI tile's shape)",
+              mf.macenko_fit_mega, [tiles[:1], tiles_b[:1]])
+    kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch shape)",
+              lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_a)
+    # B4 and B5 at every path shape, on the route the wrapper takes (and the
+    # other one where the rows fit a cluster), with their byte bounds.
     pair_b = [big4, big4_b]
-    ms_b4 = kernel_ms("B4 macenko_transform_stream 4x3x2048^2 u8 (path (b))",
-                      lambda x: ms.macenko_transform_stream(x, he_k, mc_k), pair_b)
-    ms_b4_p = event_ms(lambda x: ms.macenko_transform_stream_plain(x, he_k, mc_k), pair_b, 2)
-    kernel_ms("B4 macenko_transform_stream 1x3x4096^2 u8 (path (b))",
-              lambda x: ms.macenko_transform_stream(x, he_k, mc_k), [big1, big1_b])
-    kernel_ms(f"B4 macenko_transform_stream {BATCH}x3x{SIZE}^2 u8 (the main path)",
-              lambda x: ms.macenko_transform_stream(x, he_k, mc_k), pair)
-    ms_b5 = kernel_ms(f"B5 macenko_fit_stream {A_BATCH}x3x{A_SIZE}^2 f32 (path (a))",
-                      ms.macenko_fit_stream, pair_a)
+
+    def b4_ms(label, xs, force=None):
+        n, _, h, w = xs[0].shape
+        take = force or ms.route(h * w, xs[0].dtype, kernels.device_limits(dev.index)[1])
+        t = kernel_ms(f"B4 macenko_transform_stream {label}, {take} route",
+                      lambda x: ms.macenko_transform_stream(x, he_k, mc_k, force=force), xs)
+        bound, by = bound_ms(2 * xs[0].numel() * xs[0].element_size(),
+                             OPS_PER_PIXEL_TRANSFORM * n * h * w)
+        print(f"B4 {label}, {take} route: bound {bound:.4f} ms by {by}")
+        return t
+
+    def b5_ms(label, xs, force=None):
+        n, _, h, w = xs[0].shape
+        take = force or ms.route(n * h * w, xs[0].dtype, kernels.device_limits(dev.index)[1])
+        t = kernel_ms(f"B5 macenko_fit_stream {label}, {take} route",
+                      lambda x: ms.macenko_fit_stream(x, force=force), xs)
+        bound, by = bound_ms(xs[0].numel() * xs[0].element_size() + 8 * 4,
+                             OPS_PER_PIXEL_FIT * n * h * w)
+        print(f"B5 {label}, {take} route: bound {bound:.4f} ms by {by}")
+        return t
+
+    ms_b4 = b4_ms(f"{BATCH}x3x{SIZE}^2 u8 (the main path)", pair)
+    ms_b4_p = event_ms(lambda x: ms.macenko_transform_stream_plain(x, he_k, mc_k), pair, 2)
+    b4_ms(f"{BATCH}x3x{SIZE}^2 u8 (the main path)", pair, "stream")
+    b4_ms("4x3x2048^2 u8 (path (b))", pair_b)
+    b4_ms("1x3x4096^2 u8 (path (b))", [big1, big1_b])
+    b4_ms(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", pair_t)
+    b4_ms(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch)", pair_a)
+    b4_ms("1x3x2048^2 f32", [big4[:1].float() / 255.0, big4_b[:1].float() / 255.0])
+    ms_b5 = b5_ms(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pair_a)
     ms_b5_p = event_ms(ms.macenko_fit_stream_plain, pair_a, 2)
-    kernel_ms(f"B5 macenko_fit_stream 1x3x{SIZE}^2 u8 (the main path's reference)",
-              ms.macenko_fit_stream, [ref, ref_b])
+    b5_ms(f"1x3x{SIZE}^2 u8 (the main path's reference)", [ref, ref_b])
+    b5_ms(f"1x3x{SIZE}^2 u8 (the main path's reference)", [ref, ref_b], "stream")
+    b5_ms(f"{BATCH}x3x{SIZE}^2 u8", pair)
+
+    # The cluster shapes of the main path's transform and fit: every cluster
+    # size, with the slice's resident part as large as fits, and how many
+    # such clusters the card holds at once.
+    shape_of = ms.cluster_shape
+    smem = kernels.device_limits(dev.index)[1]
+    budget = ms.resident_budget(1, smem)
+    active = lambda c, r: ms._active_clusters(dev.index, torch.uint8, c, r)  # noqa: E731
+    for name, rows, call, xs in [
+        ("B4", BATCH, lambda x: ms.macenko_transform_stream(x, he_k, mc_k, force="cluster"), pair),
+        ("B5", 1, lambda x: ms.macenko_fit_stream(x, force="cluster"), [ref, ref_b]),
+    ]:
+        taken = shape_of(rows, SIZE * SIZE, 1, smem, active)[0]
+        for c in ms.CLUSTER_SIZES:
+            slice_ = -(-SIZE * SIZE // c)
+            slice_ += -slice_ % ms.SLICE_QUANTUM
+            resident = min(slice_, budget)
+            ms.cluster_shape = lambda *_a, c=c, s_=slice_, r=resident: (c, s_, r)
+            try:
+                t = graph_ms(call, xs, 10)
+            finally:
+                ms.cluster_shape = shape_of
+            print(f"{name} {rows}x3x{SIZE}^2 u8 on clusters of {c}: slice {slice_}, {resident} "
+                  f"resident, {active(c, resident)} clusters at once: {t:.4f} ms on the device"
+                  f"{' (the route takes it)' if taken == c else ''}")
 
     def angle_field(images):
         """The pooled pseudo-angle field B5 selects on (+inf off the beta-
@@ -951,7 +1048,8 @@ def main() -> int:
 
     fields = [angle_field(x) for x in pair_a]
     ms_b6 = kernel_ms(f"B6 kth_smallest_streaming (1, {A_BATCH * a_px}) K=2 with init "
-                      "(path (a)'s angle field)", lambda t: ss.kth_smallest_streaming(*t), fields)
+                      "(the angle field of path (a)'s pool, path (d)'s shape)",
+                      lambda t: ss.kth_smallest_streaming(*t), fields)
     ms_b6_p = event_ms(lambda t: ss.kth_smallest_streaming_plain(*t), fields, 3)
     host_ranks = [f[1][0].tolist() for f in fields]
     ms_b6_lib = event_ms(
@@ -1008,6 +1106,8 @@ def main() -> int:
     path_ms("path (a) forward, batch_ref_index=0", transform_a0, pair_a, A_BATCH, A_BATCH * a_px)
     path_ms(f"WSI tiles Macenko.transform {A_BATCH}x3x{A_SIZE}^2 u8", norm_t.transform, pair_t,
             A_BATCH, A_BATCH * a_px)
+    path_ms(f"small patches Macenko.transform {A_BATCH}x3x{P_SIZE}^2 u8", norm_p.transform, pair_p,
+            A_BATCH, A_BATCH * P_SIZE * P_SIZE)
     path_ms(f"main path Macenko.transform {BATCH}x3x{SIZE}^2 u8", normalizer.transform, pair,
             BATCH, BATCH * SIZE * SIZE)
     path_ms("path (b) Macenko.transform 4x3x2048^2 u8", b_normalizers["4x3x2048^2"].transform,
@@ -1030,10 +1130,10 @@ def main() -> int:
     # size only where its slowest round, as called, beats the other's
     # fastest; where the rounds overlap there is no winner, and the ladder
     # (ops/macenko.py) keeps the one-block kernel there.
-    print(f"route ladder: STREAM_MIN_ELEMS {mk.STREAM_MIN_ELEMS}, STREAM_MIN_ELEMS_F32 "
-          f"{mk.STREAM_MIN_ELEMS_F32}, STREAM_MAX_ROWS {mk.STREAM_MAX_ROWS}, "
-          f"FIT_STREAM_MIN_ELEMS {mk.FIT_STREAM_MIN_ELEMS} (float32 "
-          f"{mk.FIT_STREAM_MIN_ELEMS_F32})")
+    print(f"route ladder: STREAM_MIN_ELEMS {mk.STREAM_MIN_ELEMS}, STREAM_MAX_ROWS "
+          f"{mk.STREAM_MAX_ROWS}, STREAM_MIN_ELEMS_F32 {mk.STREAM_MIN_ELEMS_F32}, "
+          f"STREAM_MAX_ROWS_F32 {mk.STREAM_MAX_ROWS_F32}, FIT_STREAM_MIN_ELEMS "
+          f"{mk.FIT_STREAM_MIN_ELEMS} (float32 {mk.FIT_STREAM_MIN_ELEMS_F32})")
 
     def sweep_inputs(n, side, dtype, seed):
         xs = [dev_u8(synthetic_he_batch(n, side, side, seed=seed + k)) for k in range(2)]
@@ -1067,13 +1167,16 @@ def main() -> int:
         print(f"sweep {label}: {spans}; faster in every round: {winner}; route: {routed}")
 
     types = {"u8": torch.uint8, "f32": torch.float32}
-    for n, side, dtype in [(4, 224, "u8"), (4, 256, "u8"), (4, 320, "u8"), (4, 352, "u8"),
+    for n, side, dtype in [(4, 64, "u8"), (4, 128, "u8"), (64, 64, "u8"), (64, 128, "u8"),
+                           (256, 96, "u8"), (4, 224, "u8"), (4, 256, "u8"), (4, 320, "u8"), (4, 352, "u8"),
                            (4, 384, "u8"), (4, 512, "u8"), (4, 2048, "u8"), (16, 224, "u8"),
                            (16, 256, "u8"), (16, 320, "u8"), (16, 384, "u8"), (16, 512, "u8"),
                            (16, 1024, "u8"), (64, 224, "u8"), (64, 256, "u8"), (64, 320, "u8"),
                            (64, 384, "u8"), (64, 512, "u8"), (80, 512, "u8"), (96, 512, "u8"),
                            (112, 512, "u8"), (128, 256, "u8"), (128, 512, "u8"), (256, 64, "u8"),
-                           (256, 128, "u8"), (256, 224, "u8"), (256, 256, "u8"), (4, 160, "f32"),
+                           (256, 128, "u8"), (256, 224, "u8"), (256, 256, "u8"), (512, 224, "u8"),
+                           (4, 96, "f32"), (4, 128, "f32"), (64, 96, "f32"), (64, 128, "f32"),
+                           (4, 160, "f32"),
                            (4, 224, "f32"), (4, 256, "f32"), (4, 288, "f32"), (16, 160, "f32"),
                            (16, 224, "f32"), (16, 288, "f32"), (64, 160, "f32"), (64, 224, "f32"),
                            (64, 256, "f32"), (64, 288, "f32"), (96, 224, "f32"), (128, 224, "f32"),
@@ -1084,7 +1187,8 @@ def main() -> int:
               ("B4", lambda x: ms.macenko_transform_stream(x, he_k, mc_k))],
              sweep_inputs(n, side, dtype, args.seed + 300),
              mk.transform_route(n, side * side, types[dtype]))
-    for n, side, dtype in [(1, 128, "u8"), (1, 224, "u8"), (1, 256, "u8"), (1, 288, "u8"),
+    for n, side, dtype in [(1, 64, "u8"), (1, 96, "u8"), (1, 96, "f32"), (1, 128, "f32"),
+                           (1, 160, "f32"), (1, 128, "u8"), (1, 224, "u8"), (1, 256, "u8"), (1, 288, "u8"),
                            (1, 320, "u8"), (1, 384, "u8"), (1, 416, "u8"), (1, 448, "u8"),
                            (1, 512, "u8"), (4, 128, "u8"), (4, 256, "u8"), (1, 192, "f32"),
                            (1, 224, "f32"), (1, 256, "f32"), (1, 288, "f32"), (1, 320, "f32"),
@@ -1135,10 +1239,11 @@ def main() -> int:
           f"{unearned or 'no size'}; it keeps B3 where B6 won at {kept or 'no size'}")
 
     n_px = BATCH * SIZE * SIZE
-    n_a, n_b = A_BATCH * a_px, 4 * 2048 * 2048
-    b1_bound, b1_by = bound_ms(2 * 3 * n_a, OPS_PER_PIXEL_TRANSFORM * n_a)
-    b2_bound, b2_by = bound_ms(3 * a_px + 8 * 4, OPS_PER_PIXEL_FIT * a_px)
-    b4_bound, b4_by = bound_ms(2 * 3 * n_b, OPS_PER_PIXEL_TRANSFORM * n_b)
+    n_a = A_BATCH * a_px
+    n_p = A_BATCH * P_SIZE * P_SIZE
+    b1_bound, b1_by = bound_ms(2 * 3 * n_p, OPS_PER_PIXEL_TRANSFORM * n_p)
+    b2_bound, b2_by = bound_ms(3 * P_SIZE * P_SIZE + 8 * 4, OPS_PER_PIXEL_FIT * P_SIZE * P_SIZE)
+    b4_bound, b4_by = bound_ms(2 * 3 * n_px, OPS_PER_PIXEL_TRANSFORM * n_px)
     b5_bound, b5_by = bound_ms(3 * 4 * n_a + 8 * 4, OPS_PER_PIXEL_FIT * n_a)
     # B6 reads the field once, the ranks and the init, and writes K values;
     # it needs one compare an element for each of its K ranks.
@@ -1163,17 +1268,17 @@ def main() -> int:
     rows = [
         {"name": "macenko_transform_mega", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_fused.cu", "replaces": f"{TPU_SOURCE}:529",
-         "launches": t_launches["macenko_transform_mega"], "max_abs_err": b1_err,
-         "ms": ms_t, "plain_ms": ms_tp, "bound_ms": b1_bound, "bound_by": b1_by,
+         "launches": p_launches["macenko_transform_mega"], "max_abs_err": b1_err,
+         "ms": ms_b1, "plain_ms": ms_b1_p, "bound_ms": b1_bound, "bound_by": b1_by,
          "library_ms": None},
         {"name": "macenko_fit_mega", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_fused.cu", "replaces": f"{TPU_SOURCE}:748",
-         "launches": t_launches["macenko_fit_mega"], "max_abs_err": fit_err,
+         "launches": p_launches["macenko_fit_mega"], "max_abs_err": fit_err,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": None},
         {"name": "macenko_transform_stream", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_stream.cu", "replaces": f"{TPU_STREAM}:769",
-         "launches": b_launches["4x3x2048^2"]["macenko_transform_stream"], "max_abs_err": b4_err,
+         "launches": main_launches["macenko_transform_stream"], "max_abs_err": b4_main_err,
          "ms": ms_b4, "plain_ms": ms_b4_p, "bound_ms": b4_bound, "bound_by": b4_by,
          "library_ms": None},
         {"name": "macenko_fit_stream", "route": "cuda",
@@ -1183,7 +1288,7 @@ def main() -> int:
          "library_ms": None},
         {"name": "kth_smallest_streaming", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/selection.cu", "replaces": f"{TPU_SELECT}:381",
-         "launches": a_launches["kth_smallest_streaming"], "max_abs_err": 0.0,
+         "launches": d_launches["kth_smallest_streaming"], "max_abs_err": 0.0,
          "ms": ms_b6, "plain_ms": ms_b6_p, "bound_ms": b6_bound, "bound_by": b6_by,
          "library_ms": ms_b6_lib},
         {"name": "reinhard_moments", "route": "cuda",

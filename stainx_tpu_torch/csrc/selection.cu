@@ -5,8 +5,9 @@
 //   stainx_tpu/kernels/selection_stream.py::kth_smallest_streaming
 //   (_stream_kernel), B6: K nearest-rank selections per row of an (R, P)
 //   float32 field with +inf sentinels, rows of any length, with an optional
-//   per-row (min, max, count) init. B4 and B5 (macenko_stream.cu) run it on
-//   their device-memory key caches.
+//   per-row (min, max, count) init. The staged Macenko route runs it on few
+//   long rows (stainx_tpu_torch/ops/macenko.py select_route); B4 and B5
+//   select inside their own kernels (macenko_stream.cu).
 //
 // What bounds it
 //   Reading the field once: 4 bytes an element, 0.020 ms for a 16.8 M field

@@ -17,6 +17,7 @@ that the wrappers share live here too.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -129,10 +130,18 @@ def check_cuda(tensor: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous tensor")
 
 
+@functools.cache
+def device_limits(index: int) -> tuple[int, int]:
+    """(SMs, opt-in shared memory a block in bytes) of CUDA device
+    ``index``, read once per device."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
 def grid_blocks(items: int, device: torch.device) -> int:
     """Blocks of a grid-stride launch of 256-thread blocks over ``items``
     work items, one a thread, at most 8 blocks (2048 threads) an SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = device_limits(torch.device(device).index)[0]
     return max(1, min(-(-items // 256), sms * 8))
 
 
@@ -140,5 +149,5 @@ def row_blocks(rows: int, items: int, device: torch.device) -> int:
     """Blocks a row gets in a (blocks, rows) launch of 256-thread blocks over
     rows of ``items`` work items each: about 8 blocks (2048 threads) an SM
     over all rows, at least one a row, and no more than one per 256 items."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = device_limits(torch.device(device).index)[0]
     return max(1, min(-(-sms * 8 // max(rows, 1)), -(-items // 256)))

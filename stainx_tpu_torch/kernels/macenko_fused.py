@@ -147,10 +147,11 @@ def _project(od: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _stain_params(od: torch.Tensor, fallback: bool, stream: bool = False):
     """The statistics both kernels share, for rows of OD (R, 3, P):
     returns HE (R, 3, 2), concentration planes c0, c1 (R, P) and their 99th
-    percentiles maxc (R, 2). With ``stream`` the selections run as the
-    streaming kernels (B4, B5) run them: on fields with +inf sentinels
-    through B6's plain version, the angles with their (min, max, count)
-    init. Both forms select the same elements."""
+    percentiles maxc (R, 2). With ``stream`` (the plain versions of B4 and
+    B5) the selections run through B6's plain version on fields with +inf
+    sentinels, the angles with their (min, max, count) init: B6's
+    conventions, which B4 and B5 follow in the radix selects inside their
+    own kernels. Both forms select the same elements."""
     rows, _, p = od.shape
     bmask = torch.amin(od, dim=1) >= BETA
     cnt, sums = masked_moments(od, bmask)

@@ -64,13 +64,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def select_on_device(x: torch.Tensor, ranks: torch.Tensor, init3: torch.Tensor | None):
-    """B6 on a contiguous (R, P) float32 CUDA field with (R, K) int32 CUDA
-    ranks and an optional (R, 3) int32 key-space init (:func:`init_keys`),
-    all left on the card. One launch per 8 ranks."""
+def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
+    """Exact nearest-rank selection (B6): (R, P) float32 with +inf
+    sentinels, ranks (R, K) int32 → (R, K) float32. ``init`` is an optional
+    tuple of (R,) ``(min_vals, max_vals, counts)``. One launch a call (per 8
+    ranks)."""
+    if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"kth_smallest_streaming expects x (R, P) and ranks (R, K), got "
+            f"{tuple(x.shape)} and {tuple(ranks.shape)}"
+        )
+    if x.device.type == "cpu":
+        return kth_smallest_streaming_plain(x, ranks, init)
+    if x.dtype != torch.float32:
+        raise TypeError(f"kth_smallest_streaming takes a float32 field, got {x.dtype}")
+    kernels.check_cuda(x, "kth_smallest_streaming")
+    dev = x.device
+    ranks = ranks.to(device=dev, dtype=torch.int32)
+    init3 = None
+    if init is not None:
+        init3 = init_keys(*(torch.as_tensor(v).to(dev) for v in init)).contiguous()
     rows, p = x.shape
     k_all = ranks.shape[1]
-    dev = x.device
     if rows == 0 or p == 0 or k_all == 0:
         return torch.full((rows, k_all), torch.inf, dtype=torch.float32, device=dev)
     if rows > MAX_ROWS:
@@ -98,29 +113,6 @@ def select_on_device(x: torch.Tensor, ranks: torch.Tensor, init3: torch.Tensor |
         kth_smallest_streaming.launches += 1
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-
-
-def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
-    """Exact nearest-rank selection (B6): (R, P) float32 with +inf
-    sentinels, ranks (R, K) int32 → (R, K) float32. ``init`` is an optional
-    tuple of (R,) ``(min_vals, max_vals, counts)``. One launch a call (per 8
-    ranks)."""
-    if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
-        raise ValueError(
-            f"kth_smallest_streaming expects x (R, P) and ranks (R, K), got "
-            f"{tuple(x.shape)} and {tuple(ranks.shape)}"
-        )
-    if x.device.type == "cpu":
-        return kth_smallest_streaming_plain(x, ranks, init)
-    if x.dtype != torch.float32:
-        raise TypeError(f"kth_smallest_streaming takes a float32 field, got {x.dtype}")
-    kernels.check_cuda(x, "kth_smallest_streaming")
-    dev = x.device
-    ranks = ranks.to(device=dev, dtype=torch.int32)
-    init3 = None
-    if init is not None:
-        init3 = init_keys(*(torch.as_tensor(v).to(dev) for v in init)).contiguous()
-    return select_on_device(x, ranks, init3)
 
 
 kth_smallest_streaming.launches = 0

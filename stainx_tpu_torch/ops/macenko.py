@@ -6,8 +6,8 @@ Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
 - uint8 and float32 go by size to the kernel wrappers of
   :mod:`stainx_tpu_torch.kernels.macenko_fused` (B1, B2: one thread block
   per image or pool) or :mod:`stainx_tpu_torch.kernels.macenko_stream` (B4,
-  B5: a row split across many blocks). These kernels are exact, so
-  ``precision`` has nothing to trade there.
+  B5: a thread-block cluster a row, or a row spread over the card). These
+  kernels are exact, so ``precision`` has nothing to trade there.
 - Every other dtype (bfloat16, float16, float64), which those kernels do
   not take, runs the staged pipeline: OD, the β-mask (with the <3-pixel
   fallback at transform only), the two-pass masked covariance,
@@ -46,28 +46,36 @@ ALPHA = 1  # integer percent: percentile ranks are computed exactly
 
 _KERNEL_DTYPES = (torch.uint8, torch.float32)
 
-# The H100's size ladder, from the sweep of B1 against B4 and B2 against B5
-# in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W). B1 and B2 run one
-# thread block per image or pool, so up to a wave of images B1 costs the
-# time of one image; B4 and B5 spread a row over the card, and below about
-# 0.13 ms on the device their call is bound by its host cost, which varied
-# from 0.20 to 0.76 ms between rounds and runs. A multi-block kernel takes a
-# size only where the one-block kernel's device time exceeds that slowest
-# host-bound call (0.76 ms) and the multi-block kernel was faster as called
-# in every round; elsewhere, and where rounds overlapped, the one-block
-# kernel keeps it.
-# Transform (B4): rows of at least 147 456 uint8 pixels (384²; B1 0.79 ms)
-# or 82 944 float32 (288²; B1 0.78 ms, three logf a pixel a pass), and at
-# most 64 rows: B4's time grows with the rows while B1's stays one wave.
-# Past 64 rows B4's wins were thin or did not repeat: 96 rows of 512²
-# uint8 by 7 %, 112 lost; 256 rows of 224² float32 overlapped in one run.
-STREAM_MIN_ELEMS = 147_456
-STREAM_MIN_ELEMS_F32 = 82_944
-STREAM_MAX_ROWS = 64
-# Fit (B5): pools of at least 200 704 uint8 pixels (448²; B2 0.96 ms) or
-# 102 400 float32 (320²; B2 0.83 ms).
-FIT_STREAM_MIN_ELEMS = 200_704
-FIT_STREAM_MIN_ELEMS_F32 = 102_400
+# The H100's size ladder, from the three-round sweep of B1 against B4 and
+# B2 against B5 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), run twice
+# on the same tree. A multi-block kernel takes a size only where it was
+# faster as called in every round of both runs; each bound is the last size
+# measured on the winning side. B4 and B5 make one C call (one cluster
+# launch for rows that fit a cluster), so their host cost needs no margin of
+# its own.
+# Transform (B4): uint8 rows of at least 50 176 pixels (224²) in batches of
+# up to 512 rows. B4 won every cell from 224² up, 4 to 512 rows: 4x224² at
+# 0.073-0.109 ms called against B1's 0.290-0.294, the WSI tiles' 256x224²
+# at 0.436-0.476 against 0.587-0.624, 64x512² at 0.512-0.515 against
+# 1.508-1.510, 512x224² at 0.816-0.880 against 1.178-1.227. At 128² the
+# rounds of 64 rows overlapped in one run (0.105-0.132 against 0.109-0.110;
+# on the device 0.057 against 0.103); B1 won 4x64² and 256x64². float32
+# rows of at least 25 600 pixels (160²) in batches of up to 256 rows: path
+# (a)'s 256x224² at 0.960-0.987 against 1.131-1.142; B1 won 256x128²
+# (0.349-0.350 against 0.410-0.412), though B4 won 4 and 64 rows of 96² and
+# 128².
+STREAM_MIN_ELEMS = 50_176
+STREAM_MAX_ROWS = 512
+STREAM_MIN_ELEMS_F32 = 25_600
+STREAM_MAX_ROWS_F32 = 256
+# Fit (B5): uint8 pools of at least 50 176 pixels (a 224² tile: 0.069-0.118
+# ms called against B2's 0.263-0.269; 4x128²: 0.076-0.088 against
+# 0.332-0.335). At 1x128² the rounds overlapped in one run (0.098-0.167
+# against 0.099-0.101); B2 won 1x64² and 1x96². float32 pools of at least
+# 9 216 pixels, the smallest measured (1x96²: 0.069-0.104 against
+# 0.110-0.111).
+FIT_STREAM_MIN_ELEMS = 50_176
+FIT_STREAM_MIN_ELEMS_F32 = 9_216
 # The staged pipeline's selections, from the three-round sweep of B3
 # against B6 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule
 # of the ladder above. B3 (one thread block a row) was faster as called in
@@ -90,8 +98,11 @@ SELECT_STREAM_MAX_ROWS = 32
 def transform_route(n: int, p: int, dtype: torch.dtype) -> str:
     """``"stream"`` (B4) or ``"mega"`` (B1) for N rows of P pixels of the
     kernel input ``dtype`` (uint8 or float32)."""
-    floor = STREAM_MIN_ELEMS if dtype == torch.uint8 else STREAM_MIN_ELEMS_F32
-    return "stream" if p >= floor and n <= STREAM_MAX_ROWS else "mega"
+    if dtype == torch.uint8:
+        floor, cap = STREAM_MIN_ELEMS, STREAM_MAX_ROWS
+    else:
+        floor, cap = STREAM_MIN_ELEMS_F32, STREAM_MAX_ROWS_F32
+    return "stream" if p >= floor and n <= cap else "mega"
 
 
 def fit_route(pixels: int, dtype: torch.dtype) -> str:

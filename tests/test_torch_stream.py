@@ -289,19 +289,28 @@ class TestRouteLadder:
         """Where the H100 measurements put the port's configurations."""
         u8, f32 = torch.uint8, torch.float32
         assert mk.fit_route(256 * 224 * 224, f32) == "stream"  # path (a)
-        assert mk.fit_route(224 * 224, f32) == "mega"  # path (a), batch_ref_index=0
+        assert mk.fit_route(224 * 224, f32) == "stream"  # path (a), batch_ref_index=0
         assert mk.fit_route(512 * 512, u8) == "stream"  # the 512² reference
-        assert mk.fit_route(224 * 224, u8) == "mega"  # a tile as reference
-        assert mk.fit_route(288 * 288, u8) == "mega"  # host-bound B5 below 448²
-        assert mk.transform_route(256, 224 * 224, f32) == "mega"  # path (a): B1's waves
+        assert mk.fit_route(224 * 224, u8) == "stream"  # a WSI tile as reference
+        assert mk.fit_route(4 * 128 * 128, u8) == "stream"
+        assert mk.fit_route(128 * 128, u8) == "mega"  # rounds overlapped in one run
+        assert mk.fit_route(64 * 64, u8) == "mega"  # a small patch as reference
+        assert mk.fit_route(96 * 96, f32) == "stream"  # the smallest float32 pool measured
+        assert mk.fit_route(64 * 64, f32) == "mega"
+        assert mk.transform_route(256, 224 * 224, f32) == "stream"  # path (a)'s batch
         assert mk.transform_route(4, 2048 * 2048, u8) == "stream"  # path (b)
         assert mk.transform_route(1, 4096 * 4096, u8) == "stream"  # path (b)
         assert mk.transform_route(64, 512 * 512, u8) == "stream"  # the main path
-        assert mk.transform_route(96, 512 * 512, u8) == "mega"  # past the row cap
-        assert mk.transform_route(16, 256 * 256, u8) == "mega"  # host-bound B4
+        assert mk.transform_route(96, 512 * 512, u8) == "stream"
+        assert mk.transform_route(512, 224 * 224, u8) == "stream"
+        assert mk.transform_route(1024, 224 * 224, u8) == "mega"  # past the row cap
+        assert mk.transform_route(16, 256 * 256, u8) == "stream"
         assert mk.transform_route(64, 288 * 288, f32) == "stream"
-        assert mk.transform_route(256, 224 * 224, u8) == "mega"  # WSI tiles
-        assert mk.transform_route(256, 256 * 256, u8) == "mega"  # full waves of B1
+        assert mk.transform_route(256, 224 * 224, u8) == "stream"  # WSI tiles
+        assert mk.transform_route(256, 128 * 128, u8) == "mega"  # below the floor
+        assert mk.transform_route(256, 64 * 64, u8) == "mega"  # small patches
+        assert mk.transform_route(256, 128 * 128, f32) == "mega"  # below the float32 floor
+        assert mk.transform_route(512, 224 * 224, f32) == "mega"  # past the float32 cap
 
     def test_cpu_path_never_builds(self, monkeypatch):
         def no_build():
