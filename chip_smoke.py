@@ -23,10 +23,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the unaligned and 130-channel inputs, all exact; the streaming tier: the
    exact selection (B6) bit for bit on (1, 2²⁴), (512, 224²) and ragged
    (3, 1 000 003) fields, K = 2, with and without init, with sentinels,
-   ranks past the count and an empty row, and K = 10 (two launches); the
+   ranks past the count and an empty row, K = 10 (two launches),
+   (65 536, 64) K = 1, more rows than a grid's y extent, and randn rows of
+   2²² at (32, K = 1) and (16, K = 2), where a block appends its staged
+   candidates more than once a pass; the
    multi-block fit (B5) against B2's plain version on the 256×3×224²
    float32 pool of path (a), the 64×3×512² batch and the reference (HE atol
-   2e-5, maxC rtol 1e-4); the multi-block transform (B4) against B1's plain
+   2e-5, maxC rtol 1e-4), and through ``Macenko().fit`` on a pool of
+   65 536×3×16² uint8, past the streamed grid's old 65 535-image limit,
+   against B5's plain version; the multi-block transform (B4) against B1's plain
    version on 4×3×2048² and 1×3×4096² uint8, 1×3×2048² float32, a ragged
    1×3×1999×2011, an all-white 2048² tile, 1×3×8192² uint8, the 64×3×512²
    batch and path (a)'s 256×3×224² float32 batch, and B1 on 256×3×64²
@@ -37,13 +42,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the call selected on (written by a check-only entry with the kernels'
    own device functions) for the main path's fit and transform, path (a)'s
    pool and batch, path (b), a float32 2048² image and WSI tiles, on each
-   route; the exact row select (B3) bit for bit on
-   (64, 512²) K=2, (128, 512²) K=1, (256, 224²) K=2, (512, 224²) K=1 and
-   ragged (3, 1 000 003) fields with sentinels, ties, ranks past the count
-   and an empty row, on a row of ±0.0 and an all-+inf row, with K = 10 (two
-   launches), and on every field that paths (c) and (d) feed B3 and B6
-   (recorded as the calls make them); two runs of each kernel
-   bit-identical;
+   route; the exact row select (B3) bit for bit on the staged fit's
+   (1, 512²) K=2 and (2, 512²) K=1, (64, 512²) K=2, (128, 512²) K=1,
+   (256, 224²) K=2, (512, 224²) K=1, ragged (3, 1 000 003) and (5, 50 001)
+   fields with sentinels, ties, ranks past the count and an empty row, a
+   crowded angle-like field (one top key byte), rows whose min equals their
+   max and rows of only +inf, on a row of ±0.0, with K = 10 (two
+   launches), on every cluster size the wrapper can pick, and on every
+   field that paths (c) and (d) feed B3 and B6 (recorded as the calls make
+   them; B6 also with an init); two runs of each kernel bit-identical;
 4. each path through the public API, with the launch counts set to 0 just
    before it and read just after:
    ``Macenko().fit(ref).transform(batch)`` at 64×3×512² uint8 (oracle MAE
@@ -77,10 +84,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cross-checks); the histogram on an all-white batch; the sweep of
    B1 against B4 and of B2 against B5 over sizes, in three rounds with
    their spread, that sets the route ladder of
-   ``stainx_tpu_torch/ops/macenko.py``; B3 at the shapes of paths (c) and
-   (d), on their own fields, with ``torch.kthvalue`` as the library call;
-   the staged paths (c) and (d); and the sweep of B3 against B6 over rows
-   and row lengths, in three rounds, that sets ``SELECT_STREAM_MIN_ELEMS``.
+   ``stainx_tpu_torch/ops/macenko.py``; B3 at the shapes of paths (c)
+   (its fit and transform) and (d), on their own fields, and on short
+   rows (224² and 64², as a staged fit of such a reference gives), on every
+   cluster size, and B6 at path (d)'s two fields, with ``torch.kthvalue`` as the
+   library call; the staged paths (c) and (d) and the staged 512² fit; and
+   the sweep of B3 against B6 over rows and row lengths, in three rounds,
+   that sets ``SELECT_STREAM_MIN_ELEMS`` and ``SELECT_STREAM_MAX_ROWS``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -441,6 +451,27 @@ def main() -> int:
         require(torch.equal(again.view(torch.int32), s_k.view(torch.int32)),
                 f"{label}: two B6 runs differ")
 
+    def select_inputs(rows, p, k, seed):
+        """Two fields of randn values: K=2 angle-like (30 % sentinels, the
+        alpha and 100-alpha ranks), K=1 concentration-like (no sentinel, the
+        99th percentile); each with its exact init."""
+        out = []
+        for j in range(2):
+            g = torch.Generator(device=dev).manual_seed(seed + j)
+            x = torch.randn(rows, p, generator=g, device=dev)
+            if k == 2:
+                x = torch.where(torch.rand(rows, p, generator=g, device=dev) < 0.3, torch.inf, x)
+                cnt = (x < torch.inf).sum(1)
+                ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                                     nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
+            else:
+                cnt = torch.full((rows,), p, device=dev)
+                ranks = torch.full((rows, 1), static_nearest_rank_index(99, p), device=dev)
+            valid = x < torch.inf
+            init = (x.amin(1), torch.where(valid, x, -torch.inf).amax(1), cnt)
+            out.append((x, ranks.to(torch.int32), init))
+        return out
+
     for rows, p in [(1, 1 << 24), (512, 224 * 224), (3, 1_000_003)]:
         x, ranks, init = select_case(rows, p, args.seed + rows)
         check_select(f"({rows}, {p}) K=2", x, ranks, None)
@@ -448,7 +479,18 @@ def main() -> int:
     # More ranks than one launch serves: two launches, 8 ranks and 2.
     many = torch.cat([ranks] * 5, dim=1) // torch.arange(1, 11, device=dev, dtype=torch.int32)
     check_select(f"({rows}, {p}) K=10 with init", x, many, init)
-    del x
+    # More rows than a grid's y extent (65 535): B6 folds its rows into x.
+    x, ranks, init = select_case(65536, 64, args.seed + 64)
+    check_select("(65536, 64) K=1", x, ranks[:, :1], None)
+    check_select("(65536, 64) K=1 with init", x, ranks[:, :1], init)
+    # Rows of 2^22 randn values as the select threshold gives B6: a block
+    # stages more candidates than half its buffer and appends them to the
+    # row's buffer more than once a pass.
+    for rows, k in [(32, 1), (16, 2)]:
+        x, ranks, init = select_inputs(rows, 1 << 22, k, args.seed + 600)[0]
+        check_select(f"({rows}, 2^22) K={k} randn", x, ranks, None)
+        check_select(f"({rows}, 2^22) K={k} randn with init", x, ranks, init)
+    del x, init
 
     # B5, the multi-block fit, against B2's plain version, on the route the
     # wrapper takes and on the other where the rows fit a cluster.
@@ -488,6 +530,23 @@ def main() -> int:
     pool_a_b = dev_f32(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 225,
                                           he_scale=1.1))
     b5_err = check_fit_stream(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a)
+    # A pool of more than 65 535 images, through the public API: B5's
+    # streamed route runs its images in launches of at most 65 535 (its
+    # grid's y extent, which was the limit).
+    many_imgs = dev_u8(synthetic_he_batch(65536, 16, 16, seed=args.seed + 16))
+    ms.macenko_fit_stream.launches = 0
+    fitted_many = Macenko().fit(many_imgs)
+    he_m, mc_m = fitted_many._stain_matrix, fitted_many._target_max_conc
+    he_mp, mc_mp = ms.macenko_fit_stream_plain(many_imgs)
+    torch.cuda.synchronize()
+    print(f"B5 fit 65536x3x16^2 u8 via Macenko().fit ({ms.macenko_fit_stream.launches} B5 "
+          f"launch, route {ms.route(65536 * 256, torch.uint8, kernels.device_limits(dev.index)[1])}): "
+          f"HE max|d| {(he_m - he_mp).abs().max().item():.3g} (atol 2e-5), maxC max rel "
+          f"{((mc_m - mc_mp).abs() / mc_mp.abs()).max().item():.3g} (rtol 1e-4)")
+    require(ms.macenko_fit_stream.launches == 1, "the 65 536-image fit did not launch B5 once")
+    torch.testing.assert_close(he_m, he_mp, atol=2e-5, rtol=0)
+    torch.testing.assert_close(mc_m, mc_mp, atol=0, rtol=1e-4)
+    del many_imgs
     check_fit_stream(f"{BATCH}x3x{SIZE}^2 u8", batch)
     check_fit_stream(f"1x3x{SIZE}^2 u8 (the reference)", ref)
 
@@ -595,27 +654,57 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # B3, the exact row select, bit for bit against its plain version.
-    def check_b3(label, x, ranks):
-        s_k = sel.kth_smallest_pallas(x, ranks)
+    def check_b3(label, x, ranks, cluster=None):
+        s_k = sel._select(x, ranks, cluster)
         s_p = sel.kth_smallest_pallas_plain(x, ranks)
-        again = sel.kth_smallest_pallas(x, ranks)
+        again = sel._select(x, ranks, cluster)
         torch.cuda.synchronize()
         same = torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
-        print(f"B3 select {label}: bit-exact {same}")
+        taken = "the wrapper's cluster" if cluster is None else f"clusters of {cluster}"
+        print(f"B3 select {label}, {taken}: bit-exact {same}")
         require(same, f"{label}: B3 differs from its plain version")
         require(torch.equal(again.view(torch.int32), s_k.view(torch.int32)),
                 f"{label}: two B3 runs differ")
         return s_k
 
-    print(f"B3 keeps the keys of rows of up to {sel.resident_max(dev)} elements in shared memory")
+    smem = kernels.device_limits(dev.index)[1]
+    print(f"B3 keeps up to {sel.resident_budget(1, smem)} keys of its slice a block in shared "
+          f"memory at K=1, {sel.resident_budget(2, smem)} at K=2")
     px = SIZE * SIZE
-    for rows, p, k in [(64, px, 2), (2 * BATCH, px, 1), (A_BATCH, a_px, 2),
-                       (2 * A_BATCH, a_px, 1), (3, 1_000_003, 2)]:
+    for rows, p, k in [(1, px, 2), (2, px, 1), (64, px, 2), (2 * BATCH, px, 1), (A_BATCH, a_px, 2),
+                       (2 * A_BATCH, a_px, 1), (3, 1_000_003, 2), (5, 50_001, 1)]:
         x, ranks, _ = select_case(rows, p, args.seed + 11 * rows + k)
         check_b3(f"({rows}, {p}) K={k}", x, ranks[:, 2 - k:])
     many = torch.cat([ranks] * 5, dim=1) // torch.arange(1, 11, device=dev, dtype=torch.int32)
     check_b3(f"({rows}, {p}) K=10 (two launches)", x, many)
-    del x
+
+    def crowded_case(rows, p, seed):
+        """An angle-like field: values in [-1.63, -1.34] rad, 30 % sentinels,
+        the alpha and 100-alpha ranks: one top key byte, few second bytes."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.empty(rows, p, device=dev).uniform_(-1.63, -1.34, generator=g)
+        x = torch.where(torch.rand(rows, p, generator=g, device=dev) < 0.3, torch.inf, x)
+        cnt = (x < torch.inf).sum(1)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], 1).to(torch.int32)
+        return x, ranks
+
+    crowd, crowd_r = crowded_case(64, px, args.seed + 31)
+    keys = sel.monotone_key(crowd[crowd < torch.inf])
+    print(f"crowded field: {len(torch.unique(keys >> 24))} distinct top key bytes, "
+          f"{len(torch.unique(keys >> 16))} distinct 16-bit prefixes")
+    check_b3(f"crowded (64, {px}) K=2", crowd, crowd_r)
+    equal = torch.full((3, 70_001), 0.375, device=dev)
+    equal[0, ::7] = torch.inf
+    equal[1] = torch.inf
+    equal_r = torch.tensor([[0, 70_000], [0, 3], [5, 70_000]], device=dev, dtype=torch.int32)
+    check_b3("min equal to max, and a row of only +inf (3, 70 001)", equal, equal_r)
+    x, ranks, _ = select_case(3, 1_000_003, args.seed + 3)
+    for c in sel.CLUSTER_SIZES:  # every cluster size the wrapper can pick
+        check_b3(f"crowded (2, {px}) K=2", crowd[:2], crowd_r[:2], c)
+        check_b3("(3, 1 000 003) K=2, ragged", x, ranks, c)
+        check_b3("min equal to max, and a row of only +inf", equal, equal_r, c)
+    del x, crowd, keys
     inf = float("inf")
     edge = check_b3("[3, 1, inf, -0, 0, 2] and an all-+inf row",
                     torch.tensor([[3.0, 1.0, inf, -0.0, 0.0, 2.0], [inf] * 6], device=dev),
@@ -626,19 +715,20 @@ def main() -> int:
 
     # B3 and B6 on every field the staged paths feed them, recorded as the
     # calls make them.
+    def field_init(x):
+        """B6's optional (min, max, count) init of a field, exact."""
+        valid = x < torch.inf
+        return x.amin(1), torch.where(valid, x, -torch.inf).amax(1), valid.sum(1)
+
     def record_selects(call):
         """Run ``call`` with the staged route's selection recorded; returns
-        its result and, per selection in order, (kernel, field, ranks, init,
-        output), the init being B6's (min, max, count) as the route makes it."""
+        its result and, per selection in order, (kernel, field, ranks,
+        output)."""
         select, seen = mk._select, []
 
-        def record(x, ranks, n_valid):
-            out = select(x, ranks, n_valid)
-            if mk.select_route(*x.shape) == "stream":
-                top = torch.where(x != torch.inf, x, -torch.inf).amax(1)
-                seen.append(("B6", x, ranks, (x.amin(1), top, n_valid.to(torch.int32)), out))
-            else:
-                seen.append(("B3", x, ranks, None, out))
+        def record(x, ranks):
+            out = select(x, ranks)
+            seen.append(("B6" if mk.select_route(*x.shape) == "stream" else "B3", x, ranks, out))
             return out
 
         mk._select = record
@@ -652,16 +742,20 @@ def main() -> int:
         _, seen = record_selects(call)
         kinds = [name for name, *_ in seen]
         require(kinds == want, f"{label}: selections {kinds}, the path makes {want}")
-        for name, x, ranks, init, out in seen:
+        for name, x, ranks, out in seen:
             if name == "B3":
                 plain = sel.kth_smallest_pallas_plain(x, ranks)
                 again = sel.kth_smallest_pallas(x, ranks)
-            else:
-                plain = ss.kth_smallest_streaming_plain(x, ranks, init)
-                again = ss.kth_smallest_streaming(x, ranks, init)
+            else:  # as the route calls it (no init), and again with an exact init
+                plain = ss.kth_smallest_streaming_plain(x, ranks)
+                again = ss.kth_smallest_streaming(x, ranks)
+                with_init = ss.kth_smallest_streaming(x, ranks, field_init(x))
+                require(torch.equal(with_init.view(torch.int32), out.view(torch.int32)),
+                        f"{label}: B6 with an init differs on the path's field")
             torch.cuda.synchronize()
             same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
-            print(f"{name} on {label}: field {tuple(x.shape)} K={ranks.shape[1]}: bit-exact {same}")
+            print(f"{name} on {label}: field {tuple(x.shape)} K={ranks.shape[1]}: bit-exact {same}"
+                  f"{' (also with an init)' if name == 'B6' else ''}")
             require(same, f"{label}: {name} differs from its plain version on the path's field")
             require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
                     f"{label}: two {name} runs differ on the path's field")
@@ -1047,35 +1141,47 @@ def main() -> int:
         return field.contiguous(), ranks, (field.amin(-1), top, cnt)
 
     fields = [angle_field(x) for x in pair_a]
-    ms_b6 = kernel_ms(f"B6 kth_smallest_streaming (1, {A_BATCH * a_px}) K=2 with init "
-                      "(the angle field of path (a)'s pool, path (d)'s shape)",
-                      lambda t: ss.kth_smallest_streaming(*t), fields)
-    ms_b6_p = event_ms(lambda t: ss.kth_smallest_streaming_plain(*t), fields, 3)
-    host_ranks = [f[1][0].tolist() for f in fields]
-    ms_b6_lib = event_ms(
-        lambda i: [torch.kthvalue(fields[i][0][0], r + 1) for r in host_ranks[i]], [0, 1], 3)
+    kernel_ms(f"B6 kth_smallest_streaming (1, {A_BATCH * a_px}) K=2 with init "
+              "(the angle field of path (a)'s pool, path (d)'s shape)",
+              lambda t: ss.kth_smallest_streaming(*t), fields)
     del fields
 
     # B3 at the shapes of paths (c) and (d), on the fields those paths give
     # it for their two inputs. The library call is torch.kthvalue: one call
     # where every row has the same rank and no sentinel (the concentration
     # fields), else one a row and rank.
-    def staged_fields(call):
-        return [(x, ranks) for name, x, ranks, _init, _out in record_selects(call)[1]
-                if name == "B3"]
+    def staged_fields(call, kernel="B3"):
+        return [(x, ranks) for name, x, ranks, _out in record_selects(call)[1] if name == kernel]
 
     norm_cf = Macenko().fit(ref_bf)
+    fit_fields = [staged_fields(lambda x=x: Macenko().fit(x)) for x in (ref_bf, low(ref_b, bf16))]
     c_fields = [staged_fields(lambda x=x: norm_cf.transform(x)) for x in (batch_bf, batch_bf_b)]
-    d_fields = [staged_fields(lambda x=x: StainNormalizerTransform(
-        "macenko", mode="batch", batch_ref_index=None)(x)) for x in (pool_h, pool_h_b)]
+    d_run = [lambda x=x: StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None)(x)
+             for x in (pool_h, pool_h_b)]
+    d_fields = [staged_fields(run) for run in d_run]
     b3_ms = {}
-    for path, fields in [("c", c_fields), ("d", d_fields)]:
+    active_b3 = lambda k: lambda c, r: sel._active_clusters(dev.index, k, c, r)  # noqa: E731
+
+    def cluster_table(label, pair_f):
+        """B3 on every cluster size at this shape, on the device."""
+        rows_f, p_f = pair_f[0][0].shape
+        k_f = pair_f[0][1].shape[1]
+        taken = sel.cluster_shape(rows_f, p_f, k_f, smem, active_b3(k_f))[0]
+        for c in sel.CLUSTER_SIZES:
+            resident = sel.cluster_slice(p_f, c, sel.resident_budget(k_f, smem))[1]
+            t = graph_ms(lambda t_, c=c: sel._select(*t_, c), pair_f, 10)
+            print(f"{label} on clusters of {c}: {resident} resident a block, "
+                  f"{active_b3(k_f)(c, resident)} clusters at once: {t:.4f} ms on the device"
+                  f"{' (the wrapper takes it)' if taken == c else ''}")
+
+    for path, fields in [("c fit", fit_fields), ("c", c_fields), ("d", d_fields)]:
         for i in range(len(fields[0])):
             pair_f = [f[i] for f in fields]
             rows_f, p_f = pair_f[0][0].shape
             k_f = pair_f[0][1].shape[1]
             label = f"B3 kth_smallest_pallas ({rows_f}, {p_f}) K={k_f} (path ({path}))"
             on_card = kernel_ms(label, lambda t: sel.kth_smallest_pallas(*t), pair_f)
+            cluster_table(label, pair_f)
             plain = event_ms(lambda t: sel.kth_smallest_pallas_plain(*t), pair_f, 3)
             host = [t[1].tolist() for t in pair_f]
             if k_f == 1:
@@ -1086,7 +1192,39 @@ def main() -> int:
                                           for r, qs in enumerate(host[j]) for q in qs], [0, 1], 1)
             print(f"{label}: plain {plain:.4f} ms, library (torch.kthvalue) {lib:.4f} ms")
             b3_ms[path, i] = (on_card, plain, lib, rows_f, p_f, k_f)
-    del c_fields, d_fields
+    del c_fields, d_fields, fit_fields
+    # Short rows on every cluster size: the staged fit of a 224^2 or a 64^2
+    # reference (K=2 angles, K=1 concentrations) and a few 224^2 rows. How
+    # far the wrapper spreads a short row rests on these.
+    for rows_f, p_f, k_f in [(1, a_px, 2), (2, a_px, 1), (8, a_px, 1),
+                             (1, P_SIZE * P_SIZE, 2), (2, P_SIZE * P_SIZE, 1)]:
+        pair_f = [t[:2] for t in select_inputs(rows_f, p_f, k_f, args.seed + 700)]
+        cluster_table(f"B3 kth_smallest_pallas ({rows_f}, {p_f}) K={k_f} randn", pair_f)
+    # B6 at path (d)'s two fields, as the route calls it (no init: the
+    # kernel finds each row's extremes and count), and the first one with
+    # an init; torch.kthvalue is one call for the K=1 concentration rows.
+    d6 = [staged_fields(run, "B6") for run in d_run]
+    b6_ms = {}
+    for i in range(len(d6[0])):
+        pair_f = [f[i] for f in d6]
+        rows_f, p_f = pair_f[0][0].shape
+        k_f = pair_f[0][1].shape[1]
+        label = f"B6 kth_smallest_streaming ({rows_f}, {p_f}) K={k_f} (path (d))"
+        on_card = kernel_ms(label, lambda t: ss.kth_smallest_streaming(*t), pair_f)
+        plain = event_ms(lambda t: ss.kth_smallest_streaming_plain(*t), pair_f, 3)
+        host = [t[1].tolist() for t in pair_f]
+        if k_f == 1:
+            lib = event_ms(lambda j: torch.kthvalue(pair_f[j][0], host[j][0][0] + 1, dim=1),
+                           [0, 1], 3)
+        else:
+            lib = event_ms(lambda j: [torch.kthvalue(pair_f[j][0][r], q + 1)
+                                      for r, qs in enumerate(host[j]) for q in qs], [0, 1], 1)
+            inits = [(t[0], t[1], field_init(t[0])) for t in pair_f]
+            kernel_ms(f"{label} with an init", lambda t: ss.kth_smallest_streaming(*t), inits)
+            del inits
+        print(f"{label}: plain {plain:.4f} ms, library (torch.kthvalue) {lib:.4f} ms")
+        b6_ms[i] = (on_card, plain, lib, rows_f, p_f, k_f)
+    del d6
 
     def path_ms(label, fn, inputs, n_img, n_px):
         fn(inputs[0])
@@ -1119,8 +1257,8 @@ def main() -> int:
                           ("f16 stable", [batch_h, low(batch_b, f16)])]:
         path_ms(f"path (c) Macenko.transform {BATCH}x3x{SIZE}^2 {label}",
                 c_normalizers[label].transform, x_pair, BATCH, BATCH * SIZE * SIZE)
-    print(f"public API Macenko fit 1x3x{SIZE}^2 bf16: "
-          f"{event_ms(lambda x: Macenko().fit(x), [ref_bf, low(ref_b, bf16)], 20):.4f} ms")
+    path_ms(f"staged fit Macenko().fit 1x3x{SIZE}^2 bf16", lambda x: Macenko().fit(x),
+            [ref_bf, low(ref_b, bf16)], 1, SIZE * SIZE)
     path_ms(f"path (d) forward, batch mode {A_BATCH}x3x{A_SIZE}^2 f16", transform_d,
             [pool_h, pool_h_b], A_BATCH, A_BATCH * a_px)
 
@@ -1201,8 +1339,8 @@ def main() -> int:
           f"round at {unearned or 'no size'}; it keeps the one-block kernel where the "
           f"multi-block one won (host-cost margin, row cap) at {kept or 'no size'}")
 
-    # The staged route's select threshold: B3 (a block a row) against B6 as
-    # the route calls it (with its min, max and count init), on angle-like
+    # The staged route's select threshold: B3 (a cluster a row) against B6
+    # as the route calls it (no init: B6 finds the rows' extremes), on angle-like
     # fields (30 % sentinels, the alpha and 100-alpha ranks) and
     # concentration-like ones (no sentinel, the 99th percentile).
     print(f"select threshold: SELECT_STREAM_MIN_ELEMS {mk.SELECT_STREAM_MIN_ELEMS}, "
@@ -1210,30 +1348,14 @@ def main() -> int:
     unearned.clear()
     kept.clear()
 
-    def select_inputs(rows, p, k, seed):
-        out = []
-        for j in range(2):
-            g = torch.Generator(device=dev).manual_seed(seed + j)
-            x = torch.randn(rows, p, generator=g, device=dev)
-            if k == 2:
-                x = torch.where(torch.rand(rows, p, generator=g, device=dev) < 0.3, torch.inf, x)
-                cnt = (x < torch.inf).sum(1)
-                ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                                     nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
-            else:
-                cnt = torch.full((rows,), p, device=dev)
-                ranks = torch.full((rows, 1), static_nearest_rank_index(99, p), device=dev)
-            out.append((x, ranks.to(torch.int32), cnt))
-        return out
-
-    for p in [a_px, SIZE * SIZE, 1 << 19, 1 << 20, 1 << 22, A_BATCH * a_px]:
+    for p in [a_px, SIZE * SIZE, 1 << 19, 1 << 20, 1 << 22, A_BATCH * a_px, 1 << 24]:
         for rows in [1, 2, 8, 16, 32, 64, 128, 256, 512]:
             if rows * p > 1 << 28:
                 continue
             for k in (2, 1):
                 race(f"select ({rows}, {p}) K={k}",
                      [("B3", lambda t: sel.kth_smallest_pallas(t[0], t[1])),
-                      ("B6", lambda t: mk._stream_select(*t))],
+                      ("B6", lambda t: ss.kth_smallest_streaming(t[0], t[1]))],
                      select_inputs(rows, p, k, args.seed + 500), mk.select_route(rows, p))
     print(f"select sweep: the threshold gives B6 a size it did not win in every round at "
           f"{unearned or 'no size'}; it keeps B3 where B6 won at {kept or 'no size'}")
@@ -1246,8 +1368,15 @@ def main() -> int:
     b4_bound, b4_by = bound_ms(2 * 3 * n_px, OPS_PER_PIXEL_TRANSFORM * n_px)
     b5_bound, b5_by = bound_ms(3 * 4 * n_a + 8 * 4, OPS_PER_PIXEL_FIT * n_a)
     # B6 reads the field once, the ranks and the init, and writes K values;
-    # it needs one compare an element for each of its K ranks.
-    b6_bound, b6_by = bound_ms(4 * n_a + 2 * 4 + 3 * 4 + 2 * 4, 2 * n_a)
+    # it needs one compare an element for each of its K ranks. Printed for
+    # path (d)'s two fields; the kernel line carries the first, as the route
+    # calls it (no init).
+    for i, (on_card, plain, lib, rows_f, p_f, k_f) in sorted(b6_ms.items()):
+        bound, by = bound_ms(4 * rows_f * p_f + 2 * 4 * rows_f * k_f, k_f * rows_f * p_f)
+        print(f"B6 ({rows_f}, {p_f}) K={k_f} (path (d)): {on_card:.4f} ms on the device, "
+              f"bound {bound:.4f} ms by {by}, plain {plain:.4f} ms, torch.kthvalue {lib:.4f} ms")
+    ms_b6, ms_b6_p, ms_b6_lib, rows_6, p_6, k_6 = b6_ms[0]
+    b6_bound, b6_by = bound_ms(4 * rows_6 * p_6 + 2 * 4 * rows_6 * k_6, k_6 * rows_6 * p_6)
     b7b_bound, b7b_by = bound_ms(3 * n_px + 6 * 4, OPS_PER_PIXEL_MOMENTS_U8 * n_px)
     b7a_bound, b7a_by = bound_ms(2 * 3 * n_px + 12 * 4, OPS_PER_PIXEL_APPLY_U8 * n_px)
     b8a_bound, b8a_by = bound_ms(3 * n_px + 3 * 256 * 4, 0)

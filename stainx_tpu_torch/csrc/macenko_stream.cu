@@ -60,7 +60,8 @@
 //    copies a bank apart): warp-aggregated atomics (__match_any_sync) or a
 //    single copy spent most of a pass there.
 //
-// 2. Streamed (stream_*, one memset and 10 kernels at transform, 9 at fit):
+// 2. Streamed (stream_*, one memset and 10 kernels at transform, 9 at fit,
+//    each in launches of at most 65 535 images):
 //    longer rows (2048^2, 4096^2, 8192^2 uint8, path (a)'s 12.85 M-pixel
 //    float32 pool) are spread over the card in 256-thread blocks. For uint8 every selection pass
 //    recomputes the keys from the raw bytes: 3 bytes a pixel a pass against
@@ -89,6 +90,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "macenko_common.cuh"
 
@@ -267,8 +269,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPart = 2 * kSums;  // beta-masked sums, then all-pixel sums
 
-// The pixel groups [begin, end) of image blockIdx.y that block blockIdx.x
-// covers, V pixels a group.
+// A streamed grid is (blocks an item, items), an item being an image or a
+// key row. The y extent stops at 65 535, so the items run in launches of at
+// most kMaxGridY, the launch for items [y0, y0 + gridDim.y) serving item
+// y0 + blockIdx.y: any number of items fits.
+constexpr unsigned kMaxGridY = 65535;
+
+__device__ __forceinline__ unsigned grid_item(unsigned y0) { return y0 + blockIdx.y; }
+
+// The pixel groups [begin, end) of its item that block blockIdx.x covers, V
+// pixels a group.
 struct Span {
   int64_t begin, end;
 };
@@ -281,11 +291,12 @@ __device__ __forceinline__ Span block_span(int64_t p, int v) {
 }
 
 // Calls f(ok, od, g) for every group of the block's span of image
-// blockIdx.y. Every thread runs the same number of iterations (ok marks
+// grid_item(y0). Every thread runs the same number of iterations (ok marks
 // the real groups), so warp-wide intrinsics inside f see full warps.
 template <typename T, int V, typename F>
-__device__ __forceinline__ void sweep(const T* x, int64_t p, const float* lut, F&& f) {
-  const T* img = x + static_cast<int64_t>(blockIdx.y) * 3 * p;
+__device__ __forceinline__ void sweep(const T* x, int64_t p, unsigned y0, const float* lut,
+                                      F&& f) {
+  const T* img = x + static_cast<int64_t>(grid_item(y0)) * 3 * p;
   const Span sp = block_span(p, V);
   for (int64_t g0 = sp.begin; g0 < sp.end; g0 += kThreads) {
     const int64_t g = g0 + threadIdx.x;
@@ -301,28 +312,12 @@ __device__ __forceinline__ void sweep(const T* x, int64_t p, const float* lut, F
   }
 }
 
-// Whether this block is the last of its row to get here: every block calls
-// it once (after its device-memory writes), the last one resets the ticket
-// and sees the others' writes.
-__device__ bool last_of_row(unsigned* ticket, unsigned blocks) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1u) == blocks - 1;
-    if (last) *ticket = 0u;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// Moments of each block into partials[(blockIdx.y * gridDim.x + blockIdx.x)
-// * kPart]; the row's last block adds the row's partials in index order and
-// derives its statistics and angle ranks.
+// Moments of each block into partials[(grid_item(y0) * gridDim.x +
+// blockIdx.x) * kPart]; the row's last block adds the row's partials in
+// index order and derives its statistics and angle ranks.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-stream_moments(const T* __restrict__ x, int64_t p, int ipr, int fallback,
+stream_moments(const T* __restrict__ x, int64_t p, int ipr, unsigned y0, int fallback,
                double* __restrict__ partials, RowParams* __restrict__ prm, Sel2* __restrict__ sel,
                unsigned* __restrict__ tickets) {
   __shared__ float lut[256];
@@ -332,7 +327,7 @@ stream_moments(const T* __restrict__ x, int64_t p, int ipr, int fallback,
   __syncthreads();
   double acc[kPart];
   for (int k = 0; k < kPart; ++k) acc[k] = 0.0;
-  sweep<T, V>(x, p, lut, [&](bool ok, const float (&od)[3][V], int64_t) {
+  sweep<T, V>(x, p, y0, lut, [&](bool ok, const float (&od)[3][V], int64_t) {
     if (!ok) return;
     for (int j = 0; j < V; ++j) {
       if (min3(od[0][j], od[1][j], od[2][j]) >= kBeta) {
@@ -348,12 +343,12 @@ stream_moments(const T* __restrict__ x, int64_t p, int ipr, int fallback,
     if (lane == 0) warp_part[warp][k] = v;
   }
   __syncthreads();
-  const int64_t row = blockIdx.y / ipr;
+  const int64_t row = grid_item(y0) / static_cast<unsigned>(ipr);
   const int n_part = ipr * static_cast<int>(gridDim.x);
   if (threadIdx.x < kPart) {
     double s = 0.0;
     for (int w = 0; w < kWarps; ++w) s += warp_part[w][threadIdx.x];
-    const int64_t b = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    const int64_t b = static_cast<int64_t>(grid_item(y0)) * gridDim.x + blockIdx.x;
     partials[b * kPart + threadIdx.x] = s;
   }
   if (!last_of_row(tickets + row, static_cast<unsigned>(n_part))) return;
@@ -418,7 +413,7 @@ __device__ void finish_pass(unsigned* rep, unsigned (*sh)[kBins], Sel2& st, int6
 // concentration keys at rows 2r and 2r+1 of a (2 * rows, len) one.
 template <typename T, int V, int Mode, bool Write>
 __global__ void __launch_bounds__(kThreads)
-stream_count(const T* __restrict__ x, int64_t p, int ipr, int d, long long idx99,
+stream_count(const T* __restrict__ x, int64_t p, int ipr, unsigned y0, int d, long long idx99,
              RowParams* __restrict__ prm, Sel2* __restrict__ sel, unsigned* __restrict__ hist,
              unsigned* __restrict__ tickets, uint32_t* __restrict__ keys) {
   __shared__ float lut[256];
@@ -426,7 +421,7 @@ stream_count(const T* __restrict__ x, int64_t p, int ipr, int d, long long idx99
   __shared__ unsigned int sh[2][kBins];
   __shared__ Sel2 st;
   __shared__ float w[6];
-  const int64_t row = blockIdx.y / ipr;
+  const int64_t row = grid_item(y0) / static_cast<unsigned>(ipr);
   build_lut<T>(lut);
   for (int i = threadIdx.x; i < kStreamCopies * kCopyStride; i += kThreads) rep[i] = 0u;
   if (threadIdx.x == 0) {
@@ -440,11 +435,13 @@ stream_count(const T* __restrict__ x, int64_t p, int ipr, int d, long long idx99
   const int shift = 24 - 8 * d;
   const uint32_t pre0 = st.prefix[0], pre1 = st.prefix[1];
   const int64_t len = static_cast<int64_t>(ipr) * p;
-  uint32_t* key0 = keys + (Mode == kAngle ? row : 2 * row) * len + (blockIdx.y % ipr) * p;
+  uint32_t* key0 =
+      keys + (Mode == kAngle ? row : 2 * row) * len +
+      static_cast<int64_t>(grid_item(y0) % static_cast<unsigned>(ipr)) * p;
   uint32_t* key1 = key0 + len;
   float wr[6];
   for (int k = 0; k < 6; ++k) wr[k] = w[k];
-  sweep<T, V>(x, p, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
+  sweep<T, V>(x, p, y0, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
     uint32_t k0[V], k1[V];
     for (int j = 0; j < V; ++j) {
       keys2<Mode>(od[0][j], od[1][j], od[2][j], wr, use_all, k0[j], k1[j]);
@@ -470,16 +467,17 @@ stream_count(const T* __restrict__ x, int64_t p, int ipr, int d, long long idx99
 
 // Pass d >= 1 of the row's two selections from the key field that pass 0
 // wrote (float32 input): 4 bytes a key against the 12 of a raw pixel, and
-// no logarithm. Grid (blocks, rows).
+// no logarithm. Grid (blocks, rows), from row y0.
 template <int V, int Mode>
 __global__ void __launch_bounds__(kThreads)
-stream_count_keys(const uint32_t* __restrict__ keys, int64_t len, int d, long long idx99,
+stream_count_keys(const uint32_t* __restrict__ keys, int64_t len, unsigned y0, int d,
+                  long long idx99,
                   RowParams* __restrict__ prm, Sel2* __restrict__ sel,
                   unsigned* __restrict__ hist, unsigned* __restrict__ tickets) {
   __shared__ unsigned int rep[kStreamCopies * kCopyStride];
   __shared__ unsigned int sh[2][kBins];
   __shared__ Sel2 st;
-  const int64_t row = blockIdx.y;
+  const int64_t row = grid_item(y0);
   for (int i = threadIdx.x; i < kStreamCopies * kCopyStride; i += kThreads) rep[i] = 0u;
   if (threadIdx.x == 0) st = sel[row];
   __syncthreads();
@@ -509,16 +507,16 @@ stream_count_keys(const uint32_t* __restrict__ keys, int64_t len, int d, long lo
   finish_pass<Mode>(rep, sh, st, row, gridDim.x, d, false, idx99, prm, sel, hist, tickets);
 }
 
-// Reconstruction of image blockIdx.y (one image a row).
+// Reconstruction of image grid_item(y0) (one image a row).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p,
+stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p, unsigned y0,
                    const RowParams* __restrict__ prm, const float* __restrict__ stain,
                    const float* __restrict__ tmc) {
   __shared__ float lut[256];
   build_lut<T>(lut);
   __syncthreads();
-  const int64_t i = blockIdx.y;
+  const int64_t i = grid_item(y0);
   const RowParams& rp = prm[i];
   float m[6], st[6];
   for (int k = 0; k < 3; ++k) {
@@ -529,7 +527,7 @@ stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p,
   const float sc0 = maxc_scale(tmc[0], rp.maxc[0]);
   const float sc1 = maxc_scale(tmc[1], rp.maxc[1]);
   T* dst = out + i * 3 * p;
-  sweep<T, V>(x, p, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
+  sweep<T, V>(x, p, y0, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
     if (!ok) return;
     float rgb[3][V];
     for (int j = 0; j < V; ++j) {
@@ -547,12 +545,13 @@ stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p,
 // device functions. Image i is part i % ipr of row i / ipr.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-stream_fields(const T* __restrict__ x, int64_t p, int ipr, const RowParams* __restrict__ prm,
-              float* __restrict__ angles, float* __restrict__ conc) {
+stream_fields(const T* __restrict__ x, int64_t p, int ipr, unsigned y0,
+              const RowParams* __restrict__ prm, float* __restrict__ angles,
+              float* __restrict__ conc) {
   __shared__ float lut[256];
   build_lut<T>(lut);
   __syncthreads();
-  const int64_t i = blockIdx.y, row = i / ipr;
+  const int64_t i = grid_item(y0), row = grid_item(y0) / static_cast<unsigned>(ipr);
   const RowParams& rp = prm[row];
   float v[6], w[6];
   for (int k = 0; k < 6; ++k) {
@@ -562,7 +561,7 @@ stream_fields(const T* __restrict__ x, int64_t p, int ipr, const RowParams* __re
   const bool use_all = rp.use_all != 0.0f;
   const int64_t len = static_cast<int64_t>(ipr) * p;
   const int64_t base = (i % ipr) * p;
-  sweep<T, V>(x, p, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
+  sweep<T, V>(x, p, y0, lut, [&](bool ok, const float (&od)[3][V], int64_t g) {
     if (!ok) return;
     for (int j = 0; j < V; ++j) {
       const float o0 = od[0][j], o1 = od[1][j], o2 = od[2][j];
@@ -983,6 +982,17 @@ cudaError_t cluster_occupancy(int csize, long long R, int* clusters) {
 }
 
 // ------------------------------------------------------- streamed launches
+// Calls launch(grid, y0) for each launch of bx blocks an item over `items`
+// items, at most kMaxGridY a launch, in order.
+template <typename F>
+void over_items(long long items, int bx, F&& launch) {
+  for (long long y0 = 0; y0 < items; y0 += kMaxGridY) {
+    const long long count = items - y0 < kMaxGridY ? items - y0 : kMaxGridY;
+    launch(dim3(static_cast<unsigned>(bx), static_cast<unsigned>(count)),
+           static_cast<unsigned>(y0));
+  }
+}
+
 template <typename T, int V>
 void launch_stream(const void* xv, void* outv, long long n, long long p, int ipr, int bx,
                    int bx_keys, int fallback, long long idx99, const float* stain,
@@ -992,44 +1002,55 @@ void launch_stream(const void* xv, void* outv, long long n, long long p, int ipr
   const int64_t rows = n / ipr, len = static_cast<int64_t>(ipr) * p;
   unsigned* tickets = hist + rows * 2 * kBins;
   cudaMemsetAsync(hist, 0, static_cast<size_t>(rows) * (2 * kBins + 1) * sizeof(unsigned), s);
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(n));
-  const dim3 grid_keys(static_cast<unsigned>(bx_keys), static_cast<unsigned>(rows));
-  stream_moments<T, V><<<grid, kThreads, 0, s>>>(x, p, ipr, fallback, partials, prm, sel, tickets);
+  over_items(n, bx, [&](dim3 g, unsigned y0) {
+    stream_moments<T, V><<<g, kThreads, 0, s>>>(x, p, ipr, y0, fallback, partials, prm, sel,
+                                                tickets);
+  });
+  // Pass d of a selection from the raw input (Write: also store the keys),
+  // or, for float32 passes 1-3, from the key field.
+  auto count = [&](auto mode, auto write, int d) {
+    constexpr int Mode = decltype(mode)::value;
+    constexpr bool Write = decltype(write)::value;
+    over_items(n, bx, [&](dim3 g, unsigned y0) {
+      stream_count<T, V, Mode, Write><<<g, kThreads, 0, s>>>(x, p, ipr, y0, d, idx99, prm, sel,
+                                                             hist, tickets, keys);
+    });
+  };
+  auto count_keys = [&](auto mode, int d) {
+    constexpr int Mode = decltype(mode)::value;
+    over_items(rows, bx_keys, [&](dim3 g, unsigned y0) {
+      stream_count_keys<V, Mode><<<g, kThreads, 0, s>>>(keys, len, y0, d, idx99, prm, sel, hist,
+                                                        tickets);
+    });
+  };
+  using Angle = std::integral_constant<int, kAngle>;
+  using Conc = std::integral_constant<int, kConc>;
+  using Yes = std::true_type;
+  using No = std::false_type;
   if (keys == nullptr) {  // uint8: every pass from the raw bytes
-    for (int d = 0; d < 4; ++d) {
-      stream_count<T, V, kAngle, false><<<grid, kThreads, 0, s>>>(x, p, ipr, d, idx99, prm, sel,
-                                                                  hist, tickets, keys);
-    }
-    for (int d = 0; d < 4; ++d) {
-      stream_count<T, V, kConc, false><<<grid, kThreads, 0, s>>>(x, p, ipr, d, idx99, prm, sel,
-                                                                 hist, tickets, keys);
-    }
+    for (int d = 0; d < 4; ++d) count(Angle(), No(), d);
+    for (int d = 0; d < 4; ++d) count(Conc(), No(), d);
   } else {  // float32: pass 0 writes the key field, passes 1-3 read it
-    stream_count<T, V, kAngle, true><<<grid, kThreads, 0, s>>>(x, p, ipr, 0, idx99, prm, sel, hist,
-                                                               tickets, keys);
-    for (int d = 1; d < 4; ++d) {
-      stream_count_keys<V, kAngle><<<grid_keys, kThreads, 0, s>>>(keys, len, d, idx99, prm, sel,
-                                                                  hist, tickets);
-    }
-    stream_count<T, V, kConc, true><<<grid, kThreads, 0, s>>>(x, p, ipr, 0, idx99, prm, sel, hist,
-                                                              tickets, keys);
-    for (int d = 1; d < 4; ++d) {
-      stream_count_keys<V, kConc><<<grid_keys, kThreads, 0, s>>>(keys, len, d, idx99, prm, sel,
-                                                                 hist, tickets);
-    }
+    count(Angle(), Yes(), 0);
+    for (int d = 1; d < 4; ++d) count_keys(Angle(), d);
+    count(Conc(), Yes(), 0);
+    for (int d = 1; d < 4; ++d) count_keys(Conc(), d);
   }
   if (outv != nullptr) {
-    stream_reconstruct<T, V><<<grid, kThreads, 0, s>>>(x, static_cast<T*>(outv), p, prm, stain,
-                                                       tmc);
+    over_items(n, bx, [&](dim3 g, unsigned y0) {
+      stream_reconstruct<T, V><<<g, kThreads, 0, s>>>(x, static_cast<T*>(outv), p, y0, prm,
+                                                      stain, tmc);
+    });
   }
 }
 
 template <typename T, int V>
 void launch_fields(const void* x, long long n, long long p, int ipr, int bx, const RowParams* prm,
                    float* angles, float* conc, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(n));
-  stream_fields<T, V><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), p, ipr, prm, angles,
-                                                conc);
+  over_items(n, bx, [&](dim3 g, unsigned y0) {
+    stream_fields<T, V><<<g, kThreads, 0, s>>>(static_cast<const T*>(x), p, ipr, y0, prm, angles,
+                                               conc);
+  });
 }
 
 // Calls launcher<T, V> for the input's type and vector width.
@@ -1092,7 +1113,8 @@ int stainx_cluster_occupancy(int is_uint8, int csize, long long R, void* cluster
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The streamed route: bx blocks an image; vec is 4 when p % 4 == 0 and x,
+// The streamed route: bx blocks an image, in launches of at most 65 535
+// images (any number of images); vec is 4 when p % 4 == 0 and x,
 // out are 16-byte aligned, else 1. sel: (rows,) 32-byte selection states;
 // hist: (rows, 2, 256) uint32 followed by rows uint32 tickets (zeroed here);
 // partials: (n * bx, 20) float64; keys: null for uint8, for float32 a

@@ -1,4 +1,4 @@
-// Exact nearest-rank selection, one thread block per row, for Hopper
+// Exact nearest-rank selection, one thread-block cluster a row, for Hopper
 // (sm_90a), with a plain C interface loaded through ctypes
 // (stainx_tpu_torch/kernels/selection.py).
 //
@@ -10,40 +10,54 @@
 //   the 99th-percentile concentrations (K = 1, two rows an image).
 //
 // What bounds it
-//   Reading the field once: 4 bytes an element, 0.040 ms for (128, 262 144)
-//   at 3.35 TB/s. The counting is one warp-aggregated shared-memory atomic
-//   per element and pass.
+//   Reading the field once: 4 bytes an element at 3.35 TB/s. At the staged
+//   paths' shapes: (64, 512^2) K=2 0.0200 ms, (128, 512^2) K=1 0.0401,
+//   (256, 224^2) K=2 0.0153, (512, 224^2) K=1 0.0307, and the staged 512^2
+//   fit's (1, 512^2) K=2 0.0003 and (2, 512^2) K=1 0.0006: those two are a
+//   lone row or two, bound in practice by one block's latency, not bytes.
 //
 // What the design does about it
 //   The TPU kernel keeps a row in VMEM and runs a 4-bit descent on it. Here
-//   one block of 1024 threads takes a row (B3's regime: many rows of
-//   moderate length; B6 in selection.cu spreads a few long rows over the
-//   card), and the descent is a radix select on the uint32 monotone key,
-//   8 bits a pass:
-//   - residency: where the row's keys fit the block's shared memory (opt-in
-//     up to 227 KB: rows of up to ~56 K elements, a 224^2 image's 50 176),
-//     pass 0 reads the row from device memory once and keeps its keys, and
-//     passes 1-3 run on shared memory. Longer rows are read again from
-//     device memory (and L2) at each pass. A thread issues 4 loads of 16
-//     bytes before it counts them, so one block keeps enough bytes in
-//     flight;
-//   - count: a shared-memory histogram per distinct prefix of the row's
-//     ranks (ranks that share a prefix share one, so pass 0 counts once for
-//     all K), filled by warp-aggregated integer atomics: exact in any order,
-//     so repeat runs are bit-identical;
-//   - pick: warp k scans the 256 bins of rank k's histogram, clamps the
-//     rank to the count at pass 0 (a rank past the count takes the row's
-//     largest element; a row with no element gives +inf), and carries the
-//     prefix and the rank left inside it. Nothing goes back to the host, so
-//     a call can be captured in a CUDA graph.
+//   a thread-block cluster of 1 to 16 blocks of 1024 threads takes a row
+//   (kernels/selection.py cluster_shape: the largest cluster whose clusters
+//   for all the rows run in at most two waves, so few or long rows spread
+//   over the card and many rows take a block each). Block r of the cluster takes the
+//   slice [r*S, (r+1)*S) of the row and keeps the monotone keys of its
+//   first R elements in shared memory; the rest, if any, it reads again
+//   from device memory (L2) at each pass. The descent is a radix select on
+//   the uint32 monotone key:
+//   - first read: every block keeps its keys and finds its smallest and
+//     largest key below the sentinel and its count (integer max and add);
+//     the cluster's are merged through distributed shared memory (DSMEM).
+//     Ranks are clamped to the count (a rank past it takes the largest
+//     element); a row with no element gives +inf, a row whose extremes are
+//     equal gives that element, and otherwise the descent starts below the
+//     extremes' common leading bits, so the first histogram already
+//     separates the row's values (an angle field shares its top 8-10 bits);
+//   - count: up to 8 bits a pass into a shared-memory histogram per distinct
+//     prefix of the row's ranks, in 8 copies (lane l adds to copy l % 8,
+//     copies a bank apart) with plain shared atomics: crowded bins conflict
+//     at most 4 ways, and integer counts are exact in any order, so repeat
+//     runs are bit-identical. The blocks' histograms are added through
+//     DSMEM; every block adds them in the same way and picks the same bins
+//     (a warp a rank), so one cluster.sync a pass is enough (histograms are
+//     double-buffered);
+//   - candidates: once a block's keys under the new prefixes fit kCand (its
+//     own counts of the chosen bins say so exactly), the next pass also
+//     stores them in shared memory, and the passes after it count only the
+//     stored keys: a few hundred instead of the slice.
 //   The result is unkey(prefix): an element of the row, bit for bit what
-//   the plain version's sort reads at the clamped rank.
+//   the plain version's sort reads at the clamped rank. Nothing goes back to
+//   the host, so a call can be captured in a CUDA graph.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "keys.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -51,239 +65,322 @@ using namespace stainx;
 
 constexpr int kThreads = 1024;
 constexpr int kMaxK = 8;  // ranks a launch serves; the wrapper splits more
-constexpr int kPasses = 4;
-constexpr int kUnroll = 4;  // groups a thread loads before it counts them
-constexpr int kHistWords = kMaxK * kBins;  // one histogram per distinct prefix
-constexpr int kMaxDevices = 64;
+constexpr int kCopies = 8;  // histogram copies a block counts into
+constexpr int kCand = 4096;  // keys a block stores once they are all its candidates
+constexpr int kUnroll = 4;  // 16-byte groups a thread loads before it counts them
 
-struct RowState {
+// What a block's pass reads: its slice, its slice while storing the
+// candidates' keys, or only the stored keys.
+enum CandState { kSweep = 0, kCollect = 1, kFromBuffer = 2 };
+
+// The head of a block's dynamic shared memory (kernels/selection.py
+// STATE_BYTES); the histogram copies, the block's histograms (double-
+// buffered), the merged histograms, the candidates and the resident keys
+// follow it.
+struct RowsShared {
   uint32_t prefix[kMaxK];       // key bits chosen so far, per rank
-  long long rank[kMaxK];        // rank left inside the prefix
+  long long rank[kMaxK];        // rank left under the prefix
   uint32_t slot_prefix[kMaxK];  // the prefix each histogram slot counts
   int slot[kMaxK];              // the histogram slot of each rank
   int slots;                    // distinct prefixes at this pass
-  int empty;                    // the row holds no element below +inf
+  int top;                      // key bits left to choose; 0: known, -1: no element
+  unsigned lo_not, hi, cnt;     // this block's ~min key, max key and count
+  unsigned cand_count;          // stored candidates
+  int cand_state;               // CandState of the next pass
+  int pad[1];
+};
+constexpr int kStateBytes = 192;
+static_assert(sizeof(RowsShared) == kStateBytes, "RowsShared layout");
+
+// 32-bit words of shared memory after RowsShared and before the resident
+// keys, for k ranks (a multiple of 4, so the keys start 16-byte aligned).
+__host__ __device__ constexpr int64_t copy_stride(int k) { return k * kBins + 1; }
+__host__ __device__ constexpr int64_t copy_words(int k) {
+  return (kCopies * copy_stride(k) + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int64_t fixed_words(int k) {
+  return copy_words(k) + 3 * k * kBins + kCand;
+}
+
+// A block's share of its row: elements [begin, begin + n) of the row (src
+// points at the first), S of them in all with the ragged tail padded, the
+// first R with their keys in shared memory.
+struct Slice {
+  const float* src;
+  int64_t n, S, R;
 };
 
-template <int V>
-__device__ __forceinline__ void load_keys(const float* row, int64_t g, bool ok, uint32_t (&key)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = ok ? reinterpret_cast<const float4*>(row)[g] : make_float4(0, 0, 0, 0);
-    key[0] = monotone_key(q.x);
-    key[1] = monotone_key(q.y);
-    key[2] = monotone_key(q.z);
-    key[3] = monotone_key(q.w);
+template <bool Vec>
+__device__ __forceinline__ void load4(const Slice& sl, int64_t g, uint32_t (&k)[4]) {
+  const int64_t q = 4 * g;
+  if (Vec) {  // n is a multiple of 4: a group is all in or all out
+    if (q < sl.n) {
+      const float4 v = reinterpret_cast<const float4*>(sl.src)[g];
+      k[0] = monotone_key(v.x);
+      k[1] = monotone_key(v.y);
+      k[2] = monotone_key(v.z);
+      k[3] = monotone_key(v.w);
+    } else {
+      k[0] = k[1] = k[2] = k[3] = kNoKey;
+    }
   } else {
-    key[0] = monotone_key(ok ? row[g] : 0.0f);
+    for (int j = 0; j < 4; ++j) k[j] = q + j < sl.n ? monotone_key(sl.src[q + j]) : kNoKey;
   }
 }
 
-template <int V>
-__device__ __forceinline__ void cached_keys(const uint32_t* cache, int64_t g, bool ok,
-                                            uint32_t (&key)[V]) {
-  if constexpr (V == 4) {
-    const uint4 q = ok ? reinterpret_cast<const uint4*>(cache)[g] : make_uint4(0, 0, 0, 0);
-    key[0] = q.x;
-    key[1] = q.y;
-    key[2] = q.z;
-    key[3] = q.w;
-  } else {
-    key[0] = ok ? cache[g] : 0u;
+// Calls f(key) for every key of the block's slice: the resident ones from
+// shared memory, the rest from device memory (kUnroll groups of 4 in flight
+// a thread). Padding keys are kNoKey.
+template <bool Vec, typename F>
+__device__ __forceinline__ void slice_keys(const Slice& sl, const uint32_t* keys, F&& f) {
+  const int64_t res = sl.R / 4, all = sl.S / 4;
+  for (int64_t g = threadIdx.x; g < res; g += kThreads) {
+    const uint4 q = reinterpret_cast<const uint4*>(keys)[g];
+    f(q.x);
+    f(q.y);
+    f(q.z);
+    f(q.w);
   }
-}
-
-template <int V>
-__device__ __forceinline__ void cache_keys(uint32_t* cache, int64_t g, const uint32_t (&key)[V]) {
-  if constexpr (V == 4) {
-    reinterpret_cast<uint4*>(cache)[g] = make_uint4(key[0], key[1], key[2], key[3]);
-  } else {
-    cache[g] = key[0];
-  }
-}
-
-// Adds the pass-d digit of each key below +inf to the histogram of the slot
-// whose prefix it matches (distinct slots have distinct prefixes, so at most
-// one); a warp with no such key skips the add. Every thread of the block
-// calls it the same number of times.
-template <int V>
-__device__ __forceinline__ void count_keys(const uint32_t (&key)[V], bool ok, int d,
-                                           const RowState& st, unsigned* hist) {
-  const int shift = 24 - 8 * d;
-  const unsigned bins = static_cast<unsigned>(st.slots) * kBins;
-  for (int j = 0; j < V; ++j) {
-    unsigned bin = bins;  // none
-    if (ok && key[j] < kSentinelKey) {
-      if (d == 0) {
-        bin = key[j] >> 24;
+  for (int64_t g0 = res; g0 < all; g0 += kThreads * kUnroll) {
+    uint32_t k[kUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t g = g0 + u * kThreads + threadIdx.x;
+      if (g < all) {
+        load4<Vec>(sl, g, k[u]);
       } else {
-        for (int s = 0; s < st.slots; ++s) {
-          if (((key[j] ^ st.slot_prefix[s]) >> (shift + 8)) == 0u) {
-            bin = s * kBins + ((key[j] >> shift) & 0xFFu);
-          }
+        k[u][0] = k[u][1] = k[u][2] = k[u][3] = kNoKey;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      for (int j = 0; j < 4; ++j) f(k[u][j]);
+  }
+}
+
+// The first read: the resident keys into shared memory, and the block's
+// smallest and largest key below the sentinel and its count into sh.
+template <bool Vec>
+__device__ void first_read(const Slice& sl, uint32_t* keys, RowsShared& sh) {
+  unsigned lo_not = 0u, hi = 0u, cnt = 0u;
+  const int64_t all = sl.S / 4;
+  for (int64_t g0 = 0; g0 < all; g0 += kThreads * kUnroll) {
+    uint32_t k[kUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t g = g0 + u * kThreads + threadIdx.x;
+      if (g < all) {
+        load4<Vec>(sl, g, k[u]);
+      } else {
+        k[u][0] = k[u][1] = k[u][2] = k[u][3] = kNoKey;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t g = g0 + u * kThreads + threadIdx.x;
+      if (4 * g < sl.R) {
+        reinterpret_cast<uint4*>(keys)[g] = make_uint4(k[u][0], k[u][1], k[u][2], k[u][3]);
+      }
+      for (int j = 0; j < 4; ++j) {
+        if (k[u][j] < kSentinelKey) {
+          lo_not = max(lo_not, ~k[u][j]);
+          hi = max(hi, k[u][j]);
+          ++cnt;
         }
       }
     }
-    if (__any_sync(kFull, bin < bins)) hist_add(hist, bin, bins);  // warp-uniform
+  }
+  lo_not = __reduce_max_sync(kFull, lo_not);
+  hi = __reduce_max_sync(kFull, hi);
+  cnt = __reduce_add_sync(kFull, cnt);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&sh.lo_not, lo_not);
+    atomicMax(&sh.hi, hi);
+    atomicAdd(&sh.cnt, cnt);
   }
 }
 
-// Pass d's pick, warp k for rank k: the bin of its slot's histogram that
-// holds its rank joins the prefix, and the rank left inside that bin is
-// kept. At pass 0 the histogram counts every element below +inf: the rank
-// is clamped to that count, and a row with none is marked empty.
-__device__ __forceinline__ void pick(RowState& st, const unsigned* hist, int k_ranks, int d) {
-  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (k >= k_ranks) return;  // warp-uniform
-  const long long want = st.rank[k];
-  const unsigned* h = hist + st.slot[k] * kBins + lane * 8;
-  unsigned local[8];
-  long long total = 0;
-  for (int i = 0; i < 8; ++i) {
-    local[i] = h[i];
-    total += local[i];
+// Thread 0: the row's extremes and count from every block of the cluster,
+// the ranks clamped to the count, and the descent's start.
+__device__ void start_descent(RowsShared& sh, const int* ranks, int k_ranks,
+                              cg::cluster_group& cluster) {
+  unsigned lo_not = 0u, hi = 0u;
+  long long cnt = 0;
+  for (unsigned q = 0; q < cluster.num_blocks(); ++q) {
+    const RowsShared* other = cluster.map_shared_rank(&sh, q);
+    lo_not = max(lo_not, other->lo_not);
+    hi = max(hi, other->hi);
+    cnt += other->cnt;
   }
-  long long incl = total;
-  for (int off = 1; off < 32; off <<= 1) {
-    const long long up = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += up;
-  }
-  const long long n = __shfl_sync(kFull, incl, 31);
-  if (n == 0) {  // pass 0 only: no element below +inf
-    if (lane == 0) st.empty = 1;
+  if (cnt == 0) {
+    sh.top = -1;
     return;
   }
-  const long long rr = want < 0 ? 0 : (want >= n ? n - 1 : want);
-  long long below = incl - total, rem = 0;
-  int bin = -1;
-  if (below <= rr && rr < incl) {
-    for (int i = 0; i < 8; ++i) {
-      if (rr < below + local[i]) {
-        bin = lane * 8 + i;
-        rem = rr - below;
-        break;
-      }
-      below += local[i];
-    }
+  const uint32_t lo = ~lo_not;
+  uint32_t prefix = lo;
+  sh.top = lo == hi ? 0 : common_top(lo, hi, prefix);
+  for (int k = 0; k < k_ranks; ++k) {
+    const long long r = ranks[k];
+    sh.rank[k] = r < 0 ? 0 : (r >= cnt ? cnt - 1 : r);
+    sh.prefix[k] = prefix;
+    sh.slot[k] = 0;
   }
-  const int who = __ffs(__ballot_sync(kFull, bin >= 0)) - 1;
-  bin = __shfl_sync(kFull, bin, who);
-  rem = __shfl_sync(kFull, rem, who);
-  if (lane == 0) {
-    st.prefix[k] |= static_cast<uint32_t>(bin) << (24 - 8 * d);
-    st.rank[k] = rem;
-  }
+  sh.slot_prefix[0] = prefix;
+  sh.slots = 1;
 }
 
-// Row blockIdx.x: the K values at ranks[row, :] among its elements below
-// +inf. Dynamic shared memory: kHistWords histogram words, then, when
-// kResident, the row's p keys.
-template <int V, bool kResident>
-__global__ void __launch_bounds__(kThreads)
-select_rows(const float* __restrict__ x, int64_t p, const int* __restrict__ ranks, int k_ranks,
-            float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned smem[];
-  unsigned* hist = smem;
-  uint32_t* cache = smem + kHistWords;
-  __shared__ RowState st;
-  const int64_t r = blockIdx.x;
-  const float* row = x + r * p;
-  const int64_t groups = p / V;
-
-  for (int i = threadIdx.x; i < kBins; i += kThreads) hist[i] = 0u;
-  if (threadIdx.x < k_ranks) {
-    st.prefix[threadIdx.x] = 0u;
-    st.rank[threadIdx.x] = ranks[r * k_ranks + threadIdx.x];
-    st.slot[threadIdx.x] = 0;
+// Adds one to the histogram copy of the calling lane for key k, in the slot
+// whose prefix it lies under (distinct slots have distinct prefixes, so at
+// most one), and returns whether it was counted.
+__device__ __forceinline__ bool count_key(uint32_t k, const RowsShared& sh, int top,
+                                          unsigned* copy, int slots) {
+  if (k >= kSentinelKey) return false;
+  for (int s = 0; s < slots; ++s) {
+    if (under_prefix(k, sh.slot_prefix[s], top)) {
+      atomicAdd(copy + s * kBins + digit_at(k, top), 1u);
+      return true;
+    }
   }
+  return false;
+}
+
+// Row blockIdx.x / cluster size: the K values at ranks[row, :] among its
+// elements below +inf. Block r of the cluster takes elements [r*S, (r+1)*S)
+// of the row, the first R of them resident.
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads, 1)
+select_rows(const float* __restrict__ x, int64_t p, const int* __restrict__ ranks, int k_ranks,
+            float* __restrict__ out, int64_t S, int64_t R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowsShared& sh = *reinterpret_cast<RowsShared*>(smem);
+  unsigned* rep = reinterpret_cast<unsigned*>(smem + kStateBytes);
+  unsigned* hist = rep + copy_words(k_ranks);  // [2][k][kBins]
+  unsigned* merged = hist + 2 * k_ranks * kBins;  // [k][kBins]
+  uint32_t* cand = merged + k_ranks * kBins;
+  uint32_t* keys = cand + kCand;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int64_t row = blockIdx.x / cluster.num_blocks();
+  const int64_t begin = static_cast<int64_t>(cluster.block_rank()) * S;
+  const int64_t n = begin < p ? (p - begin < S ? p - begin : S) : 0;
+  const Slice sl{x + row * p + begin, n, S, R};
+  unsigned* copy = rep + (threadIdx.x & (kCopies - 1)) * copy_stride(k_ranks);
+
+  for (int i = threadIdx.x; i < copy_words(k_ranks); i += kThreads) rep[i] = 0u;
   if (threadIdx.x == 0) {
-    st.slots = 1;
-    st.slot_prefix[0] = 0u;
-    st.empty = 0;
+    sh.lo_not = sh.hi = sh.cnt = 0u;
+    sh.cand_state = kSweep;
   }
   __syncthreads();
+  first_read<Vec>(sl, keys, sh);
+  cluster.sync();
+  if (threadIdx.x == 0) start_descent(sh, ranks + row * k_ranks, k_ranks, cluster);
+  __syncthreads();
 
-  for (int d = 0; d < kPasses; ++d) {
-    if (d > 0) {
-      if (threadIdx.x == 0) {
-        int slots = 0;
-        for (int k = 0; k < k_ranks; ++k) {
-          int s = 0;
-          while (s < slots && st.slot_prefix[s] != st.prefix[k]) ++s;
-          if (s == slots) st.slot_prefix[slots++] = st.prefix[k];
-          st.slot[k] = s;
-        }
-        st.slots = slots;
+  for (int pass = 0; sh.top > 0; ++pass) {  // the same passes in every block of the cluster
+    const int top = sh.top, slots = sh.slots, state = sh.cand_state;
+    unsigned* own = hist + (pass & 1) * k_ranks * kBins;
+    if (state == kFromBuffer) {
+      for (unsigned i = threadIdx.x; i < sh.cand_count; i += kThreads) {
+        count_key(cand[i], sh, top, copy, slots);
       }
-      __syncthreads();
-      for (int i = threadIdx.x; i < st.slots * kBins; i += kThreads) hist[i] = 0u;
-      __syncthreads();
-    }
-    for (int64_t g0 = 0; g0 < groups; g0 += kThreads * kUnroll) {
-      uint32_t key[kUnroll][V];
-      bool ok[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {  // all loads in flight before any count
-        const int64_t g = g0 + u * kThreads + threadIdx.x;
-        ok[u] = g < groups;
-        if (kResident && d > 0) {
-          cached_keys<V>(cache, g, ok[u], key[u]);
-        } else {
-          load_keys<V>(row, g, ok[u], key[u]);
-          if (kResident && ok[u]) cache_keys<V>(cache, g, key[u]);
+    } else if (state == kCollect) {
+      slice_keys<Vec>(sl, keys, [&](uint32_t k) {
+        if (count_key(k, sh, top, copy, slots)) {
+          const unsigned i = atomicAdd(&sh.cand_count, 1u);
+          if (i < kCand) cand[i] = k;  // always: the block's own counts bound them
         }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) count_keys<V>(key[u], ok[u], d, st, hist);
+      });
+    } else {
+      slice_keys<Vec>(sl, keys, [&](uint32_t k) { count_key(k, sh, top, copy, slots); });
     }
     __syncthreads();
-    pick(st, hist, k_ranks, d);
-    __syncthreads();
-    if (st.empty) {  // block-uniform
-      if (threadIdx.x < k_ranks) out[r * k_ranks + threadIdx.x] = __int_as_float(0x7F800000);
-      return;
+    for (int i = threadIdx.x; i < slots * kBins; i += kThreads) {
+      unsigned c = 0u;
+      for (int q = 0; q < kCopies; ++q) {
+        c += rep[q * copy_stride(k_ranks) + i];
+        rep[q * copy_stride(k_ranks) + i] = 0u;
+      }
+      own[i] = c;
     }
+    cluster.sync();
+    for (int i = threadIdx.x; i < slots * kBins; i += kThreads) {
+      unsigned c = 0u;
+#pragma unroll 4  // the remote loads in flight together
+      for (unsigned q = 0; q < cluster.num_blocks(); ++q) c += cluster.map_shared_rank(own, q)[i];
+      merged[i] = c;
+    }
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, shift = digit_shift(top);
+    if (warp < k_ranks) {
+      unsigned bin;
+      long long rem;
+      warp_pick(merged + sh.slot[warp] * kBins, sh.rank[warp], bin, rem);
+      if ((threadIdx.x & 31) == 0) {
+        sh.prefix[warp] |= bin << shift;
+        sh.rank[warp] = rem;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // The block's keys under the new prefixes: its own counts of the
+      // chosen bins, one for each distinct new prefix.
+      unsigned stored = 0u;
+      int s_new = 0;
+      for (int k = 0; k < k_ranks; ++k) {  // slot_prefix[0, s_new) holds new prefixes
+        int s = 0;
+        while (s < s_new && sh.slot_prefix[s] != sh.prefix[k]) ++s;
+        if (s == s_new) {
+          stored += own[sh.slot[k] * kBins + digit_at(sh.prefix[k], top)];
+          sh.slot_prefix[s_new++] = sh.prefix[k];
+        }
+        sh.slot[k] = s;
+      }
+      sh.slots = s_new;
+      sh.top = shift;
+      if (state != kSweep) {
+        sh.cand_state = kFromBuffer;  // the stored keys hold every later candidate
+      } else if (shift > 0 && stored <= static_cast<unsigned>(kCand)) {
+        sh.cand_state = kCollect;
+        sh.cand_count = 0u;
+      }
+    }
+    __syncthreads();
   }
-  if (threadIdx.x < k_ranks) out[r * k_ranks + threadIdx.x] = unkey(st.prefix[threadIdx.x]);
+  if (cluster.block_rank() == 0 && static_cast<int>(threadIdx.x) < k_ranks) {
+    out[row * k_ranks + threadIdx.x] =
+        sh.top < 0 ? __int_as_float(0x7F800000) : unkey(sh.prefix[threadIdx.x]);
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-// The longest row whose keys a block keeps in shared memory on the current
-// device: the opt-in maximum less the static state and the histograms.
-cudaError_t resident_max(long long* out) {
-  static long long cached[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *out = cached[dev];
-    return cudaSuccess;
+using RowsKernel = void (*)(const float*, int64_t, const int*, int, float*, int64_t, int64_t);
+
+// Sets the kernel's shared memory for k ranks and R resident keys a block
+// and allows clusters of 16 (past the portable 8), and fills cfg for `rows`
+// clusters of csize blocks.
+cudaError_t rows_config(RowsKernel kernel, long long rows, int csize, int k, long long R,
+                        cudaStream_t s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  const size_t smem = kStateBytes + 4 * static_cast<size_t>(fixed_words(k) + R);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, select_rows<4, true>);
-  if (e != cudaSuccess) return e;
-  const long long words =
-      (static_cast<long long>(optin) - static_cast<long long>(fa.sharedSizeBytes)) / 4;
-  *out = words - kHistWords;
-  if (dev < kMaxDevices) cached[dev] = *out;
-  return cudaSuccess;
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * csize));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(csize);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return e;
 }
 
-template <int V, bool kResident>
-cudaError_t launch(const float* x, long long rows, long long p, const int* ranks, int k,
-                   float* out, cudaStream_t s) {
-  const size_t smem = sizeof(unsigned) * (kHistWords + (kResident ? p : 0));
-  if (kResident) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        select_rows<V, kResident>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  select_rows<V, kResident><<<static_cast<unsigned>(rows), kThreads, smem, s>>>(x, p, ranks, k,
-                                                                               out);
-  return cudaGetLastError();
-}
+RowsKernel rows_kernel(int vec) { return vec == 4 ? select_rows<true> : select_rows<false>; }
 
 }  // namespace
 
@@ -294,31 +391,44 @@ const char* stainx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Writes to *out the longest row (in elements) that a block keeps resident
-// in shared memory on the current device. Returns a CUDA error code.
-int stainx_kth_smallest_rows_resident_max(long long* out) {
-  return static_cast<int>(resident_max(out));
+// x: (rows, p) float32 with +inf sentinels, 1 <= p < 2^31; ranks: (rows, k)
+// int32; out: (rows, k) float32; 1 <= k <= 8. One cluster of csize blocks a
+// row (rows * csize < 2^31), a slice of S elements a block (a multiple of
+// 4, csize * S >= p), the first R (a multiple of 4, at most S) resident.
+// vec is 4 when p % 4 == 0 and x is 16-byte aligned, else 1. Returns a
+// CUDA error code (cudaGetLastError() after the launch).
+int stainx_kth_smallest_rows(const void* x, long long rows, long long p, const void* ranks, int k,
+                             void* out, int vec, int csize, long long S, long long R,
+                             void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const RowsKernel kernel = rows_kernel(vec);
+  cudaError_t e = rows_config(kernel, rows, csize, k, R, static_cast<cudaStream_t>(stream), cfg,
+                              attr);
+  if (e == cudaSuccess) {
+    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x), static_cast<int64_t>(p),
+                           static_cast<const int*>(ranks), k, static_cast<float*>(out),
+                           static_cast<int64_t>(S), static_cast<int64_t>(R));
+  }
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// x: (rows, p) float32 with +inf sentinels, 1 <= p < 2^31; ranks: (rows, k)
-// int32; out: (rows, k) float32. 1 <= k <= 8, 1 <= rows < 2^31. vec is 4
-// when p % 4 == 0 and x is 16-byte aligned, else 1. Returns a CUDA error
-// code (cudaGetLastError() after the launch).
-int stainx_kth_smallest_rows(const void* x, long long rows, long long p, const void* ranks, int k,
-                             void* out, int vec, void* stream) {
-  long long cap = 0;
-  cudaError_t e = resident_max(&cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* rk = static_cast<const int*>(ranks);
-  auto* o = static_cast<float*>(out);
-  const bool resident = p <= cap;
-  if (vec == 4) {
-    e = resident ? launch<4, true>(xf, rows, p, rk, k, o, s) : launch<4, false>(xf, rows, p, rk, k, o, s);
-  } else {
-    e = resident ? launch<1, true>(xf, rows, p, rk, k, o, s) : launch<1, false>(xf, rows, p, rk, k, o, s);
+// Clusters of csize blocks, each with k ranks and R resident keys, that the
+// current card holds at once (cudaOccupancyMaxActiveClusters).
+int stainx_kth_smallest_rows_occupancy(int csize, int k, long long R, void* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const RowsKernel kernel = rows_kernel(4);
+  cudaError_t e = rows_config(kernel, 1, csize, k, R, nullptr, cfg, attr);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveClusters(static_cast<int*>(clusters),
+                                       reinterpret_cast<const void*>(kernel), &cfg);
   }
+  if (e != cudaSuccess) cudaGetLastError();
   return static_cast<int>(e);
 }
 

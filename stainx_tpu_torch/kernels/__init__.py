@@ -130,6 +130,11 @@ def check_cuda(tensor: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous tensor")
 
 
+def ceil_to(v: int, q: int) -> int:
+    """``v`` rounded up to a multiple of ``q``."""
+    return -(-v // q) * q
+
+
 @functools.cache
 def device_limits(index: int) -> tuple[int, int]:
     """(SMs, opt-in shared memory a block in bytes) of CUDA device
@@ -151,3 +156,18 @@ def row_blocks(rows: int, items: int, device: torch.device) -> int:
     over all rows, at least one a row, and no more than one per 256 items."""
     sms = device_limits(torch.device(device).index)[0]
     return max(1, min(-(-sms * 8 // max(rows, 1)), -(-items // 256)))
+
+
+MAX_GRID_X = 2**31 - 1  # a launch's x extent; y and z stop at 65 535
+
+
+def folded_grid(items: int, blocks: int, what: str) -> int:
+    """Blocks of a one-dimensional launch that folds ``items`` rows (or
+    images) of ``blocks`` blocks each into the grid's x extent, where the
+    kernel finds its item as ``blockIdx.x / blocks``: any number of items
+    up to 2³¹ − 1 blocks in all. Raises past that."""
+    total = items * blocks
+    if total > MAX_GRID_X:
+        raise ValueError(f"{what}: {items} rows of {blocks} blocks exceed a grid of "
+                         f"{MAX_GRID_X} blocks")
+    return total

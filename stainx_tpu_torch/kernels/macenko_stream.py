@@ -14,7 +14,8 @@ blocks. On a CUDA tensor a wrapper launches ``csrc/macenko_stream.cu``
 - ``"stream"``: longer rows over many blocks, every selection pass
   recomputing its keys from the raw input (a float32 row writes its keys
   once and re-reads them); one memset and 10 kernels at transform, 9 at
-  fit, all issued by one C call.
+  fit (each in launches of at most 65 535 images, so a pool of any size
+  fits), all issued by one C call.
 
 Both select inside their own kernels (an exact radix select on the
 monotone key, with B6's conventions): no B6 launch, no key field in device
@@ -50,7 +51,6 @@ CLUSTER_FIXED_BYTES = 42_944  # csrc/macenko_stream.cu ClusterShared
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is past the portable 8, allowed by the kernel
 FIT_BLOCKS = 8  # a row takes the cluster route when its planes fit 8 blocks
 SLICE_QUANTUM = 16  # pixels: a slice is a whole number of 16-byte loads
-MAX_IMAGES = 65535  # the streamed grid's y extent
 ALIGN = 256  # bytes between the streamed route's scratch regions
 
 
@@ -67,10 +67,6 @@ def macenko_fit_stream_plain(images):
 
 
 # ------------------------------------------------------------ host logic
-def _ceil_to(v: int, q: int) -> int:
-    return -(-v // q) * q
-
-
 def resident_budget(itemsize: int, smem_per_block: int) -> int:
     """Pixels of a row a cluster block can hold in shared memory beside its
     fixed part, a multiple of :data:`SLICE_QUANTUM`."""
@@ -99,7 +95,7 @@ def cluster_shape(rows: int, row_len: int, itemsize: int, smem_per_block: int,
         return None
     budget = resident_budget(itemsize, smem_per_block)
     for c in reversed(CLUSTER_SIZES):
-        slice_ = _ceil_to(-(-row_len // c), SLICE_QUANTUM)
+        slice_ = kernels.ceil_to(-(-row_len // c), SLICE_QUANTUM)
         resident = min(slice_, budget)
         if c == 1 or active(c, resident) >= rows:
             return c, slice_, resident
@@ -119,7 +115,7 @@ def stream_layout(rows: int, blocks: int, key_len: int = 0):
     layout, off = {}, 0
     for name, nbytes in sizes:
         layout[name] = (off, nbytes)
-        off = _ceil_to(off + nbytes, ALIGN)
+        off = kernels.ceil_to(off + nbytes, ALIGN)
     return layout, off
 
 
@@ -188,8 +184,6 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
             )
         kernels.check(lib, code, what)
         return params
-    if n > MAX_IMAGES:
-        raise ValueError(f"{what} takes at most {MAX_IMAGES} images on its streamed route, got {n}")
     vec = 4 if mf._vec4(p, *aligned) else 1
     blocks = kernels.row_blocks(n, p // vec, dev)
     layout, total = stream_layout(rows, n * blocks, 0 if is_uint8 else row_len)

@@ -14,14 +14,15 @@ float32 field with +inf sentinels and (R, K) int32 ranks give the (R, K)
 float32 values at those nearest ranks among each row's elements below +inf.
 A rank past the count takes the row's largest element; a row with no
 element gives +inf. On a CUDA tensor it launches ``csrc/select_rows.cu``
-(one thread block a row, built at first use) or raises; on a CPU tensor it
-runs :func:`kth_smallest_pallas_plain`, which sorts the monotone keys of
-each row. Both give the JAX kernel's result bit for bit.
+(one thread-block cluster a row, built at first use) or raises; on a CPU
+tensor it runs :func:`kth_smallest_pallas_plain`, which sorts the monotone
+keys of each row. Both give the JAX kernel's result bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -63,33 +64,105 @@ def kth_smallest_pallas_plain(x: torch.Tensor, ranks: torch.Tensor) -> torch.Ten
     return torch.where((n == 0)[:, None], torch.inf, out)
 
 
+# ------------------------------------------------------------ host logic
+STATE_BYTES = 192  # csrc/select_rows.cu RowsShared, the head of a block's shared memory
+HIST_COPIES = 8  # histogram copies a block counts into
+CAND_KEYS = 4096  # candidates a block stores in shared memory
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is past the portable 8, allowed by the kernel
+# Waves of clusters a shape may take. Measured on the H100 (chip_smoke.py's
+# cluster table, 700 W): at (128, 512^2) K=1 clusters of 2 in two waves
+# (0.164 ms) beat one wave of single blocks (0.182), which read 80 % of
+# their rows from device memory at every pass; at (256, 224^2) K=2 single
+# blocks in two waves (0.073) beat four waves of clusters of 2 (0.090).
+WAVES = 2
+# Elements a block of a cluster larger than 1 must get. Measured on the H100
+# (chip_smoke.py's short-row table, 700 W): a 224^2 row is fastest on
+# clusters of 4 (12 544 a block: 0.0216 ms at K=2) and slower on 8 (6 272:
+# 0.0227) and 16 (3 136: 0.0279); a 64^2 row on a single block (0.0160)
+# or 2 (2 048 a block: 0.0160), slower on 4 and more.
+MIN_SLICE = 8192
+
+
+def fixed_words(k: int) -> int:
+    """32-bit words of a block's shared memory between its state and its
+    resident keys, for ``k`` ranks: the histogram copies (a word of padding
+    each, rounded to 4 words), the block's two histograms and the merged
+    one, and the candidates."""
+    return kernels.ceil_to(HIST_COPIES * (k * 256 + 1), 4) + 3 * k * 256 + CAND_KEYS
+
+
+def resident_budget(k: int, smem_per_block: int) -> int:
+    """Keys of its slice a block keeps in shared memory beside its fixed
+    part, for ``k`` ranks: a multiple of 4."""
+    words = (smem_per_block - STATE_BYTES) // 4 - fixed_words(k)
+    return words - words % 4
+
+
+def cluster_slice(p: int, c: int, budget: int) -> tuple[int, int]:
+    """``(slice, resident)`` of a row of ``p`` elements on a cluster of
+    ``c`` blocks: each block takes a slice of the row (a multiple of 4
+    elements) and keeps up to ``budget`` of its keys in shared memory,
+    reading the rest from device memory each pass."""
+    if c not in CLUSTER_SIZES:
+        raise ValueError(f"kth_smallest_pallas: no cluster of {c} blocks (sizes {CLUSTER_SIZES})")
+    slice_ = kernels.ceil_to(-(-p // c), 4)
+    return slice_, min(slice_, budget)
+
+
+def cluster_shape(rows: int, p: int, k: int, smem_per_block: int, active
+                  ) -> tuple[int, int, int]:
+    """``(cluster size, slice, resident)`` of B3 for ``rows`` rows of ``p``
+    elements and ``k`` ranks (:func:`cluster_slice`). ``active(c,
+    resident)`` is the number of clusters of ``c`` blocks the card holds at
+    once. The cluster is the largest whose clusters for all the rows run in
+    at most :data:`WAVES` waves and whose blocks each get at least
+    :data:`MIN_SLICE` elements, else 1: a lone or few long rows spread
+    over the card, many rows take a block each."""
+    budget = resident_budget(k, smem_per_block)
+    for c in reversed(CLUSTER_SIZES):
+        slice_, resident = cluster_slice(p, c, budget)
+        if c == 1 or (-(-p // c) >= MIN_SLICE and WAVES * active(c, resident) >= rows):
+            return c, slice_, resident
+    raise AssertionError("unreachable: a cluster of 1 always fits")
+
+
 # --------------------------------------------------------------- wrapper
 def _lib() -> ctypes.CDLL:
     lib = kernels.library("select_rows")
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.stainx_kth_smallest_rows.argtypes = [ptr, i64, i64, ptr, i32, ptr, i32, ptr]
+        lib.stainx_kth_smallest_rows.argtypes = [ptr, i64, i64, ptr, i32, ptr, i32, i32, i64, i64,
+                                                 ptr]
         lib.stainx_kth_smallest_rows.restype = i32
-        lib.stainx_kth_smallest_rows_resident_max.argtypes = [ctypes.POINTER(i64)]
-        lib.stainx_kth_smallest_rows_resident_max.restype = i32
+        lib.stainx_kth_smallest_rows_occupancy.argtypes = [i32, i32, i64, ptr]
+        lib.stainx_kth_smallest_rows_occupancy.restype = i32
         lib._stainx_declared = True
     return lib
 
 
-def resident_max(device: torch.device) -> int:
-    """The longest row, in elements, whose keys B3 keeps in one block's
-    shared memory on ``device`` (longer rows are read again each pass)."""
-    lib, out = _lib(), ctypes.c_longlong()
-    with torch.cuda.device(device):
-        kernels.check(lib, lib.stainx_kth_smallest_rows_resident_max(ctypes.byref(out)),
-                      "kth_smallest_pallas")
-    return out.value
+@functools.cache
+def _active_clusters(index: int, k: int, csize: int, resident: int) -> int:
+    """Clusters of ``csize`` blocks with ``k`` ranks and ``resident`` keys
+    a block that CUDA device ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once a shape."""
+    lib, found = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        code = lib.stainx_kth_smallest_rows_occupancy(csize, k, resident, ctypes.addressof(found))
+    kernels.check(lib, code, "cudaOccupancyMaxActiveClusters")
+    return found.value
 
 
 def kth_smallest_pallas(x: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     """Exact nearest-rank selection (B3): (R, P) float32 with +inf
     sentinels, ranks (R, K) int32 → (R, K) float32. One launch a call (per
-    8 ranks), one thread block a row; the ranks may stay on the card."""
+    8 ranks), one thread-block cluster a row (:func:`cluster_shape`); the
+    ranks may stay on the card."""
+    return _select(x, ranks, None)
+
+
+def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Tensor:
+    """B3 on clusters of ``csize`` blocks, or of :func:`cluster_shape`'s
+    size where it is None (``chip_smoke.py`` forces each size)."""
     if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
         raise ValueError(
             f"kth_smallest_pallas expects x (R, P) and ranks (R, K), got "
@@ -105,22 +178,28 @@ def kth_smallest_pallas(x: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     dev = x.device
     if rows == 0 or p == 0 or k_all == 0:
         return torch.full((rows, k_all), torch.inf, dtype=torch.float32, device=dev)
-    if p >= 2**31 or rows >= 2**31:
-        raise ValueError(
-            f"kth_smallest_pallas takes fewer than 2^31 rows and elements, got {tuple(x.shape)}"
-        )
+    if p >= 2**31:
+        raise ValueError(f"kth_smallest_pallas takes rows below 2^31 elements, got {p}")
     ranks = ranks.to(device=dev, dtype=torch.int32)
     vec = 4 if p % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    smem = kernels.device_limits(dev.index)[1]
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = []
     for k0 in range(0, k_all, MAX_RANKS):
         r = ranks[:, k0:k0 + MAX_RANKS].contiguous()
         k = r.shape[1]
+        if csize is None:
+            active = functools.partial(_active_clusters, dev.index, k)
+            c, slice_, resident = cluster_shape(rows, p, k, smem, active)
+        else:
+            c, (slice_, resident) = csize, cluster_slice(p, csize, resident_budget(k, smem))
+        kernels.folded_grid(rows, c, "kth_smallest_pallas")
         out = torch.empty((rows, k), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             code = lib.stainx_kth_smallest_rows(
-                x.data_ptr(), rows, p, r.data_ptr(), k, out.data_ptr(), vec, stream
+                x.data_ptr(), rows, p, r.data_ptr(), k, out.data_ptr(), vec, c, slice_,
+                resident, stream
             )
         kernels.check(lib, code, "kth_smallest_pallas")
         kth_smallest_pallas.launches += 1

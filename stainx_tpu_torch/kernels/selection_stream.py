@@ -6,15 +6,17 @@ sentinels and (R, K) int32 ranks and returns the (R, K) float32 values at
 those nearest ranks among each row's elements below +inf. A rank past the
 count takes the row's largest element; a row with no element gives +inf.
 On a CUDA tensor it launches the radix select of ``csrc/selection.cu``
-(built at first use) or raises; on a CPU tensor it runs the plain version,
-which sorts the monotone keys of each row. Both give the JAX package's
-``kth_smallest_streaming`` bit for bit.
+(one C call: a memset, a read for each row's extremes unless an init is
+given, and 4 passes; built at first use) or raises; on a CPU tensor it
+runs the plain version, which sorts the monotone keys of each row. Both
+give the JAX package's ``kth_smallest_streaming`` bit for bit.
 
 ``init`` is per row ``(min_vals, max_vals, counts)`` over the elements
 below +inf, the conventions of the JAX ``_init_keys``: a count of 0 gives
-+inf, and the kernel starts its descent at the common leading key bytes of
-min and max. It must be exact where it is given. The ranks and the init may
-be tensors on the card: the wrapper reads nothing back to the host.
++inf, and the kernel starts its descent below the common leading key bits
+of min and max. It must be exact where it is given; without it the kernel
+finds them in its first read. The ranks and the init may be tensors on
+the card: the wrapper reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -27,8 +29,33 @@ from stainx_tpu_torch import kernels
 from stainx_tpu_torch.kernels.selection import kth_smallest_pallas_plain
 
 MAX_RANKS = 8  # ranks one launch serves (csrc/selection.cu kMaxK)
-MAX_ROWS = 65535  # rows one launch serves (the grid's y extent)
-STATE_BYTES = 16  # csrc/selection.cu SelState
+STATE_BYTES = 176  # csrc/selection.cu SelRow, a row's descent
+COUNTER_BYTES = 32  # csrc/selection.cu RowCount, a row's counters
+CAND_CAP = 1 << 20  # keys of a row's candidate buffer in device memory (4 MB)
+ALIGN = 256  # bytes between the scratch regions
+
+
+def scratch_layout(rows: int, p: int, k: int):
+    """B6's scratch in one byte buffer: ``{name: (offset, nbytes)}`` and the
+    total. ``counts`` (rows, 32 bytes) with the (rows, k, 256) uint32
+    histograms right after them (the kernel zeroes both with one memset),
+    ``state`` (rows, 176 bytes) and ``cand``, the rows' uint32 candidate
+    buffers of :func:`candidate_cap` keys each. Regions start
+    :data:`ALIGN` apart."""
+    sizes = [("counts", rows * COUNTER_BYTES + rows * k * 256 * 4),
+             ("state", rows * STATE_BYTES), ("cand", rows * candidate_cap(p) * 4)]
+    layout, off = {}, 0
+    for name, nbytes in sizes:
+        layout[name] = (off, nbytes)
+        off = kernels.ceil_to(off + nbytes, ALIGN)
+    return layout, off
+
+
+def candidate_cap(p: int) -> int:
+    """Keys a row's candidate buffer holds: the row's length, up to
+    :data:`CAND_CAP`. Where a rank's bin holds more keys, the next pass
+    reads the field again instead."""
+    return max(1, min(p, CAND_CAP))
 
 
 def init_keys(min_vals, max_vals, counts) -> torch.Tensor:
@@ -57,7 +84,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.stainx_kth_smallest_streaming.argtypes = [
-            ptr, i64, i64, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr
+            ptr, i64, i64, ptr, i32, ptr, ptr, ptr, ptr, i64, ptr, i32, i32, ptr
         ]
         lib.stainx_kth_smallest_streaming.restype = i32
         lib._stainx_declared = True
@@ -66,9 +93,9 @@ def _lib() -> ctypes.CDLL:
 
 def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> torch.Tensor:
     """Exact nearest-rank selection (B6): (R, P) float32 with +inf
-    sentinels, ranks (R, K) int32 → (R, K) float32. ``init`` is an optional
-    tuple of (R,) ``(min_vals, max_vals, counts)``. One launch a call (per 8
-    ranks)."""
+    sentinels, ranks (R, K) int32 → (R, K) float32, any number of rows.
+    ``init`` is an optional tuple of (R,) ``(min_vals, max_vals, counts)``.
+    One C call a call (per 8 ranks)."""
     if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
         raise ValueError(
             f"kth_smallest_streaming expects x (R, P) and ranks (R, K), got "
@@ -88,12 +115,11 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
     k_all = ranks.shape[1]
     if rows == 0 or p == 0 or k_all == 0:
         return torch.full((rows, k_all), torch.inf, dtype=torch.float32, device=dev)
-    if rows > MAX_ROWS:
-        raise ValueError(f"kth_smallest_streaming takes at most {MAX_ROWS} rows, got {rows}")
     if p >= 2**31:
         raise ValueError(f"kth_smallest_streaming takes rows below 2^31 elements, got {p}")
     vec = 4 if p % 4 == 0 and x.data_ptr() % 16 == 0 else 1
     blocks_x = kernels.row_blocks(rows, p // vec, dev)
+    kernels.folded_grid(rows, blocks_x, "kth_smallest_streaming")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = []
@@ -101,13 +127,15 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
         r = ranks[:, k0:k0 + MAX_RANKS].contiguous()
         k = r.shape[1]
         out = torch.empty((rows, k), dtype=torch.float32, device=dev)
-        state = torch.empty(rows * k * STATE_BYTES, dtype=torch.uint8, device=dev)
-        hist = torch.empty((rows, k, 256), dtype=torch.int32, device=dev)
+        layout, total = scratch_layout(rows, p, k)
+        scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+        base = scratch.data_ptr()
         with torch.cuda.device(dev):
             code = lib.stainx_kth_smallest_streaming(
                 x.data_ptr(), rows, p, r.data_ptr(), k,
-                None if init3 is None else init3.data_ptr(), state.data_ptr(),
-                hist.data_ptr(), out.data_ptr(), vec, blocks_x, stream,
+                None if init3 is None else init3.data_ptr(), base + layout["counts"][0],
+                base + layout["state"][0], base + layout["cand"][0], candidate_cap(p),
+                out.data_ptr(), vec, blocks_x, stream,
             )
         kernels.check(lib, code, "kth_smallest_streaming")
         kth_smallest_streaming.launches += 1

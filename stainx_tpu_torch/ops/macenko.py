@@ -17,11 +17,12 @@ Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
   ``precision="fast"``) and the cast back to the input dtype. Its steps
   are plain PyTorch, as the JAX package leaves them to XLA; its selections
   go to B3 (:func:`~stainx_tpu_torch.kernels.selection.kth_smallest_pallas`,
-  one thread block a row) or, for at most :data:`SELECT_STREAM_MAX_ROWS`
-  rows of at least :data:`SELECT_STREAM_MIN_ELEMS` elements, to B6
-  (:func:`~stainx_tpu_torch.kernels.selection_stream.kth_smallest_streaming`)
-  with the rows' (min, max, count) init. Both selections are exact, so the
-  route never changes an output.
+  one thread-block cluster a row) or, for at most
+  :data:`SELECT_STREAM_MAX_ROWS` rows of at least
+  :data:`SELECT_STREAM_MIN_ELEMS` elements, to B6
+  (:func:`~stainx_tpu_torch.kernels.selection_stream.kth_smallest_streaming`,
+  which finds the rows' extremes and count itself). Both selections are
+  exact, so the route never changes an output.
 
 A CUDA tensor launches the hand-written kernels, a CPU tensor runs their
 plain PyTorch versions.
@@ -78,20 +79,23 @@ FIT_STREAM_MIN_ELEMS = 50_176
 FIT_STREAM_MIN_ELEMS_F32 = 9_216
 # The staged pipeline's selections, from the three-round sweep of B3
 # against B6 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule
-# of the ladder above. B3 (one thread block a row) was faster as called in
-# every round at every row of up to 512^2 elements, from 1 to 512 rows; B6's
-# device time is lower for a few such rows, but its call costs 0.3-0.7 ms
-# of host time. At 524 288 elements B6 also won most cells of up to 16
-# rows as called (0.30-0.43 ms), but B3's device time there (0.47-0.62 ms)
-# stays below the slowest host-bound call seen (0.76 ms), so B3 keeps them.
-# From 1 048 576 elements B6, which spreads a row over the card, won every
-# round for up to 32 rows (one overlap in the first sweep, 32 rows of
-# 1 048 576 at K=1; at 4 194 304: 2.65-2.67 ms against B3's
-# 4.88-4.93 for 32 rows), and B3 won from 64 rows on (one wave of blocks:
-# 1.26-1.33 ms against 1.59-2.86 at 1 048 576; 4.88-4.97 against 5.67-5.71
-# at 4 194 304). So B6 takes rows of at least SELECT_STREAM_MIN_ELEMS
-# elements when there are at most SELECT_STREAM_MAX_ROWS of them.
-SELECT_STREAM_MIN_ELEMS = 1_048_576
+# of the ladder above, after both were redesigned (B3: a thread-block
+# cluster a row in shared memory; B6: one C call that finds each row's
+# extremes itself and finishes on a candidate buffer); three runs on the
+# same kernels agreed, and the figures here are the last run's. B6 won no
+# size of up to 262 144 elements (B3 at (512, 224^2) K=1 0.132-0.135 ms
+# called against 0.237-0.241; at (64, 512^2) K=2 0.117-0.119 against
+# 0.187-0.195); at 524 288 and 1 048 576 elements it won some K=2 cells of
+# 8 to 32 rows and (32, 1 048 576) K=1, and lost or tied the rest, so B3
+# keeps them (the route does not tell K apart). From 4 194 304 elements B6
+# won every round for 1 to 32 rows (at (32, 4 194 304) K=2 0.947-0.953 ms
+# against 1.405-1.413; at path (d)'s (1, 12 845 056) K=2 0.138 against
+# 0.481-0.487), and B3 from 64 rows on (1.63-1.67 against 2.08-2.13 at
+# (64, 4 194 304) K=2).
+# So B6 takes rows of at least SELECT_STREAM_MIN_ELEMS elements when there
+# are at most SELECT_STREAM_MAX_ROWS of them: path (d)'s pool fit, and no
+# field of path (c).
+SELECT_STREAM_MIN_ELEMS = 4_194_304
 SELECT_STREAM_MAX_ROWS = 32
 
 
@@ -206,22 +210,15 @@ def _concentrations_2x2(he: torch.Tensor, od_c):
     return c0, c1
 
 
-def _stream_select(xs: torch.Tensor, ranks: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """B6 with the caller-known init: the rows' min, max below +inf and
-    count replace the kernel's range discovery."""
+def _select(xs: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """(R, K) values at ``ranks`` among the elements below +inf of each row
+    of ``xs`` (R, P), through B3 or B6 by :func:`select_route`. B6 finds
+    each row's extremes and count in its own first read."""
+    from stainx_tpu_torch.kernels.selection import kth_smallest_pallas
     from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming
 
-    top = torch.where(xs != torch.inf, xs, -torch.inf).amax(1)
-    return kth_smallest_streaming(xs, ranks, init=(xs.amin(1), top, n_valid.to(torch.int32)))
-
-
-def _select(xs: torch.Tensor, ranks: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """(R, K) values at ``ranks`` among the elements below +inf of each row
-    of ``xs`` (R, P), through B3 or B6 by :func:`select_route`."""
-    from stainx_tpu_torch.kernels.selection import kth_smallest_pallas
-
     if select_route(*xs.shape) == "stream":
-        return _stream_select(xs, ranks, n_valid)
+        return kth_smallest_streaming(xs, ranks)
     return kth_smallest_pallas(xs, ranks)
 
 
@@ -236,7 +233,7 @@ def _stain_separate(od_c, mask: torch.Tensor, cnt: torch.Tensor):
     ranks = torch.stack(
         [nearest_rank_index(ALPHA, cnt), nearest_rank_index(100 - ALPHA, cnt)], dim=1
     )
-    phi = _select(xs, ranks, cnt)
+    phi = _select(xs, ranks)
     return _he_from_phi_extremes(evecs, phi[:, 0], phi[:, 1]), evecs
 
 
@@ -248,7 +245,7 @@ def _max_concentrations(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
     dev = c0.device
     idx99 = static_nearest_rank_index(99, p)
     ranks = torch.full((2 * rows, 1), idx99, dtype=torch.int32, device=dev)
-    return _select(c_stack, ranks, torch.full((2 * rows,), p, device=dev))[:, 0]
+    return _select(c_stack, ranks)[:, 0]
 
 
 def _staged_transform(images, stain_matrix, target_max_conc, precision: str) -> torch.Tensor:

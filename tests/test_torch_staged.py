@@ -251,9 +251,11 @@ class TestRoutes:
         assert mk.select_route(512, 224 * 224) == "rows"  # (d) transform, 256 images
         assert mk.select_route(1, 256 * 224 * 224) == "stream"  # (d) fit pool
         assert mk.select_route(2, 256 * 224 * 224) == "stream"
-        assert mk.select_route(32, 1 << 20) == "stream"  # few long rows: B6 spreads them
-        assert mk.select_route(64, 1 << 20) == "rows"  # a wave of blocks: B3
-        assert mk.select_route(1, (1 << 20) - 1) == "rows"
+        assert mk.select_route(32, 1 << 22) == "stream"  # few long rows: B6 spreads them
+        assert mk.select_route(64, 1 << 22) == "rows"  # many: B3's clusters fill the card
+        assert mk.select_route(1, (1 << 22) - 1) == "rows"
+        assert mk.select_route(32, 1 << 20) == "rows"  # B3 won (32, 2^20) K=1 on the H100
+        assert mk.select_route(1, 1 << 20) == "rows"
 
     @pytest.mark.parametrize("threshold,want", [(10**9, "rows"), (16, "stream")])
     def test_both_selects_give_the_same_output(self, monkeypatch, threshold, want, batch01, ref64):

@@ -279,7 +279,7 @@ class TestRouteLadder:
         monkeypatch.setattr(sel, "kth_smallest_pallas",
                             lambda x, r: calls.append(("B3", x.shape)) or b3(x, r))
         monkeypatch.setattr(ss, "kth_smallest_streaming",
-                            lambda x, r, init: calls.append(("B6", x.shape)) or b6(x, r, init))
+                            lambda x, r, init=None: calls.append(("B6", x.shape)) or b6(x, r, init))
         x = torch.as_tensor(_f32(_tiles(2, 16, 16, seed=2))).to(dtype)
         mk.macenko_fit(x[:1])
         mk.macenko_fit(x)
