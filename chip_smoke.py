@@ -15,8 +15,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8×3×512² float32 batch, a ragged 2×3×71×73 batch and a 2×3×1024² batch
    (≤ 1 grey level); the fit also on float32 and on a pooled 4×3×256² batch;
    all-white and uniform tiles; the Reinhard LAB moments (B7b, rtol 1e-4,
-   atol 1e-2) and apply (B7a, ≤ 1 grey level or 1/255) on the batch, the
-   float32 batch and (apply) the ragged batch; the 256-bin histogram (B8a,
+   atol 1e-2) and apply (B7a, ≤ 1 grey level or 1/255, with the share of
+   outputs that differ at all) on the batch, the float32 batch, the
+   ragged batch, the colour cube (every RGB triple once, 1×3×4096² uint8;
+   the apply under its own statistics and the reference's) and float32
+   values 64 ulps either side of the colour formulas' branch points, the
+   mean and std B7b's finalize writes against their plain version
+   ``moments_to_mean_std`` (bit for bit), and the transform (B7b, B7a on
+   the finalize's statistics) against the plain steps on the batch, the
+   float32 batch and the ragged batch (≤ 1 grey level or 1/255, two runs
+   bit-identical); the 256-bin histogram (B8a,
    and B8c on a (C, P) input) on the batch, a ragged batch and an all-white
    tile, an unaligned and a 130-channel input, and the LUT apply (B8b,
    uint8 and float32 output) with a sorted and an out-of-range LUT and on
@@ -55,7 +63,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    before it and read just after:
    ``Macenko().fit(ref).transform(batch)`` at 64×3×512² uint8 (oracle MAE
    ≤ 0.35 on 8 of the images), ``Reinhard().fit(ref).transform(batch)`` and
-   ``HistogramMatching().fit(ref).transform(batch)``; the Reinhard and
+   ``HistogramMatching().fit(ref).transform(batch)``, the Reinhard
+   transform's device work read from ``torch.profiler`` (B7b, its
+   finalize, B7a, nothing between), its output held against the plain
+   steps (≤ 1 grey level) and against a second transform (bit for bit);
+   the Reinhard and
    histogram-matching oracle gates (≤ 1 grey level) run the public API on
    the first 8 images, since both take batch-global statistics; one NHWC
    ``HistogramMatching(channel_axis=-1)`` run; path (a), the batch-mode
@@ -76,7 +88,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
-   same function, that call; B4 and B5 at every path shape on their routes,
+   same function, that call (B7b and B7a also on float32); B4 and B5 at
+   every path shape on their routes,
    with their bounds, and B4 and B5 at the main path's shapes on every
    cluster size; the public-API fit and transform of each
    normalizer and the Macenko paths (also replayed, for the device's busy
@@ -133,20 +146,17 @@ TPU_ROWS = "stainx_tpu/kernels/selection.py"
 # ((256, 224^2) K=2, (512, 224^2) K=1).
 PATH_C_SELECTS = ["B3", "B3", "B3", "B3"]
 PATH_D_SELECTS = ["B6", "B6", "B3", "B3"]
-# float32 operations of one accurate powf on its common path as nvcc 12.9
-# compiles it for sm_90a (cuobjdump -sass of a kernel that only calls
-# powf): 11 FADD, 9 FMUL and 19 FFMA, an FFMA counted as two, beside one
-# MUFU.RCP; the logarithm and the exponential are polynomials, not
-# special-function instructions.
-POWF_OPS = 58
-# float32 operations a uint8 pixel needs beside its powf calls (the sRGB
-# linearization is a table): RGB→XYZ 15, white point 2, f(t) 6, L/a/b 9;
-# the moments add the centring and squares, 6; the apply adds the affine
-# 12, LAB→XYZ 8, f⁻¹ 6, white point 3, XYZ→RGB 15, gamma 6, the ×255
-# store 3. powf calls a pixel: 3 cube roots (moments), and 3 cube roots and
-# 3 inverse gammas (apply).
-OPS_PER_PIXEL_MOMENTS_U8 = 38 + 3 * POWF_OPS
-OPS_PER_PIXEL_APPLY_U8 = 85 + 6 * POWF_OPS
+# float32 operations a uint8 pixel needs (the sRGB linearization is a
+# table), a cube root or a power counted as one operation of the work:
+# RGB→XYZ 15, white point 2, f(t) 9 (3 × the cube root and the linear
+# side's multiply-add), L/a/b 9; the moments add the centring and squares,
+# 6: 41. The apply adds to the 35 of the forward side the affine 12,
+# LAB→XYZ 8, f⁻¹ 6, white point 3, XYZ→RGB 15, gamma 9 (3 × the power and
+# its multiply-add), the ×255 store 3: 91. float32 input adds the forward
+# gamma, 3 × the power and its multiply-add: 9.
+OPS_PER_PIXEL_MOMENTS_U8 = 41
+OPS_PER_PIXEL_APPLY_U8 = 91
+OPS_PER_PIXEL_FORWARD_GAMMA = 9
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -274,8 +284,8 @@ def main() -> int:
     from stainx_tpu_torch.ops import macenko as mk
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
     from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
-    from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
-    from stainx_tpu_torch.testing import synthetic_he_batch
+    from stainx_tpu_torch.ops.reinhard import moments_to_mean_std, reinhard_transform
+    from stainx_tpu_torch.testing import branch_point_field, colour_cube, synthetic_he_batch
 
     dev = torch.device("cuda", 0)
 
@@ -363,14 +373,16 @@ def main() -> int:
     _, stats_f32 = check_moments(f"8x3x{SIZE}^2 f32", batch_f32)
     _, stats_ragged = check_moments("2x3x71x73 u8 (ragged)", ragged)
 
-    def check_apply(label, x, stats, tol):
-        params = (*stats, ref_mean, ref_std)
+    def check_apply(label, x, stats, tol, reference=None):
+        params = (*stats, *(reference or (ref_mean, ref_std)))
         out_k = rf.reinhard_apply(x, *params)
         out_p = rf.reinhard_apply_plain(x, *params)
         again = rf.reinhard_apply(x, *params)
         torch.cuda.synchronize()
         err = (out_k.float() - out_p.float()).abs().max().item()
-        print(f"B7a apply {label}: max|d| {err:.3g} (tolerance {tol:.4g})")
+        differ = (out_k != out_p).float().mean().item()
+        print(f"B7a apply {label}: max|d| {err:.3g} (tolerance {tol:.4g}), "
+              f"{differ:.6f} of the outputs differ from the plain version")
         require(out_k.dtype == x.dtype and out_k.shape == x.shape, f"{label}: dtype or shape")
         require(torch.isfinite(out_k.float()).all(), f"{label}: non-finite output")
         require(err <= tol, f"{label}: kernel and plain differ by {err}")
@@ -380,6 +392,63 @@ def main() -> int:
     b7a_err = check_apply(f"{BATCH}x3x{SIZE}^2 u8", batch, stats_u8, 1.0)
     check_apply(f"8x3x{SIZE}^2 f32", batch_f32, stats_f32, 1.0 / 255.0)
     check_apply("2x3x71x73 u8 (ragged, scalar loads)", ragged, stats_ragged, 1.0)
+
+    # The statistics B7b's finalize writes for the transform: bit for bit
+    # their plain version, moments_to_mean_std, on the kernel's own sums.
+    def check_mean_std(label, x):
+        n_px = x.shape[0] * x.shape[2] * x.shape[3]
+        mean_k, std_k = rf.reinhard_mean_std(x)
+        mean_p, std_p = moments_to_mean_std(n_px, *rf.reinhard_moments(x))
+        torch.cuda.synchronize()
+        exact = torch.equal(mean_k, mean_p) and torch.equal(std_k, std_p)
+        print(f"B7b finalize mean and std {label}: equal to moments_to_mean_std {exact}")
+        require(exact, f"{label}: the finalize's mean and std differ from moments_to_mean_std")
+
+    check_mean_std(f"{BATCH}x3x{SIZE}^2 u8", batch)
+    check_mean_std(f"8x3x{SIZE}^2 f32", batch_f32)
+    check_mean_std("2x3x71x73 u8 (ragged)", ragged)
+
+    # The transform as the main path runs it (B7b, its finalize, B7a on the
+    # statistics the finalize wrote) against the plain versions end to end:
+    # plain moments, moments_to_mean_std, plain apply.
+    def plain_transfer(x, reference_mean, reference_std):
+        n_px = x.shape[0] * x.shape[2] * x.shape[3]
+        stats = moments_to_mean_std(n_px, *rf.reinhard_moments_plain(x))
+        return rf.reinhard_apply_plain(x, *stats, reference_mean, reference_std)
+
+    def check_transfer(label, x, tol):
+        out_k = reinhard_transform(x, ref_mean, ref_std)
+        out_p = plain_transfer(x, ref_mean, ref_std)
+        again = reinhard_transform(x, ref_mean, ref_std)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        differ = (out_k != out_p).float().mean().item()
+        print(f"Reinhard transform (B7b, B7a) {label}: max|d| {err:.3g} from the plain versions "
+              f"(tolerance {tol:.4g}), {differ:.6f} of the outputs differ")
+        require(out_k.dtype == x.dtype and out_k.shape == x.shape, f"{label}: dtype or shape")
+        require(err <= tol, f"{label}: the transform and its plain version differ by {err}")
+        require(torch.equal(again, out_k), f"{label}: two transforms differ")
+
+    check_transfer(f"{BATCH}x3x{SIZE}^2 u8", batch, 1.0)
+    check_transfer(f"8x3x{SIZE}^2 f32", batch_f32, 1.0 / 255.0)
+    check_transfer("2x3x71x73 u8 (ragged, scalar loads)", ragged, 1.0)
+
+    # Every RGB triple once, 1x3x4096^2 uint8: the moments, and the apply
+    # under the cube's own statistics (the identity transfer) and under the
+    # main path's reference statistics.
+    cube = dev_u8(colour_cube())
+    _, stats_cube = check_moments("colour cube 1x3x4096^2 u8", cube)
+    check_apply("colour cube, its own statistics (identity)", cube, stats_cube, 1.0, stats_cube)
+    check_apply("colour cube, the reference's statistics", cube, stats_cube, 1.0)
+    del cube
+
+    # float32 values 64 ulps either side of the points where the colour
+    # formulas branch (testing.BRANCH_POINTS), grey and mixed across channels.
+    knee_field = torch.as_tensor(branch_point_field(64, 64, seed=args.seed + 11)).to(dev)
+    _, stats_knee = check_moments(f"branch points 1x3x64x{knee_field.shape[3]} f32", knee_field)
+    check_apply("branch points, their own statistics", knee_field, stats_knee, 1.0 / 255.0,
+                stats_knee)
+    check_apply("branch points, the reference's statistics", knee_field, stats_knee, 1.0 / 255.0)
 
     # Histogram matching: the 256-bin histogram (B8a, B8c) and the LUT apply (B8b).
     def check_hist(label, values):
@@ -825,8 +894,29 @@ def main() -> int:
         return result, counts
 
     reinhard = Reinhard()
-    _, r_launches = drive("Reinhard", [rf.reinhard_moments, rf.reinhard_apply],
-                          lambda: reinhard.fit(ref).transform(batch))
+    r_out, r_launches = drive("Reinhard", [rf.reinhard_moments, rf.reinhard_apply],
+                              lambda: reinhard.fit(ref).transform(batch))
+    r_plain = plain_transfer(batch, reinhard._reference_mean, reinhard._reference_std)
+    r_err = (r_out.float() - r_plain.float()).abs().max().item()
+    print(f"Reinhard main path vs the plain versions (the fitted statistics): max|d| {r_err:.3g} "
+          f"grey levels (tolerance 1)")
+    require(r_err <= 1.0, f"the Reinhard main path is {r_err} grey levels from its plain version")
+    # The transform's device work is B7b (and its finalize, which writes the
+    # mean and std), then B7a: no other kernel between them. Its output
+    # repeats the main path's bit for bit.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r_again = reinhard.transform(batch)
+        torch.cuda.synchronize()
+    require(torch.equal(r_again, r_out), "two Reinhard transforms of the main path differ")
+    on_device = sorted((e.time_range.start, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    steps = [next((k for k in ("moments_kernel", "moments_finalize", "apply_kernel") if k in name),
+                  name) for _, name in on_device]
+    print(f"Reinhard transform, device work in order: {steps}")
+    require(steps == ["moments_kernel", "moments_finalize", "apply_kernel"],
+            f"the Reinhard transform ran {steps} on the device, not B7b then B7a alone")
     hist_match = HistogramMatching()
     hm_out, h_launches = drive("HistogramMatching", [hk.histogram_256, hk.apply_lut],
                                lambda: hist_match.fit(ref).transform(batch))
@@ -1022,6 +1112,11 @@ def main() -> int:
     ms_b7b_p = event_ms(rf.reinhard_moments_plain, pair, 3)
     ms_b7a = kernel_ms("B7a reinhard_apply", lambda x: rf.reinhard_apply(x, *params), pair)
     ms_b7a_p = event_ms(lambda x: rf.reinhard_apply_plain(x, *params), pair, 3)
+    pair_f = [batch.float() / 255.0, batch_b.float() / 255.0]
+    ms_b7b_f = kernel_ms(f"B7b reinhard_moments {BATCH}x3x{SIZE}^2 f32", rf.reinhard_moments, pair_f)
+    ms_b7a_f = kernel_ms(f"B7a reinhard_apply {BATCH}x3x{SIZE}^2 f32",
+                         lambda x: rf.reinhard_apply(x, *params), pair_f)
+    del pair_f
     ms_b8a = kernel_ms("B8a histogram_256", hk.histogram_256, [values, values_b])
     ms_b8a_p = event_ms(hk.histogram_256_plain, [values, values_b], 5)
     ms_b8a_lib = event_ms(
@@ -1377,8 +1472,19 @@ def main() -> int:
               f"bound {bound:.4f} ms by {by}, plain {plain:.4f} ms, torch.kthvalue {lib:.4f} ms")
     ms_b6, ms_b6_p, ms_b6_lib, rows_6, p_6, k_6 = b6_ms[0]
     b6_bound, b6_by = bound_ms(4 * rows_6 * p_6 + 2 * 4 * rows_6 * k_6, k_6 * rows_6 * p_6)
+    # B7b reads the batch once and writes its six sums; B7a reads the batch
+    # and its twelve statistics and writes the batch.
     b7b_bound, b7b_by = bound_ms(3 * n_px + 6 * 4, OPS_PER_PIXEL_MOMENTS_U8 * n_px)
     b7a_bound, b7a_by = bound_ms(2 * 3 * n_px + 12 * 4, OPS_PER_PIXEL_APPLY_U8 * n_px)
+    for name, ms_u8, ms_f32, bytes_px, ops_px in [
+        ("B7b", ms_b7b, ms_b7b_f, 3, OPS_PER_PIXEL_MOMENTS_U8),
+        ("B7a", ms_b7a, ms_b7a_f, 6, OPS_PER_PIXEL_APPLY_U8),
+    ]:
+        for dt, t, width, extra in [("u8", ms_u8, 1, 0), ("f32", ms_f32, 4, OPS_PER_PIXEL_FORWARD_GAMMA)]:
+            bound, by = bound_ms(width * bytes_px * n_px, (ops_px + extra) * n_px)
+            print(f"{name} {BATCH}x3x{SIZE}^2 {dt}: {t:.4f} ms on the device, bound {bound:.4f} ms "
+                  f"by {by} (bytes {width * bytes_px * n_px / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                  f"float32 operations {(ops_px + extra) * n_px / F32_OPS_PER_S * 1e3:.4f} ms)")
     b8a_bound, b8a_by = bound_ms(3 * n_px + 3 * 256 * 4, 0)
     b8b_bound, b8b_by = bound_ms(2 * 3 * n_px + 3 * 256 * 4, 0)
     # B3 reads its field and ranks once and writes K values a row; one
@@ -1390,10 +1496,6 @@ def main() -> int:
               f"bound {bound:.4f} ms by {by}, plain {plain:.4f} ms, torch.kthvalue {lib:.4f} ms")
     ms_b3, ms_b3_p, ms_b3_lib, rows_3, p_3, k_3 = b3_ms["d", 1]
     b3_bound, b3_by = bound_ms(4 * rows_3 * p_3 + 2 * 4 * rows_3 * k_3, k_3 * rows_3 * p_3)
-    print(f"B7b bound: bytes {3 * n_px / HBM_BYTES_PER_S * 1e3:.4f} ms, float32 operations "
-          f"{OPS_PER_PIXEL_MOMENTS_U8 * n_px / F32_OPS_PER_S * 1e3:.4f} ms; B7a bound: bytes "
-          f"{6 * n_px / HBM_BYTES_PER_S * 1e3:.4f} ms, float32 operations "
-          f"{OPS_PER_PIXEL_APPLY_U8 * n_px / F32_OPS_PER_S * 1e3:.4f} ms")
     rows = [
         {"name": "macenko_transform_mega", "route": "cuda",
          "source": "stainx_tpu_torch/csrc/macenko_fused.cu", "replaces": f"{TPU_SOURCE}:529",

@@ -9,14 +9,21 @@ counts its launches in its ``launches`` attribute.
 - :func:`reinhard_moments`: the batch-global centred LAB sums Σ(LAB−128)
   and Σ(LAB−128)² per channel, read straight from the raw values. The
   kernel sums in float64 in a fixed order, so two runs give the same bits.
+- :func:`reinhard_mean_std`: the same launch, whose finalize also writes
+  the LAB mean and std from those sums (plain version
+  :func:`~stainx_tpu_torch.ops.reinhard.moments_to_mean_std`).
 - :func:`reinhard_apply`: RGB→LAB, ``(lab − μ)/(σ + 1e-8)·σ_ref + μ_ref``,
   LAB→RGB and the clip to [0, 1] in one pass; uint8 stores
   ``trunc(clip(x·255, 0, 255))``. The four (3,) statistics are device
-  tensors read by the kernel, so nothing returns to the host between the
-  two kernels.
+  tensors read by the kernel.
+- :func:`reinhard_transfer`: the transform, B7b then B7a on the statistics
+  its finalize wrote, in one C call: nothing is issued between them.
 
-The plain versions are built on :mod:`stainx_tpu_torch.ops.color`, whose
-plane functions evaluate the colour formulas in the kernels' order.
+The plain versions are built on :mod:`stainx_tpu_torch.ops.color`, the JAX
+package's formulas term by term. The kernels fold constants, fuse
+multiply-adds and take powers on the special-function unit, so they differ
+from them by a few ulps (gates: moments rtol 1e-4, atol 1e-2; apply 1 grey
+level or 1/255).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from stainx_tpu_torch import kernels
 from stainx_tpu_torch.ops.color import lab_planes_to_rgb, normalize_to_float, rgb_planes_to_lab
-from stainx_tpu_torch.ops.reinhard import LAB_MOMENT_CENTER
+from stainx_tpu_torch.ops.reinhard import LAB_MOMENT_CENTER, moments_to_mean_std
 
 
 # --------------------------------------------------------- plain versions
@@ -62,40 +69,86 @@ def reinhard_apply_plain(images, lab_mean, lab_std, reference_mean, reference_st
 
 
 # --------------------------------------------------------------- wrappers
-def _stats(device, *stats) -> list[torch.Tensor]:
-    """The four (3,) statistics (LAB mean, std, reference mean, std) as
-    contiguous float32 tensors on ``device``."""
-    names = ("lab_mean", "lab_std", "reference_mean", "reference_std")
-    out = []
-    for name, t in zip(names, stats):
+def _stat(device, name: str, t) -> torch.Tensor:
+    """A (3,) statistic as a contiguous float32 tensor on ``device``; such a
+    tensor passes as it is."""
+    if not (torch.is_tensor(t) and t.dtype == torch.float32 and t.device == device
+            and t.dim() == 1 and t.is_contiguous()):
         t = torch.as_tensor(t).to(device=device, dtype=torch.float32).contiguous()
-        if t.numel() != 3:
-            raise ValueError(f"{name} must have 3 entries, got shape {tuple(t.shape)}")
-        out.append(t.reshape(3))
-    return out
+    if t.numel() != 3:
+        raise ValueError(f"{name} must have 3 entries, got shape {tuple(t.shape)}")
+    return t.reshape(3)
+
+
+def _stats(device, *stats) -> list[torch.Tensor]:
+    """The four (3,) statistics: LAB mean, std, reference mean, std."""
+    names = ("lab_mean", "lab_std", "reference_mean", "reference_std")
+    return [_stat(device, name, t) for name, t in zip(names, stats)]
 
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.library("reinhard_fused")
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.stainx_reinhard_moments.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
+        lib.stainx_reinhard_moments.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
         lib.stainx_reinhard_moments.restype = i32
-        lib.stainx_reinhard_apply.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr
-        ]
+        lib.stainx_reinhard_apply.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32, ptr]
         lib.stainx_reinhard_apply.restype = i32
+        lib.stainx_reinhard_transform.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32, ptr]
+        lib.stainx_reinhard_transform.restype = i32
         lib._stainx_declared = True
     return lib
 
 
-def _launch_shape(images: torch.Tensor) -> tuple[int, int]:
-    """(pixels a thread reads at once, blocks) of a launch: 4 pixels when
-    rows are 16-byte aligned, one otherwise."""
+# Groups an image: a thread steps its group in 32 bits, by at most twice
+# the image's groups.
+MAX_GROUPS = 2**31
+
+
+def group_pixels(dtype: torch.dtype, pixels: int, aligned: bool) -> int:
+    """Pixels a thread reads at once: 16 bytes of each channel plane (16
+    uint8 or 4 float32 pixels) when every plane of the batch starts on a
+    16-byte boundary, else one."""
+    vec = 16 if dtype == torch.uint8 else 4
+    return vec if aligned and pixels % vec == 0 else 1
+
+
+def _launch_args(images: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    """The arguments every C entry ends with, for a grid-stride launch over
+    all groups of all images: (images, pixels an image, 1 for uint8, group
+    pixels, blocks, stream)."""
     n, _, h, w = images.shape
     p = h * w
-    vec = 4 if p % 4 == 0 and images.data_ptr() % 16 == 0 else 1
-    return vec, kernels.grid_blocks(n * p // vec, images.device)
+    vec = group_pixels(images.dtype, p, images.data_ptr() % 16 == 0)
+    if p // vec > MAX_GROUPS:
+        raise ValueError(f"an image of {p} pixels is more than the kernels' {MAX_GROUPS} "
+                         f"groups of {vec}")
+    blocks = kernels.grid_blocks(n * (p // vec), images.device)
+    return (n, p, int(images.dtype == torch.uint8), vec, blocks,
+            torch.cuda.current_stream(images.device).cuda_stream)
+
+
+def _moments_scratch(device, blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7b's (blocks, 6) float64 partials and its (12,) float32 output: the
+    six sums, then the LAB mean (3) and std (3) the finalize writes."""
+    return (torch.empty((blocks, 6), dtype=torch.float64, device=device),
+            torch.empty(12, dtype=torch.float32, device=device))
+
+
+def _moments(images: torch.Tensor) -> torch.Tensor:
+    """One B7b launch: its (12,) float32 output."""
+    kernels.check_cuda(images, "reinhard_moments")
+    dev = images.device
+    args = _launch_args(images)
+    partials, out = _moments_scratch(dev, args[4])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.stainx_reinhard_moments(
+            images.data_ptr(), partials.data_ptr(), out.data_ptr(), out.data_ptr() + 6 * 4, *args
+        )
+    kernels.check(lib, code, "reinhard_moments")
+    reinhard_moments.launches += 1
+    return out
 
 
 def reinhard_moments(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,25 +157,24 @@ def reinhard_moments(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     kernels.check_rgb_batch(images, "reinhard_moments")
     if images.device.type == "cpu":
         return reinhard_moments_plain(images)
-    kernels.check_cuda(images, "reinhard_moments")
-    n, _, h, w = images.shape
-    dev = images.device
     if images.numel() == 0:
-        out = torch.zeros(6, dtype=torch.float32, device=dev)
+        kernels.check_cuda(images, "reinhard_moments")
+        out = torch.zeros(6, dtype=torch.float32, device=images.device)
         return out[:3], out[3:]
-    out = torch.empty(6, dtype=torch.float32, device=dev)
-    vec, blocks = _launch_shape(images)
-    partials = torch.empty((blocks, 6), dtype=torch.float64, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        code = lib.stainx_reinhard_moments(
-            images.data_ptr(), partials.data_ptr(), out.data_ptr(), n, h * w,
-            int(images.dtype == torch.uint8), vec, blocks,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check(lib, code, "reinhard_moments")
-    reinhard_moments.launches += 1
-    return out[:3], out[3:]
+    out = _moments(images)
+    return out[:3], out[3:6]
+
+
+def reinhard_mean_std(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch-global LAB mean and std of (N, 3, H, W) uint8/float32, each
+    (3,) float32: the B7b launch, whose finalize writes them on the device,
+    or on the CPU :func:`reinhard_moments_plain` and ``moments_to_mean_std``."""
+    kernels.check_rgb_batch(images, "reinhard_moments")
+    n_px = images.shape[0] * images.shape[2] * images.shape[3]
+    if images.device.type == "cpu" or images.numel() == 0:
+        return moments_to_mean_std(n_px, *reinhard_moments(images))
+    out = _moments(images)
+    return out[6:9], out[9:]
 
 
 def reinhard_apply(images, lab_mean, lab_std, reference_mean, reference_std) -> torch.Tensor:
@@ -138,16 +190,41 @@ def reinhard_apply(images, lab_mean, lab_std, reference_mean, reference_std) -> 
     out = torch.empty_like(images)
     if out.numel() == 0:
         return out
-    n, _, h, w = images.shape
-    vec, blocks = _launch_shape(images)
     lib = _lib()
     with torch.cuda.device(dev):
         code = lib.stainx_reinhard_apply(
-            images.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in stats), n, h * w,
-            int(images.dtype == torch.uint8), vec, blocks,
-            torch.cuda.current_stream(dev).cuda_stream,
+            images.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in stats), *_launch_args(images)
         )
     kernels.check(lib, code, "reinhard_apply")
+    reinhard_apply.launches += 1
+    return out
+
+
+def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> torch.Tensor:
+    """The Reinhard transform of (N, 3, H, W) uint8/float32 to the reference
+    LAB statistics: B7b, whose finalize writes the batch's mean and std,
+    then B7a on them, launched by one C call (one launch of each kernel);
+    one host call keeps the host's issue time below the card's. On a CPU
+    tensor, the plain versions."""
+    kernels.check_rgb_batch(images, "reinhard_transfer")
+    if images.device.type == "cpu" or images.numel() == 0:
+        mean, std = reinhard_mean_std(images)
+        return reinhard_apply(images, mean, std, reference_mean, reference_std)
+    kernels.check_cuda(images, "reinhard_transfer")
+    dev = images.device
+    ref_mean = _stat(dev, "reference_mean", reference_mean)
+    ref_std = _stat(dev, "reference_std", reference_std)
+    args = _launch_args(images)
+    partials, small = _moments_scratch(dev, args[4])
+    out = torch.empty_like(images)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.stainx_reinhard_transform(
+            images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
+            small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args
+        )
+    kernels.check(lib, code, "reinhard_transfer")
+    reinhard_moments.launches += 1
     reinhard_apply.launches += 1
     return out
 

@@ -5,12 +5,15 @@ std (Bessel-corrected), z-score against the source statistics with a
 ``+1e-8`` eps, rescale to the reference statistics, LAB→RGB, clamp, dtype
 restore. Both entry points route to the kernel wrappers of
 :mod:`stainx_tpu_torch.kernels.reinhard_fused`, the JAX package's
-``use_pallas=True`` route: the fit is the LAB-moments kernel plus
-:func:`moments_to_mean_std` (the additive form of
-``reinhard_fit_sharded``), the transform the moments kernel, then the
-fused apply kernel. A CUDA tensor launches the kernels, a CPU tensor runs
-their plain PyTorch versions. The kernels take uint8 and float32; other
-float dtypes are cast to float32 [0, 1] around them and cast back.
+``use_pallas=True`` route: the fit is the LAB-moments kernel, whose
+finalize also turns the sums into the mean and std as
+:func:`moments_to_mean_std` does (the additive form of
+``reinhard_fit_sharded``); the transform is the moments kernel, then the
+fused apply kernel on the statistics the finalize wrote on the device, one
+C call with nothing issued between them. A CUDA tensor launches the
+kernels, a CPU tensor runs their plain PyTorch versions. The kernels take
+uint8 and float32; other float dtypes are cast to float32 [0, 1] around
+them and cast back.
 
 Source statistics are **batch-global**: mean and std over N·H·W at once.
 """
@@ -44,9 +47,14 @@ def lab_moments(images: torch.Tensor) -> tuple[float, torch.Tensor, torch.Tensor
 
 def moments_to_mean_std(n: float, s: torch.Tensor, sq: torch.Tensor):
     """Bessel-corrected mean and std from centred additive moments: the
-    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``."""
-    mean_c = s / n
-    var = torch.clamp(sq - n * mean_c * mean_c, min=0.0) / max(n - 1.0, 1.0)
+    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``. ``n`` and
+    ``max(n − 1, 1)`` enter as float32 tensors, so each step is one rounded
+    float32 operation and both divisions are true divisions on any device:
+    the plain version of what the moments kernel's finalize writes."""
+    nf = torch.tensor(float(n), dtype=torch.float32, device=s.device)
+    den = torch.tensor(max(float(n) - 1.0, 1.0), dtype=torch.float32, device=s.device)
+    mean_c = s / nf
+    var = torch.clamp(sq - nf * mean_c * mean_c, min=0.0) / den
     return mean_c + LAB_MOMENT_CENTER, torch.sqrt(var)
 
 
@@ -56,16 +64,11 @@ def _kernel_input(images: torch.Tensor) -> torch.Tensor:
     return color.normalize_to_float(images).contiguous()
 
 
-def _source_stats(x: torch.Tensor):
-    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_moments
-
-    s1, s2 = reinhard_moments(x)
-    return moments_to_mean_std(float(x.shape[0] * x.shape[2] * x.shape[3]), s1, s2)
-
-
 def reinhard_fit(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Reference LAB mean and std over the whole (N, 3, H, W) batch, each (3,)."""
-    return _source_stats(_kernel_input(images))
+    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_mean_std
+
+    return reinhard_mean_std(_kernel_input(images))
 
 
 def reinhard_transform(
@@ -74,11 +77,9 @@ def reinhard_transform(
     """Transform an (N, 3, H, W) batch to the reference LAB statistics. The
     output has the input's dtype: uint8 in [0, 255] (truncated), floats in
     [0, 1]."""
-    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_apply
+    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_transfer
 
-    x = _kernel_input(images)
-    lab_mean, lab_std = _source_stats(x)
-    out = reinhard_apply(x, lab_mean, lab_std, reference_mean, reference_std)
+    out = reinhard_transfer(_kernel_input(images), reference_mean, reference_std)
     if images.dtype not in _KERNEL_DTYPES:
         out = color.preserve_dtype(out, images.dtype)
     return out

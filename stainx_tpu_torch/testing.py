@@ -22,3 +22,43 @@ def synthetic_he_batch(n: int, h: int, w: int, seed: int = 0, he_scale: float = 
     )
     od = np.einsum("cs,nsp->ncp", he, conc)
     return np.clip(240.0 * np.exp(-od), 0, 255).astype(np.uint8).reshape(n, 3, h, w)
+
+
+def colour_cube(step: int = 1) -> np.ndarray:
+    """Every RGB triple whose levels are multiples of ``step``, once each, as
+    a (1, 3, side, side) uint8 image (step 1: 1×3×4096², step 4: 1×3×512²)."""
+    levels = np.arange(0, 256, step, dtype=np.uint8)
+    r, g, b = np.meshgrid(levels, levels, levels, indexing="ij")
+    side = int(round(levels.size ** 1.5))
+    return np.stack([r.ravel(), g.ravel(), b.ravel()]).reshape(1, 3, side, side)
+
+
+# Where the Reinhard colour formulas branch, as float32 sRGB input: the sRGB
+# knee (also linear 0.0031308 on the way back under an identity transfer),
+# the grey levels at which X/Xn, Y and Z/Zn reach t = 0.008856 (the row sums
+# of the RGB→XYZ matrix over the D65 white), and the ends of [0, 1].
+BRANCH_POINTS = (0.04045, 0.0, 1.0) + tuple(
+    1.055 * (0.008856 / white) ** (1.0 / 2.4) - 0.055
+    for white in (0.950456 / 0.95047, 1.0, 1.088754 / 1.08883)
+)
+
+
+def branch_point_field(ulps: int, rows: int, seed: int = 0) -> np.ndarray:
+    """(1, 3, rows, w) float32: each of :data:`BRANCH_POINTS` and the
+    ``ulps`` float32 values either side of it (some below 0 and above 1),
+    padded with 0.5 to a multiple of 4; row 0 is grey, the other rows
+    permute the values in each channel, made from ``seed``."""
+    values = []
+    for v in BRANCH_POINTS:
+        values.append(np.float32(v))
+        for direction in (np.inf, -np.inf):
+            u = np.float32(v)
+            for _ in range(ulps):
+                u = np.nextafter(u, np.float32(direction))
+                values.append(u)
+    values += [np.float32(0.5)] * (-len(values) % 4)
+    pool = np.array(values, np.float32)
+    rng = np.random.default_rng(seed)
+    planes = [np.stack([pool] * 3)] + [np.stack([rng.permutation(pool) for _ in range(3)])
+                                       for _ in range(rows - 1)]
+    return np.stack(planes, axis=1)[None]

@@ -22,6 +22,7 @@ from stainx_tpu_torch import Reinhard, kernels
 from stainx_tpu_torch.convert import state_from_jax
 from stainx_tpu_torch.kernels import reinhard_fused as rf
 from stainx_tpu_torch.ops import reinhard as rh
+from stainx_tpu_torch.testing import branch_point_field, colour_cube
 
 from tests.oracles import numpy_reference as oracle
 
@@ -110,6 +111,62 @@ class TestMoments:
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
 
 
+class TestMeanStd:
+    """The LAB mean and std B7b's finalize writes from the float32 sums, on
+    the CPU its plain version ``moments_to_mean_std``: against the JAX fit
+    (mean rtol 1e-4, atol 1e-3; std rtol 1e-3, atol 1e-3) and the
+    wrapper's CPU path (equal). One pixel is the Bessel edge: the JAX
+    fit's ``ddof=1`` gives NaN there, its additive form ``max(n − 1, 1)``
+    0."""
+
+    @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 1, 2), (2, 5, 7), (3, 24, 24), (2, 33, 31)])
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_plain_matches_moments_to_mean_std_and_jax(self, dtype, shape):
+        n_img, h, w = shape
+        x = _images(dtype, n_img, h, w, seed=h * w)
+        n = n_img * h * w
+        s1, s2 = rf.reinhard_moments_plain(_t(x))
+        mean, std = rh.moments_to_mean_std(n, s1, s2)
+        assert mean.dtype == std.dtype == torch.float32 and mean.shape == std.shape == (3,)
+        if n == 1:
+            want = jax_rh.moments_to_mean_std(*jax_rh.lab_moments(jnp.asarray(x)))
+            assert np.all(std.numpy() == 0.0)
+        else:
+            want = jax_rh.reinhard_fit(jnp.asarray(x))
+        np.testing.assert_allclose(mean.numpy(), np.asarray(want[0]), rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(std.numpy(), np.asarray(want[1]), rtol=1e-3, atol=1e-3)
+        got = rf.reinhard_mean_std(_t(x))
+        assert torch.equal(got[0], mean) and torch.equal(got[1], std)
+
+    @pytest.mark.parametrize("n", [1, 3, 2**24 + 1, 64 * 512 * 512])
+    def test_divisions_are_float32_true_divisions(self, n):
+        """Each step rounds once in float32, as the finalize computes it:
+        ``n`` and ``max(n − 1, 1)`` are float32 values, the divisions true
+        divisions (not products with a reciprocal)."""
+        rng = np.random.default_rng(n)
+        s = rng.normal(0, 40 * n, 3).astype(np.float32)
+        sq = (s.astype(np.float64) ** 2 / n + rng.uniform(0, 900 * n, 3)).astype(np.float32)
+        mean, std = rh.moments_to_mean_std(n, _t(s), _t(sq))
+        nf, den = np.float32(n), np.float32(max(n - 1, 1))
+        mean_c = s / nf
+        var = np.maximum(sq - nf * mean_c * mean_c, np.float32(0)) / den
+        assert np.array_equal(mean.numpy(), mean_c + np.float32(128.0))
+        assert np.array_equal(std.numpy(), np.sqrt(var))
+
+
+class TestLaunchShape:
+    """The kernels' launch shape, a pure function of the batch and the card."""
+
+    @pytest.mark.parametrize("dtype, pixels, aligned, want", [
+        (torch.uint8, 512 * 512, True, 16), (torch.uint8, 71 * 73, True, 1),
+        (torch.uint8, 8, True, 1), (torch.uint8, 512 * 512, False, 1),
+        (torch.float32, 8, True, 4), (torch.float32, 71 * 73, True, 1),
+        (torch.float32, 512 * 512, False, 1),
+    ])
+    def test_group_pixels(self, dtype, pixels, aligned, want):
+        assert rf.group_pixels(dtype, pixels, aligned) == want
+
+
 class TestApply:
     @pytest.mark.parametrize("size", list(SIZES))
     @pytest.mark.parametrize("dtype", ["uint8", "float32"])
@@ -118,6 +175,24 @@ class TestApply:
         mean, std = (np.asarray(a) for a in jax_rh.moments_to_mean_std(n_r, s1_r, s2_r))
         want = reinhard_apply_pallas(jnp.asarray(x), mean, std, *ref_stats, interpret=True)
         got = rf.reinhard_apply_plain(_t(x), _t(mean), _t(std), *map(_t, ref_stats))
+        assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == x.shape
+        _assert_close(got, want, GREY[dtype])
+
+    @pytest.mark.parametrize("stats", ["own", "reference"])
+    @pytest.mark.parametrize("field", ["colour cube", "branch points"])
+    def test_plain_matches_jax_kernel_on_edge_fields(self, field, stats, ref_stats):
+        """Every 4th level of the colour cube (64³ triples, 1×3×512² uint8)
+        and float32 values 16 ulps either side of the formulas' branch
+        points, under the field's own statistics (the identity transfer)
+        and the reference's: within 1 grey level or 1/255."""
+        if field == "colour cube":
+            x, dtype = colour_cube(4), "uint8"
+        else:
+            x, dtype = branch_point_field(16, 8, seed=3), "float32"
+        mean, std = (np.asarray(a) for a in jax_rh.moments_to_mean_std(*jax_rh.lab_moments(jnp.asarray(x))))
+        target = (mean, std) if stats == "own" else ref_stats
+        want = reinhard_apply_pallas(jnp.asarray(x), mean, std, *target, interpret=True)
+        got = rf.reinhard_apply_plain(_t(x), _t(mean), _t(std), *map(_t, target))
         assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == x.shape
         _assert_close(got, want, GREY[dtype])
 
@@ -236,4 +311,5 @@ class TestErrors:
         monkeypatch.setattr(kernels, "build_all", no_build)
         before = (rf.reinhard_moments.launches, rf.reinhard_apply.launches)
         Reinhard(device="cpu").fit(ref_tile).transform(ref_tile)
+        rf.reinhard_mean_std(_t(ref_tile))
         assert (rf.reinhard_moments.launches, rf.reinhard_apply.launches) == before
