@@ -28,7 +28,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and B8c on a (C, P) input) on the batch, a ragged batch and an all-white
    tile, an unaligned and a 130-channel input, and the LUT apply (B8b,
    uint8 and float32 output) with a sorted and an out-of-range LUT and on
-   the unaligned and 130-channel inputs, all exact; the streaming tier: the
+   the unaligned and 130-channel inputs, all exact; the HM fit (B8a and a
+   finalize that normalizes) and transform (B8a, a finalize that builds the
+   LUT and its table on the card, B8b; one C call) bit for bit against
+   ``normalized_histogram``, ``hm_build_lut``, ``lut_table`` and the plain
+   steps on the main batch (uint8 and float32 tables), the batch matched to
+   itself, an empty reference channel, an odd unaligned P, a ragged batch,
+   C = 1 and C = 12, and the finalize alone on counts with an empty source
+   channel, two runs bit-identical; B1's resident body (an image in one
+   block's shared memory) on small patches (uint8 and float32), uniform
+   tiles, a tile that takes the <3-pixel fallback, ragged rows, and the
+   largest rows it keeps resident and the first it does not, within 1 grey
+   level of its plain version, its four selections bit for bit against
+   ``kth_smallest`` on the keys it selected on; the streaming tier: the
    exact selection (B6) bit for bit on (1, 2²⁴), (512, 224²) and ragged
    (3, 1 000 003) fields, K = 2, with and without init, with sentinels,
    ranks past the count and an empty row, K = 10 (two launches),
@@ -67,6 +79,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    transform's device work read from ``torch.profiler`` (B7b, its
    finalize, B7a, nothing between), its output held against the plain
    steps (≤ 1 grey level) and against a second transform (bit for bit);
+   the same for the HM transform (B8a, its finalize, B8b; bit for bit);
    the Reinhard and
    histogram-matching oracle gates (≤ 1 grey level) run the public API on
    the first 8 images, since both take batch-global statistics; one NHWC
@@ -94,7 +107,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cluster size; the public-API fit and transform of each
    normalizer and the Macenko paths (also replayed, for the device's busy
    time and idle share, which the kernel time ``torch.profiler`` records
-   cross-checks); the histogram on an all-white batch; the sweep of
+   cross-checks); the histogram on an all-white batch; the HM finalize
+   alone and each kernel of the HM fit and transform by ``torch.profiler``;
+   B1 at small patches on both its bodies; the sweep of B1's resident body
+   against its L2 body up to the resident limit; the sweep of
    B1 against B4 and of B2 against B5 over sizes, in three rounds with
    their spread, that sets the route ladder of
    ``stainx_tpu_torch/ops/macenko.py``; B3 at the shapes of paths (c)
@@ -283,7 +299,11 @@ def main() -> int:
     from stainx_tpu_torch.kernels import selection_stream as ss
     from stainx_tpu_torch.ops import macenko as mk
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
-    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
+    from stainx_tpu_torch.ops.percentile import (
+        kth_smallest,
+        nearest_rank_index,
+        static_nearest_rank_index,
+    )
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std, reinhard_transform
     from stainx_tpu_torch.testing import branch_point_field, colour_cube, synthetic_he_batch
 
@@ -495,6 +515,69 @@ def main() -> int:
             require(torch.equal(a_k, a_p), f"{label}: apply_lut differs from plain")
             require(torch.equal(again, a_k), f"{label}: two B8b runs differ")
 
+    # The fit and the transform as one C call each: B8a, then its finalize
+    # (the normalized reference histogram, or the LUT and its table built on
+    # the card), then at transform B8b on that table. The finalize is held
+    # bit for bit against its plain versions on the same counts
+    # (normalized_histogram, hm_build_lut, lut_table), and the transform
+    # against the plain steps: counts, hm_build_lut, the lookup.
+    def check_hm_fit(label, vals):
+        got = hk.hm_reference(vals)
+        want = hk.normalized_histogram(hk.histogram_256_plain(vals))
+        again = hk.hm_reference(vals)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        print(f"HM fit (B8a, finalize) {label}: equal to the plain steps {exact}")
+        require(exact, f"{label}: the fit's histogram differs from its plain version")
+        require(torch.equal(again, got), f"{label}: two fits differ")
+        return got
+
+    def check_hm(label, vals, ref_hist, out_dtype):
+        out, lut, table = hk.hm_transfer(vals, ref_hist, out_dtype)
+        again = hk.hm_transfer(vals, ref_hist, out_dtype)[0]
+        n_v, _c, p_v = vals.shape
+        lut_p = hk.hm_build_lut(hk.histogram_256_plain(vals), ref_hist, float(n_v * p_v))
+        table_p = hk.lut_table(lut_p, out_dtype)
+        out_p = hk.apply_lut_plain(vals, lut_p, out_dtype)
+        torch.cuda.synchronize()
+        same = (torch.equal(lut, lut_p), torch.equal(table, table_p), torch.equal(out, out_p))
+        print(f"HM transform (B8a, finalize, B8b) {label} -> {out_dtype}: LUT, table, output equal "
+              f"to hm_build_lut, lut_table, the plain steps: {same}; pinned entries "
+              f"{int((lut_p == 0).sum())} at 0, {int((lut_p == 255).sum())} at 255")
+        require(all(same), f"{label}: the HM transform differs from its plain steps")
+        require(torch.equal(again, out), f"{label}: two HM transforms differ")
+        return out
+
+    hm_ref = check_hm_fit(f"1x3x{SIZE}^2 (the main path's reference)", ref.reshape(1, 3, -1))
+    check_hm_fit(f"{BATCH}x3x{SIZE}^2", values)
+    check_hm(f"{BATCH}x3x{SIZE}^2 (the main batch)", values, hm_ref, torch.uint8)
+    check_hm(f"{BATCH}x3x{SIZE}^2 (the main batch)", values, hm_ref, torch.float32)
+    check_hm(f"{BATCH}x3x{SIZE}^2 matched to itself", values, check_hm_fit("the batch", values),
+             torch.uint8)
+    empty_ref = hm_ref.clone()
+    empty_ref[1] = 0.0
+    check_hm(f"{BATCH}x3x{SIZE}^2, an empty reference channel", values, empty_ref, torch.uint8)
+    check_hm("1x3x100003 at a 3-byte offset (odd, unaligned P)", offset, hm_ref, torch.uint8)
+    check_hm("2x3x(71*73) (ragged)", ragged.reshape(2, 3, -1), hm_ref, torch.float32)
+    grey1 = values[:, 1:2]
+    check_hm(f"{BATCH}x1x{SIZE}^2 (C = 1)", grey1.contiguous(), hm_ref[1:2], torch.uint8)
+    twelve = torch.randint(0, 256, (4, 12, 5001), generator=gen, device=dev, dtype=torch.uint8)
+    ref12 = check_hm_fit("4x12x5001 (C = 12)", twelve.flip(0).contiguous())
+    check_hm("4x12x5001 (C = 12)", twelve, ref12, torch.uint8)
+    check_hm("4x12x5001 (C = 12)", twelve, ref12, torch.float32)
+    # An empty source channel cannot come from images; the finalize alone
+    # takes the main batch's counts with one channel emptied.
+    counts_e = hk.histogram_256_plain(values)
+    counts_e[2] = 0.0
+    for out_dtype in (torch.uint8, torch.float32):
+        lut_e, table_e = hk.hm_lut(counts_e, hm_ref, BATCH * SIZE * SIZE, out_dtype)
+        lut_ep = hk.hm_build_lut(counts_e, hm_ref, float(BATCH * SIZE * SIZE))
+        torch.cuda.synchronize()
+        same = torch.equal(lut_e, lut_ep) and torch.equal(table_e, hk.lut_table(lut_ep, out_dtype))
+        print(f"HM finalize, an empty source channel -> {out_dtype}: LUT and table equal to "
+              f"hm_build_lut and lut_table {same}")
+        require(same, "the finalize differs from hm_build_lut on an empty source channel")
+
     # The streaming tier. B6, the exact selection, bit for bit.
     def select_case(rows, p, seed):
         """A field with duplicates, +inf sentinels, a rank past the count
@@ -660,6 +743,78 @@ def main() -> int:
     patches_b = dev_u8(synthetic_he_batch(A_BATCH, P_SIZE, P_SIZE, seed=args.seed + 65,
                                           he_scale=1.1))
     _, b1_err = check_transform(f"{A_BATCH}x3x{P_SIZE}^2 u8 (small patches)", patches_b, he_k, mc_k)
+
+    # B1's resident body (the image in one 256-thread block's shared memory,
+    # read once) on the cases its size rule and its fallback decide, each
+    # within 1 grey level of the plain version and repeated bit for bit. Its
+    # four selections are held bit for bit against kth_smallest on the keys
+    # it selected on, which a check-only launch of the same kernel keeps.
+    smem_optin = kernels.device_limits(dev.index)[1]
+
+    def check_b1_selections(label, x):
+        out_k, keys, sel_k = mf.resident_selections(x, he_k, mc_k)
+        n_x, p_x = x.shape[0], x.shape[2] * x.shape[3]
+        k = keys.to(torch.int64) & 0xFFFFFFFF
+        vals = sel.unkey(k)
+        member = k[:, 0] < 0xFF800000
+        cnt = member.sum(-1)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
+        idx = torch.full((n_x,), static_nearest_rank_index(99, p_x), device=dev)
+        want = torch.cat([kth_smallest(vals[:, 0], ranks, member),
+                          kth_smallest(vals[:, 1], idx)[:, None],
+                          kth_smallest(vals[:, 2], idx)[:, None]], -1)
+        same_out = torch.equal(out_k, mf.macenko_transform_mega(x, he_k, mc_k))
+        torch.cuda.synchronize()
+        exact = torch.equal(sel_k, want)
+        print(f"B1 resident selections {label}: angles and maxC equal to kth_smallest on the "
+              f"kernel's keys {exact} ({int(cnt.min())}-{int(cnt.max())} of {p_x} pixels in the "
+              f"angle selections); the checked launch's output equal to the wrapper's {same_out}")
+        require(exact, f"{label}: B1's selections differ from kth_smallest on its keys")
+        require(same_out, f"{label}: the checked launch and the wrapper's differ")
+
+    def check_b1(label, x):
+        p_x = x.shape[2] * x.shape[3]
+        body = mf.transform_body(p_x, x.dtype, smem_optin)
+        _, err = check_transform(f"{label}, {body} body", x, he_k, mc_k)
+        if body == "resident":
+            check_b1_selections(label, x)
+        return body, err
+
+    def largest_resident(dtype):
+        lo, hi = 1, 1 << 20
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            fits = mf.transform_body(mid, dtype, smem_optin) == "resident"
+            lo, hi = (mid, hi) if fits else (lo, mid - 1)
+        return lo
+
+    check_b1(f"{A_BATCH}x3x{P_SIZE}^2 u8 (small patches)", patches_b)
+    check_b1(f"{A_BATCH}x3x{P_SIZE}^2 f32 (4096-pixel float32 rows)", patches_b.float() / 255.0)
+    for value in (255, 250):
+        tile_u = torch.full((2, 3, P_SIZE, P_SIZE), value, dtype=torch.uint8, device=dev)
+        out_u, _ = check_transform(f"uniform {value} 2x3x{P_SIZE}^2, resident body", tile_u,
+                                   he_k, mc_k)
+        check_b1_selections(f"uniform {value} 2x3x{P_SIZE}^2", tile_u)
+        flat_u = out_u.reshape(2, 3, -1)
+        require((flat_u.amax(-1) == flat_u.amin(-1)).all(),
+                f"uniform {value}: the resident body's tile did not stay uniform per channel")
+    # Light red planes (OD below beta) but for two pixels an image: fewer
+    # than 3 survive the beta-mask, so the fallback takes every pixel.
+    two_px = patches_b[:2].clone()
+    two_px[:, 0] = torch.clamp(two_px[:, 0], min=215)
+    two_px[:, :, 5, 7] = torch.tensor([120, 60, 150], dtype=torch.uint8, device=dev)[None, :]
+    two_px[:, :, 40, 3] = torch.tensor([90, 70, 130], dtype=torch.uint8, device=dev)[None, :]
+    check_b1(f"2x3x{P_SIZE}^2, two pixels past the beta-mask (the <3-pixel fallback)", two_px)
+    check_b1(f"2x3x71x73 u8 (ragged, one pixel a thread)", ragged)
+    for dtype_name, dtype in (("u8", torch.uint8), ("f32", torch.float32)):
+        p_max = largest_resident(dtype)
+        for p_x in (p_max, p_max + 1):
+            x = dev_u8(synthetic_he_batch(3, 1, p_x, seed=args.seed + p_x))
+            x = x if dtype == torch.uint8 else x.float() / 255.0
+            body, _ = check_b1(f"3x3x1x{p_x} {dtype_name} (the largest resident rows and the "
+                               f"next)", x)
+            require(body == ("resident" if p_x == p_max else "l2"), f"{p_x}: body {body}")
     check_transform(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", tiles_b, he_k, mc_k)
     check_transform(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a, he_k, mc_k)
 
@@ -920,6 +1075,24 @@ def main() -> int:
     hist_match = HistogramMatching()
     hm_out, h_launches = drive("HistogramMatching", [hk.histogram_256, hk.apply_lut],
                                lambda: hist_match.fit(ref).transform(batch))
+    # The transform as the plain steps give it on the fitted histograms, bit
+    # for bit; its device work is B8a, the finalize that builds the LUT and
+    # its table, then B8b: no other kernel between them, one C call.
+    hm_plain = hk.hm_transfer_plain(batch.reshape(BATCH, 3, -1), hist_match._ref_histograms_256,
+                                    torch.uint8)[0].reshape(batch.shape)
+    require(torch.equal(hm_out, hm_plain), "the HM main path differs from its plain steps")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hm_again = hist_match.transform(batch)
+        torch.cuda.synchronize()
+    require(torch.equal(hm_again, hm_out), "two HM transforms of the main path differ")
+    on_device = sorted((e.time_range.start, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    hm_steps = [next((k for k in ("hist_kernel", "hist_finalize", "apply_kernel") if k in name),
+                     name) for _, name in on_device]
+    print(f"HistogramMatching transform, device work in order: {hm_steps}; equal to the plain "
+          f"steps and to a second transform")
+    require(hm_steps == ["hist_kernel", "hist_finalize", "apply_kernel"],
+            f"the HM transform ran {hm_steps} on the device, not B8a, its finalize, B8b alone")
 
     def grey_gate(label, got, expect):
         err = float(np.abs(got.cpu().numpy().astype(np.float32) - expect.astype(np.float32)).max())
@@ -1128,6 +1301,34 @@ def main() -> int:
     ms_b8b_p = event_ms(lambda v: hk.apply_lut_plain(v, lut_sorted), [values, values_b], 5)
     table, c_idx = hk.lut_table(lut_sorted, torch.uint8), torch.arange(3, device=dev).view(1, 3, 1)
     ms_b8b_lib = event_ms(lambda v: table[c_idx, v.long()], [values, values_b], 5)
+    # The finalize alone (the LUT and its uint8 table from the main batch's
+    # int32 counts), and each kernel of the HM transform's one C call as
+    # torch.profiler records it on the device.
+    counts_i = [hk.histogram_256_plain(v).to(torch.int32) for v in (values, values_b)]
+    ms_fin = kernel_ms("HM finalize (LUT and table from counts)",
+                       lambda c: hk.hm_lut(c, hm_ref, BATCH * SIZE * SIZE, torch.uint8), counts_i)
+    ms_fin_p = event_ms(
+        lambda c: hk.lut_table(hk.hm_build_lut(c, hm_ref, float(BATCH * SIZE * SIZE)), torch.uint8),
+        counts_i, 5)
+    # The finalize alone reads the (3, 256) int32 counts and float32
+    # reference and writes the float32 LUT and the uint8 table; its float32
+    # work is about 30 operations a bin (two divisions, the sums and scans,
+    # 8 search compares, the interpolation, the pins and the clamps).
+    fin_bound, fin_by = bound_ms(3 * 256 * (4 + 4 + 4 + 1), 3 * 256 * 30)
+    print(f"HM finalize plain (hm_build_lut, lut_table): {ms_fin_p:.4f} ms; the finalize's bound "
+          f"{fin_bound:.6f} ms by {fin_by}")
+    for label, call in [("transform", hist_match.transform), ("fit", HistogramMatching().fit)]:
+        for x in pair:
+            call(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(10):
+                call(pair[i % 2])
+            torch.cuda.synchronize()
+        per = {e.key: e.self_device_time_total / 10 / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        print(f"HM {label} {BATCH}x3x{SIZE}^2 u8, device time a call by kernel (torch.profiler): "
+              + "; ".join(f"{k.split('(')[0]} {v:.4f} ms" for k, v in sorted(per.items())))
 
     for name, norm_cls, fitted, kernels_ms in [
         ("Reinhard", Reinhard, reinhard, ms_b7b + ms_b7a),
@@ -1149,6 +1350,12 @@ def main() -> int:
     ms_f = kernel_ms(f"B2 macenko_fit_mega 1x3x{P_SIZE}^2 u8 (a small patch as reference)",
                      mf.macenko_fit_mega, [patches[:1], patches_b[:1]])
     ms_fp = event_ms(mf.macenko_fit_mega_plain, [patches[:1], patches_b[:1]], 5)
+    kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{P_SIZE}^2 u8 (small patches), the body "
+              f"that re-reads L2",
+              lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="l2"), pair_p)
+    kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{P_SIZE}^2 f32 (4096-pixel float32 rows)",
+              lambda x: mf.macenko_transform_mega(x, he_k, mc_k),
+              [patches.float() / 255.0, patches_b.float() / 255.0])
     kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 u8 (the WSI tiles' shape)",
               lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_t)
     kernel_ms(f"B2 macenko_fit_mega 1x3x{A_SIZE}^2 u8 (a WSI tile's shape)",
@@ -1407,8 +1614,10 @@ def main() -> int:
                            (16, 1024, "u8"), (64, 224, "u8"), (64, 256, "u8"), (64, 320, "u8"),
                            (64, 384, "u8"), (64, 512, "u8"), (80, 512, "u8"), (96, 512, "u8"),
                            (112, 512, "u8"), (128, 256, "u8"), (128, 512, "u8"), (256, 64, "u8"),
-                           (256, 128, "u8"), (256, 224, "u8"), (256, 256, "u8"), (512, 224, "u8"),
-                           (4, 96, "f32"), (4, 128, "f32"), (64, 96, "f32"), (64, 128, "f32"),
+                           (256, 128, "u8"), (64, 136, "u8"), (256, 136, "u8"),
+                           (256, 224, "u8"), (256, 256, "u8"), (512, 224, "u8"),
+                           (4, 96, "f32"), (4, 128, "f32"), (64, 96, "f32"), (64, 102, "f32"),
+                           (256, 102, "f32"), (64, 128, "f32"),
                            (4, 160, "f32"),
                            (4, 224, "f32"), (4, 256, "f32"), (4, 288, "f32"), (16, 160, "f32"),
                            (16, 224, "f32"), (16, 288, "f32"), (64, 160, "f32"), (64, 224, "f32"),
@@ -1433,6 +1642,24 @@ def main() -> int:
     print(f"sweep: the ladder gives the multi-block kernel a size it did not win in every "
           f"round at {unearned or 'no size'}; it keeps the one-block kernel where the "
           f"multi-block one won (host-cost margin, row cap) at {kept or 'no size'}")
+
+    # B1's size rule: the resident body wherever the image fits a block's
+    # shared memory, else the body that re-reads L2 (mf.transform_body),
+    # timed against each other where both can run.
+    unearned.clear()
+    kept.clear()
+    for n, side, dtype in [(4, 64, "u8"), (256, 64, "u8"), (64, 96, "u8"), (256, 96, "u8"),
+                           (16, 128, "u8"), (256, 128, "u8"), (4, 136, "u8"), (256, 136, "u8"),
+                           (256, 64, "f32"), (16, 96, "f32"), (256, 96, "f32"),
+                           (4, 102, "f32"), (256, 102, "f32")]:
+        xs = sweep_inputs(n, side, dtype, args.seed + 600)
+        body = mf.transform_body(side * side, types[dtype], smem_optin)
+        race(f"B1 body {n}x3x{side}^2 {dtype}",
+             [("resident", lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="resident")),
+              ("l2", lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="l2"))],
+             xs, "mega" if body == "resident" else "stream")
+    print(f"B1 body sweep: the resident body is taken where the L2 body won every round at "
+          f"{kept or 'no size'}; the L2 body where it did not win at {unearned or 'no size'}")
 
     # The staged route's select threshold: B3 (a cluster a row) against B6
     # as the route calls it (no init: B6 finds the rows' extremes), on angle-like

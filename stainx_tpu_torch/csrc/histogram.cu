@@ -6,10 +6,14 @@
 //     (_hist_mxu_kernel, B8a), per-channel 256-bin counts of (N, C, P)
 //     uint8, and ::histogram_256_pallas (_hist_kernel, B8c), the same counts
 //     of (C, P), which is the N = 1 case of the same kernel.
+//   hist_finalize: what the JAX package computes around those counts in
+//     plain jnp (stainx_tpu/ops/histogram_matching.py): the counts as float32,
+//     hm_fit's normalized reference histogram, or hm_build_lut's LUT and the
+//     (C, 256) table the apply looks up.
 //   apply_kernel: stainx_tpu/kernels/histogram.py::apply_lut_u8_mxu
-//     (_apply_lut_kernel, B8b), out[n, c, p] = table[c, x[n, c, p]]. The
-//     wrapper makes the table: floor(clip(lut, 0, 255)) as uint8, or, for
-//     the float output of the JAX XLA route, clip(lut / 255, 0, 1) as float.
+//     (_apply_lut_kernel, B8b), out[n, c, p] = table[c, x[n, c, p]]: the
+//     table is floor(clip(lut, 0, 255)) as uint8, or, for the float output of
+//     the JAX XLA route, clip(lut / 255, 0, 1) as float.
 //   The TPU kernels count and look up through one-hot matrix products on
 //   the MXU, tiled to its (8, 128) layout, because a TPU has no scatter and
 //   no fast gather; none of that is carried over. Each kernel masks its own
@@ -19,27 +23,43 @@
 // What bounds them
 //   Bytes. At 64x3x512^2 uint8 the histogram reads 50.33 MB (15.0 us at
 //   3.35 TB/s) and does one increment a byte; the apply reads 50.33 MB and
-//   writes 50.33 MB (30.0 us) for the uint8 output.
+//   writes 50.33 MB (30.0 us) for the uint8 output. The finalize works on
+//   C x 256 values: its time is its latency (a few dependent shared-memory
+//   sums and a binary search), about that of a launch.
 //
 // What the design does about it
-//   Both kernels read the flat N*C*P buffer 16 bytes a thread (uint4) in a
-//   grid-stride loop when the buffer is 16-byte aligned, with a scalar loop
-//   for the last N*C*P % 16 bytes (and for an unaligned buffer). The channel
-//   of element i is (i / P) % C: rows of odd P do not start aligned, so a
-//   vector may cross rows; it is computed once a vector and then stepped.
-//   The histogram counts into shared-memory sub-histograms with integer
-//   atomics, one copy per pair of warps, and merges each thread's runs of
-//   equal bytes before it adds, because H&E tiles are mostly near-white
-//   background and one bin then takes most updates: an all-white vector is
-//   one atomic, not 16. At the end each block adds its counts into the
-//   global int32 (C, 256) counts with integer atomicAdd. Integer sums do not
-//   depend on order, so the counts are exact and the same on every run;
-//   the wrapper converts them to float32 once. Above 8 channels the shared
-//   copies would not fit and the kernel adds to the global counts directly.
-//   The apply kernel stages the C x 256 table in shared memory (in device
-//   memory, read through the read-only cache, when it exceeds 32 KB), looks
-//   up each byte of a 16-byte load and stores 16 bytes (uint8) or 64 bytes
-//   (float32) at once.
+//   hist_kernel: a block counts a contiguous stretch of one channel's N * P
+//   values (grid: C x blocks_per_channel), walking the images it covers
+//   row by row, so it knows every value's channel: no division or channel
+//   step a byte. Each row stretch is read as an unaligned head, 16-byte
+//   vectors (kUnroll in flight a thread) and a tail, so odd P and unaligned
+//   buffers need no other path. Every lane of the block owns one column of
+//   a 256 x 32 word histogram in shared memory (word 32 * bin + lane): a
+//   byte is one shared atomic add that no other lane of its warp can
+//   conflict with, whatever the data (an all-white tile as well as noise),
+//   so no run merging or warp matching is needed. At the end each warp adds
+//   the 32 columns of its bins with one warp reduction and the block writes
+//   its 256 counts to its own row of int32 partials: no global atomics and
+//   no zeroed buffer, so a call needs no memset.
+//   hist_finalize: one block of 256 threads a channel (thread b, bin b) adds
+//   the channel's partials (integers: exact in any order) and converts the
+//   count to float32 once; then, by mode, writes the counts, the normalized
+//   histogram counts / (sum + 1e-8), or the LUT of hm_build_lut and the
+//   table. Every float step is the plain version's, in its order: the sums
+//   of 256 bins as eight sequential windows of 32 and then the eight window
+//   sums (kernels/histogram.py::sum256), the cumulative sums as sequential
+//   blocks of 16, the block totals and each block's prefix added
+//   (::scan256), true divisions, the searchsorted (left) binary search of
+//   torch.searchsorted, and float32 constants; built with -fmad=false, so
+//   no product and sum are fused. The LUT is therefore bit for bit that of
+//   hm_build_lut on the same counts, on any device.
+//   apply_kernel stages the C x 256 table in shared memory (in device memory,
+//   read through the read-only cache, when it exceeds 32 KB), looks up each
+//   byte of a 16-byte load and stores 16 bytes (uint8) or 64 bytes (float32)
+//   at once.
+//   stainx_hm_fit and stainx_hm_transform launch the histogram, the finalize
+//   and (transform) the apply in one C call: nothing is issued between them
+//   and nothing returns to the host.
 
 #include <cuda_runtime.h>
 
@@ -47,16 +67,211 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCopies = 4;                 // shared sub-histograms a block
-constexpr int kSharedChannels = 8;         // channels the shared copies hold
-constexpr int kTableBytes = 32 * 1024;     // largest table staged in shared memory
+constexpr int kThreads = 256;      // apply_kernel, hist_finalize
+constexpr int kHistThreads = 512;  // hist_kernel
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kUnroll = 4;         // 16-byte loads in flight a thread
+constexpr int kTableBytes = 32 * 1024;  // largest table staged in shared memory
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// Counting sink: a run of `run` elements of key c * 256 + v.
-template <bool kShared>
-__device__ __forceinline__ void add(int* sh, int* counts, int key, int run) {
-  if constexpr (kShared) atomicAdd(sh + key, run);
-  else atomicAdd(counts + key, run);
+// ---------------------------------------------------------------- counting
+// Adds the four bytes of w to the lane's column of the block histogram.
+__device__ __forceinline__ void count4(unsigned* col, unsigned w) {
+  atomicAdd(col + ((w & 0xFFu) << 5), 1u);
+  atomicAdd(col + (((w >> 8) & 0xFFu) << 5), 1u);
+  atomicAdd(col + (((w >> 16) & 0xFFu) << 5), 1u);
+  atomicAdd(col + ((w >> 24) << 5), 1u);
+}
+
+// Counts the len bytes at row into the lane columns: the bytes before the
+// first 16-byte boundary, the 16-byte vectors, then the rest.
+__device__ __forceinline__ void count_stretch(const uint8_t* __restrict__ row, int64_t len,
+                                              unsigned* col) {
+  const int64_t head_raw = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(row) & 15)) & 15;
+  const int64_t head = head_raw < len ? head_raw : len;
+  if (threadIdx.x < head) atomicAdd(col + (static_cast<unsigned>(row[threadIdx.x]) << 5), 1u);
+  const uint4* vec = reinterpret_cast<const uint4*>(row + head);
+  const int64_t nvec = (len - head) / 16;
+  for (int64_t v0 = threadIdx.x; v0 < nvec; v0 += kUnroll * kHistThreads) {
+    uint4 q[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int64_t v = v0 + k * kHistThreads;
+      q[k] = v < nvec ? __ldcs(vec + v) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (v0 + k * kHistThreads < nvec) {
+        count4(col, q[k].x);
+        count4(col, q[k].y);
+        count4(col, q[k].z);
+        count4(col, q[k].w);
+      }
+    }
+  }
+  const int64_t done = head + 16 * nvec;
+  if (done + threadIdx.x < len) {
+    atomicAdd(col + (static_cast<unsigned>(row[done + threadIdx.x]) << 5), 1u);
+  }
+}
+
+// x: (n, c, p) uint8. Block blockIdx.x counts stretch blockIdx.x % bpc of
+// channel blockIdx.x / bpc, the channel's n * p values split in bpc
+// stretches of `chunk` (the last shorter), into partials[blockIdx.x]:
+// (c * bpc, 256) int32, each row written whole.
+__global__ void __launch_bounds__(kHistThreads)
+hist_kernel(const uint8_t* __restrict__ x, int* __restrict__ partials, int64_t n, int64_t p,
+            int c, int bpc, int64_t chunk) {
+  __shared__ unsigned hist[256 * 32];
+  for (int k = threadIdx.x; k < 256 * 32; k += kHistThreads) hist[k] = 0u;
+  __syncthreads();
+  unsigned* col = hist + (threadIdx.x & 31);
+  const int ch = blockIdx.x / bpc;
+  const int64_t total = n * p;
+  int64_t f = static_cast<int64_t>(blockIdx.x % bpc) * chunk;
+  const int64_t end = f + chunk < total ? f + chunk : total;
+  if (f < end) {
+    int64_t img = f / p, pos = f - img * p;  // once a block
+    while (f < end) {
+      const int64_t len = p - pos < end - f ? p - pos : end - f;
+      count_stretch(x + (img * c + ch) * p + pos, len, col);
+      f += len;
+      ++img;
+      pos = 0;
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* out = partials + static_cast<int64_t>(blockIdx.x) * 256;
+  for (int b = warp; b < 256; b += kHistWarps) {
+    const unsigned s = __reduce_add_sync(kFull, hist[b * 32 + lane]);
+    if (lane == 0) out[b] = static_cast<int>(s);
+  }
+}
+
+// ---------------------------------------------------------------- finalize
+enum FinalizeMode { kCounts = 0, kFit = 1, kLut = 2 };
+
+// Sum of the 256 values v in the order of sum256: eight windows of 32
+// summed sequentially, then the eight window sums. Every thread gets it.
+__device__ float sum256(const float* v, float* part) {
+  if (threadIdx.x < 8) {
+    float s = v[32 * threadIdx.x];
+    for (int j = 1; j < 32; ++j) s = s + v[32 * threadIdx.x + j];
+    part[threadIdx.x] = s;
+  }
+  __syncthreads();
+  float total = part[0];
+  for (int k = 1; k < 8; ++k) total = total + part[k];
+  __syncthreads();  // part may be reused
+  return total;
+}
+
+// In-place inclusive cumulative sums of the 256 values v in the order of
+// scan256: sequentially within blocks of 16, sequentially over the block
+// totals, then each block's exclusive prefix added to it.
+__device__ void scan256(float* v, float* before) {
+  if (threadIdx.x < 16) {
+    float* blk = v + 16 * threadIdx.x;
+    for (int j = 1; j < 16; ++j) blk[j] = blk[j - 1] + blk[j];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    before[0] = 0.0f;
+    for (int k = 1; k < 16; ++k) {
+      t = k == 1 ? v[15] : t + v[16 * k - 1];
+      before[k] = t;
+    }
+  }
+  __syncthreads();
+  const float own = v[threadIdx.x] + before[threadIdx.x >> 4];
+  __syncthreads();
+  v[threadIdx.x] = own;
+  __syncthreads();
+}
+
+// torch.searchsorted(seq, val, side="left") on 256 sorted values: the
+// binary search of its CPU and CUDA kernels (first index whose value is
+// not below val).
+__device__ __forceinline__ int search_left(const float* seq, float val) {
+  int lo = 0, hi = 256;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (!(seq[mid] >= val)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// One block of 256 threads a channel (thread b: bin b). partials: (c * bpc,
+// 256) int32 from hist_kernel. kCounts: out = the float32 counts. kFit: out
+// = counts / (sum + 1e-8). kLut: out = hm_build_lut(counts, ref_hist,
+// num_pixels) with src_den = float32(num_pixels + 1e-8), and table = its
+// uint8 or float32 (is_float) form. out, ref_hist, table: (c, 256).
+__global__ void __launch_bounds__(kThreads)
+hist_finalize(const int* __restrict__ partials, int bpc, int mode,
+              const float* __restrict__ ref_hist, float src_den, float* __restrict__ out,
+              void* __restrict__ table, int is_float) {
+  __shared__ float src[256], ref[256], part[8], before[16];
+  __shared__ int last_occupied;
+  const int ch = blockIdx.x, b = threadIdx.x;
+  const int* rows = partials + static_cast<int64_t>(ch) * bpc * 256 + b;
+  int cnt = 0;
+  for (int k = 0; k < bpc; ++k) cnt += __ldg(rows + static_cast<int64_t>(k) * 256);
+  const float cf = static_cast<float>(cnt);
+  float* dst = out + ch * 256 + b;
+  if (mode == kCounts) {
+    *dst = cf;
+    return;
+  }
+  src[b] = cf;
+  if (b == 0) last_occupied = -1;
+  __syncthreads();
+  if (mode == kFit) {
+    const float den = sum256(src, part) + 1e-8f;
+    *dst = cf / den;
+    return;
+  }
+  if (cnt > 0) atomicMax(&last_occupied, b);
+  ref[b] = ref_hist[ch * 256 + b];
+  __syncthreads();
+  const float ref_den = sum256(ref, part) + 1e-8f;
+  src[b] = cf / src_den;
+  ref[b] = ref[b] / ref_den;
+  __syncthreads();
+  scan256(src, before);
+  scan256(ref, before);
+  const float cdf = src[b];
+  int idx = search_left(ref, cdf);
+  idx = idx < 1 ? 1 : (idx > 255 ? 255 : idx);
+  const float q_left = ref[idx - 1], q_right = ref[idx];
+  const float q_diff = q_right - q_left;
+  const float alpha = q_diff > 1e-10f ? (cdf - q_left) / q_diff : 0.0f;
+  float lut = static_cast<float>(idx - 1) + alpha;
+  const bool below_min = cdf <= ref[0] * (1.0f + 3.0f * 0x1p-23f);
+  const int last = last_occupied;
+  const bool above_max = (last >= 0 && b >= last) || ref[255] <= 0.0f;
+  if (below_min) lut = 0.0f;
+  if (above_max) lut = 255.0f;
+  lut = clamp_keep_nan(lut, 0.0f, 255.0f);
+  *dst = lut;
+  if (is_float) {
+    static_cast<float*>(table)[ch * 256 + b] = clamp_keep_nan(lut / 255.0f, 0.0f, 1.0f);
+  } else {
+    static_cast<uint8_t*>(table)[ch * 256 + b] =
+        static_cast<uint8_t>(static_cast<int>(floorf(lut)));
+  }
+}
+
+// ------------------------------------------------------------------- apply
+__device__ __forceinline__ int byte_of(const uint4& q, int j) {
+  const unsigned w = j < 4 ? q.x : (j < 8 ? q.y : (j < 12 ? q.z : q.w));
+  return static_cast<int>((w >> (8 * (j & 3))) & 0xFFu);
 }
 
 // Channel (row % c) and position within the row of element i.
@@ -70,68 +285,6 @@ __device__ __forceinline__ void step(int64_t p, int c, int& ch, int64_t& pos) {
   if (++pos == p) {
     pos = 0;
     ch = (ch + 1 == c) ? 0 : ch + 1;
-  }
-}
-
-__device__ __forceinline__ int byte_of(const uint4& q, int j) {
-  const unsigned w = j < 4 ? q.x : (j < 8 ? q.y : (j < 12 ? q.z : q.w));
-  return static_cast<int>((w >> (8 * (j & 3))) & 0xFFu);
-}
-
-// counts: (c, 256) int32, zeroed by the caller. kVec: x is 16-byte aligned.
-template <bool kVec, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ x, int* __restrict__ counts, int64_t total, int64_t p,
-            int c) {
-  __shared__ int sh[kShared ? kCopies * kSharedChannels * 256 : 1];
-  int* mine = nullptr;  // this warp's shared sub-histogram
-  if constexpr (kShared) {
-    for (int k = threadIdx.x; k < kCopies * c * 256; k += kThreads) sh[k] = 0;
-    mine = sh + ((threadIdx.x >> 5) % kCopies) * c * 256;
-    __syncthreads();
-  }
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-
-  int64_t scalar_from = 0;
-  if constexpr (kVec) {
-    const int64_t nvec = total / 16;
-    scalar_from = nvec * 16;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    for (int64_t v = tid; v < nvec; v += stride) {
-      const uint4 q = xv[v];
-      int ch;
-      int64_t pos;
-      locate(v * 16, p, c, ch, pos);
-      int key = ch * 256 + byte_of(q, 0), run = 1;
-      for (int j = 1; j < 16; ++j) {
-        step(p, c, ch, pos);
-        const int k = ch * 256 + byte_of(q, j);
-        if (k == key) {
-          ++run;
-        } else {
-          add<kShared>(mine, counts, key, run);
-          key = k;
-          run = 1;
-        }
-      }
-      add<kShared>(mine, counts, key, run);
-    }
-  }
-  for (int64_t i = scalar_from + tid; i < total; i += stride) {
-    int ch;
-    int64_t pos;
-    locate(i, p, c, ch, pos);
-    add<kShared>(mine, counts, ch * 256 + x[i], 1);
-  }
-
-  if constexpr (kShared) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < c * 256; k += kThreads) {
-      int s = 0;
-      for (int copy = 0; copy < kCopies; ++copy) s += sh[copy * c * 256 + k];
-      if (s != 0) atomicAdd(counts + k, s);
-    }
   }
 }
 
@@ -203,15 +356,33 @@ apply_kernel(const uint8_t* __restrict__ x, Tab* __restrict__ out, const Tab* __
   }
 }
 
-template <bool kVec, bool kShared>
-void launch_hist(const uint8_t* x, int* counts, int64_t total, int64_t p, int c, int blocks,
-                 cudaStream_t s) {
-  hist_kernel<kVec, kShared><<<blocks, kThreads, 0, s>>>(x, counts, total, p, c);
+// ---------------------------------------------------------------- launches
+struct HistArgs {
+  const uint8_t* x;
+  int* partials;
+  long long n, p;
+  int c, bpc;
+  long long chunk;
+};
+
+HistArgs hist_args(const void* x, void* partials, long long n, long long p, int c, int bpc,
+                   long long chunk) {
+  return {static_cast<const uint8_t*>(x), static_cast<int*>(partials), n, p, c, bpc, chunk};
+}
+
+void launch_hist(const HistArgs& a, cudaStream_t s) {
+  hist_kernel<<<a.c * a.bpc, kHistThreads, 0, s>>>(a.x, a.partials, a.n, a.p, a.c, a.bpc, a.chunk);
+}
+
+void launch_finalize(const HistArgs& a, int mode, const float* ref_hist, float src_den, float* out,
+                     void* table, int is_float, cudaStream_t s) {
+  hist_finalize<<<a.c, kThreads, 0, s>>>(a.partials, a.bpc, mode, ref_hist, src_den, out, table,
+                                         is_float);
 }
 
 template <typename Tab>
-void launch_apply(const uint8_t* x, void* out, const void* table, int64_t total, int64_t p, int c,
-                  int vec, int blocks, cudaStream_t s) {
+void launch_apply_t(const uint8_t* x, void* out, const void* table, int64_t total, int64_t p, int c,
+                    int vec, int blocks, cudaStream_t s) {
   auto* o = static_cast<Tab*>(out);
   const auto* t = static_cast<const Tab*>(table);
   const bool shared = static_cast<int64_t>(c) * 256 * sizeof(Tab) <= kTableBytes;
@@ -221,27 +392,69 @@ void launch_apply(const uint8_t* x, void* out, const void* table, int64_t total,
   else apply_kernel<Tab, false, false><<<blocks, kThreads, 0, s>>>(x, o, t, total, p, c);
 }
 
+void launch_apply(const uint8_t* x, void* out, const void* table, long long total, long long p,
+                  int c, int is_float, int vec, int blocks, cudaStream_t s) {
+  if (is_float) launch_apply_t<float>(x, out, table, total, p, c, vec, blocks, s);
+  else launch_apply_t<uint8_t>(x, out, table, total, p, c, vec, blocks, s);
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
+// x: (n, c, p) contiguous uint8 with n * p < 2^31; partials: (c * bpc, 256)
+// int32 scratch; bpc blocks a channel, each counting `chunk` of the
+// channel's n * p values (bpc * chunk >= n * p). Every function returns
+// cudaGetLastError().
 extern "C" {
 
 const char* stainx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x: (n, c, p) contiguous uint8, total = n * c * p < 2^31 per channel;
-// counts: (c, 256) int32, zeroed. vec: x is 16-byte aligned.
-int stainx_histogram_256(const void* x, void* counts, long long total, long long p, int c, int vec,
-                         int blocks, void* stream) {
+// counts: (c, 256) float32 per-channel counts.
+int stainx_histogram_256(const void* x, void* partials, void* counts, long long n, long long p,
+                         int c, int bpc, long long chunk, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xi = static_cast<const uint8_t*>(x);
-  auto* ci = static_cast<int*>(counts);
-  const bool shared = c <= kSharedChannels;
-  if (vec && shared) launch_hist<true, true>(xi, ci, total, p, c, blocks, s);
-  else if (vec) launch_hist<true, false>(xi, ci, total, p, c, blocks, s);
-  else if (shared) launch_hist<false, true>(xi, ci, total, p, c, blocks, s);
-  else launch_hist<false, false>(xi, ci, total, p, c, blocks, s);
+  const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
+  launch_hist(a, s);
+  launch_finalize(a, kCounts, nullptr, 0.0f, static_cast<float*>(counts), nullptr, 0, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist: (c, 256) float32 reference histograms, counts / (sum + 1e-8).
+int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long long p, int c,
+                  int bpc, long long chunk, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
+  launch_hist(a, s);
+  launch_finalize(a, kFit, nullptr, 0.0f, static_cast<float*>(hist), nullptr, 0, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The histogram-matching transform: the counts, the LUT of hm_build_lut
+// against ref_hist ((c, 256) float32) into lut ((c, 256) float32) and its
+// table ((c, 256) uint8, or float32 when is_float), then out ((n, c, p) of
+// the table's type) = table[c, x]. src_den: float32(n * p + 1e-8). vec: x
+// and out are 16-byte aligned; apply_blocks: the apply's grid.
+int stainx_hm_transform(const void* x, void* out, void* partials, const void* ref_hist, void* lut,
+                        void* table, long long n, long long p, int c, int bpc, long long chunk,
+                        float src_den, int is_float, int vec, int apply_blocks, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
+  launch_hist(a, s);
+  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_den, static_cast<float*>(lut),
+                  table, is_float, s);
+  launch_apply(a.x, out, table, n * c * p, p, c, is_float, vec, apply_blocks, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transform's finalize alone, on given (c, 256) int32 counts: lut and
+// table as stainx_hm_transform writes them for values with those counts.
+int stainx_hm_lut(const void* counts, const void* ref_hist, void* lut, void* table, int c,
+                  float src_den, int is_float, void* stream) {
+  const HistArgs a = hist_args(nullptr, const_cast<void*>(counts), 0, 0, c, 1, 0);
+  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_den, static_cast<float*>(lut),
+                  table, is_float, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,10 +463,8 @@ int stainx_histogram_256(const void* x, void* counts, long long total, long long
 // are 16-byte aligned.
 int stainx_apply_lut(const void* x, void* out, const void* table, long long total, long long p,
                      int c, int is_float, int vec, int blocks, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xi = static_cast<const uint8_t*>(x);
-  if (is_float) launch_apply<float>(xi, out, table, total, p, c, vec, blocks, s);
-  else launch_apply<uint8_t>(xi, out, table, total, p, c, vec, blocks, s);
+  launch_apply(static_cast<const uint8_t*>(x), out, table, total, p, c, is_float, vec, blocks,
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

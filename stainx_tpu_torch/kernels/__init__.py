@@ -16,6 +16,7 @@ that the wrappers share live here too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -128,6 +129,23 @@ def check_cuda(tensor: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: tensor on {tensor.device}; expected a CUDA or CPU tensor")
     if not tensor.is_contiguous():
         raise ValueError(f"{what} needs a contiguous tensor")
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch
+    from C: what ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    without building a ``Stream`` object each call (host time that a small,
+    host-bound call such as the small-patch transform pays in full)."""
+    return torch._C._cuda_getCurrentRawStream(torch.device(device).index)
+
+
+def on_device(device):
+    """``torch.cuda.device(device)`` for a launch from C, or nothing when
+    ``device`` (a device or an index) is already the current one."""
+    index = device if isinstance(device, int) else torch.device(device).index
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
 
 
 def ceil_to(v: int, q: int) -> int:

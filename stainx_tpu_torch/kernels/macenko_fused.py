@@ -227,7 +227,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.stainx_macenko_transform_mega.argtypes = [
-            ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, ptr
+            ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
         ]
         lib.stainx_macenko_transform_mega.restype = i32
         lib.stainx_macenko_fit_mega.argtypes = [ptr, ptr, i64, i64, i32, i32, i64, ptr]
@@ -237,7 +237,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _params(t: torch.Tensor, device, numel: int, name: str) -> torch.Tensor:
-    t = torch.as_tensor(t).to(device=device, dtype=torch.float32).contiguous()
+    """``t`` as a contiguous float32 tensor on ``device``; such a tensor
+    passes as it is."""
+    if not (torch.is_tensor(t) and t.dtype == torch.float32 and t.device == device
+            and t.is_contiguous()):
+        t = torch.as_tensor(t).to(device=device, dtype=torch.float32).contiguous()
     if t.numel() != numel:
         raise ValueError(f"{name} must have {numel} entries, got shape {tuple(t.shape)}")
     return t
@@ -248,13 +252,30 @@ def _vec4(p: int, *tensors: torch.Tensor) -> bool:
     return p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def macenko_transform_mega(images, stain_matrix, target_max_conc) -> torch.Tensor:
-    """Macenko transform (B1): (N, 3, H, W) uint8/float32 → normalized batch
-    of the same shape and dtype, values in [0, 255]. One launch per call,
-    one thread block per image."""
-    kernels.check_rgb_batch(images, "macenko_transform_mega")
-    if images.device.type == "cpu":
-        return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
+# The resident body's fixed shared memory (csrc/macenko_fused.cu
+# kResidentFixed); an image adds its two selections' keys (8 bytes a pixel)
+# and its three planes (3 bytes a uint8 pixel, 12 a float32 one, kept as
+# OD), each rounded up to 16 bytes.
+RESIDENT_FIXED_BYTES = 20992
+
+
+def resident_bytes(p: int, dtype: torch.dtype) -> int:
+    """Shared memory of a resident block for images of ``p`` pixels."""
+    itemsize = 1 if dtype == torch.uint8 else 4
+    return RESIDENT_FIXED_BYTES + kernels.ceil_to(8 * p, 16) + kernels.ceil_to(3 * p * itemsize, 16)
+
+
+def transform_body(p: int, dtype: torch.dtype, smem_limit: int) -> str:
+    """``"resident"`` (the image in one 512-thread block's shared memory) or
+    ``"l2"`` (a 1024-thread block re-reading it from L2 each pass) for
+    images of ``p`` pixels of ``dtype``, given a block's opt-in shared
+    memory: resident wherever it fits."""
+    return "resident" if resident_bytes(p, dtype) <= smem_limit else "l2"
+
+
+def _transform(images, stain_matrix, target_max_conc, body, check: bool):
+    """One B1 launch: the output, and with ``check`` the keys and selections
+    of :func:`resident_selections`."""
     kernels.check_cuda(images, "macenko_transform_mega")
     dev = images.device
     he = _params(stain_matrix, dev, 6, "stain_matrix")
@@ -262,20 +283,54 @@ def macenko_transform_mega(images, stain_matrix, target_max_conc) -> torch.Tenso
     out = torch.empty_like(images)
     n, _, h, w = images.shape
     p = h * w
-    if out.numel() == 0:
-        return out
     if p >= 2**31:
         raise ValueError(f"macenko_transform_mega takes images below 2^31 pixels, got {p}")
+    smem_limit = kernels.device_limits(dev.index)[1]
+    body = "resident" if check else body or transform_body(p, images.dtype, smem_limit)
+    smem = resident_bytes(p, images.dtype) if body == "resident" else 0
+    if smem > smem_limit:
+        raise ValueError(f"macenko_transform_mega: a {p}-pixel image needs {smem} bytes of shared "
+                         f"memory resident, more than the card's {smem_limit}")
+    keys = torch.empty((n, 3, p), dtype=torch.int32, device=dev) if check else None
+    sel = torch.empty((n, 4), dtype=torch.float32, device=dev) if check else None
+    if out.numel() == 0:
+        return out, keys, sel
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_macenko_transform_mega(
             images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(),
             n, p, int(images.dtype == torch.uint8), int(_vec4(p, images, out)),
-            static_nearest_rank_index(99, p), torch.cuda.current_stream(dev).cuda_stream,
+            static_nearest_rank_index(99, p), smem,
+            keys.data_ptr() if check else None, sel.data_ptr() if check else None,
+            kernels.current_stream(dev),
         )
     kernels.check(lib, code, "macenko_transform_mega")
-    macenko_transform_mega.launches += 1
+    return out, keys, sel
+
+
+def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | None = None):
+    """Macenko transform (B1): (N, 3, H, W) uint8/float32 → normalized batch
+    of the same shape and dtype, values in [0, 255]. One launch per call,
+    one thread block per image; ``body`` (``"resident"`` or ``"l2"``)
+    overrides :func:`transform_body`, for measurements."""
+    kernels.check_rgb_batch(images, "macenko_transform_mega")
+    if images.device.type == "cpu":
+        return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
+    out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False)
+    if out.numel():
+        macenko_transform_mega.launches += 1
     return out
+
+
+def resident_selections(images, stain_matrix, target_max_conc):
+    """Check only, on the card: B1's resident body run with its keys kept.
+    Returns ``(out, keys, sel)``: the output, the (N, 3, P) int32 monotone
+    keys each image selected on (the angle keys, +inf's key off the
+    β-mask, then the two concentrations' keys) and the (N, 4) float32
+    selected values (the α and 100−α angles, the two maxC). Not counted as
+    a launch."""
+    kernels.check_rgb_batch(images, "macenko_transform_mega")
+    return _transform(images, stain_matrix, target_max_conc, None, check=True)
 
 
 def macenko_fit_mega(images):
@@ -293,11 +348,11 @@ def macenko_fit_mega(images):
     dev = images.device
     out = torch.empty(8, dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_macenko_fit_mega(
             images.data_ptr(), out.data_ptr(), n, p,
             int(images.dtype == torch.uint8), int(_vec4(p, images)),
-            static_nearest_rank_index(99, n * p), torch.cuda.current_stream(dev).cuda_stream,
+            static_nearest_rank_index(99, n * p), kernels.current_stream(dev),
         )
     kernels.check(lib, code, "macenko_fit_mega")
     macenko_fit_mega.launches += 1

@@ -165,7 +165,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
     aligned = (images,) if out is None else (images, out)
     idx99 = static_nearest_rank_index(99, row_len)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = kernels.current_stream(dev)
     null = None
     if take == "cluster":
         active = functools.partial(_active_clusters, dev.index, images.dtype)
@@ -175,7 +175,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
         csize, slice_, resident = shape
         vec = p % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
         params = torch.empty((rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
+        with kernels.on_device(dev):
             code = lib.stainx_cluster_run(
                 images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
                 int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
@@ -189,7 +189,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
     layout, total = stream_layout(rows, n * blocks, 0 if is_uint8 else row_len)
     scratch = torch.empty(total, dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_stream_run(
             images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
             int(is_uint8), vec, blocks, kernels.row_blocks(rows, row_len // vec, dev),
@@ -217,11 +217,11 @@ def kernel_keys(images: torch.Tensor, params: torch.Tensor, fit: bool):
     angles = torch.empty((rows, row_len), dtype=torch.float32, device=dev)
     conc = torch.empty((2 * rows, row_len), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_stream_fields(
             images.data_ptr(), n, p, per_row, int(images.dtype == torch.uint8), vec,
             kernels.row_blocks(n, p // vec, dev), params.data_ptr(), angles.data_ptr(),
-            conc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            conc.data_ptr(), kernels.current_stream(dev),
         )
     kernels.check(lib, code, "stainx_stream_fields")
     return angles, conc
@@ -241,7 +241,7 @@ def cluster_occupancy(dtype: torch.dtype, csize: int, resident: int) -> int:
 @functools.cache
 def _active_clusters(index: int, dtype: torch.dtype, csize: int, resident: int) -> int:
     """:func:`cluster_occupancy` on CUDA device ``index``, asked once a shape."""
-    with torch.cuda.device(index):
+    with kernels.on_device(index):
         return cluster_occupancy(dtype, csize, resident)
 
 

@@ -125,7 +125,7 @@ def _launch_args(images: torch.Tensor) -> tuple[int, int, int, int, int, int]:
                          f"groups of {vec}")
     blocks = kernels.grid_blocks(n * (p // vec), images.device)
     return (n, p, int(images.dtype == torch.uint8), vec, blocks,
-            torch.cuda.current_stream(images.device).cuda_stream)
+            kernels.current_stream(images.device))
 
 
 def _moments_scratch(device, blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -142,7 +142,7 @@ def _moments(images: torch.Tensor) -> torch.Tensor:
     args = _launch_args(images)
     partials, out = _moments_scratch(dev, args[4])
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_reinhard_moments(
             images.data_ptr(), partials.data_ptr(), out.data_ptr(), out.data_ptr() + 6 * 4, *args
         )
@@ -191,7 +191,7 @@ def reinhard_apply(images, lab_mean, lab_std, reference_mean, reference_std) -> 
     if out.numel() == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_reinhard_apply(
             images.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in stats), *_launch_args(images)
         )
@@ -218,7 +218,7 @@ def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> to
     partials, small = _moments_scratch(dev, args[4])
     out = torch.empty_like(images)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         code = lib.stainx_reinhard_transform(
             images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
             small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args

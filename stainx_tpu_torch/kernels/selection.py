@@ -146,7 +146,7 @@ def _active_clusters(index: int, k: int, csize: int, resident: int) -> int:
     a block that CUDA device ``index`` holds at once
     (``cudaOccupancyMaxActiveClusters``), asked once a shape."""
     lib, found = _lib(), ctypes.c_int(0)
-    with torch.cuda.device(index):
+    with kernels.on_device(index):
         code = lib.stainx_kth_smallest_rows_occupancy(csize, k, resident, ctypes.addressof(found))
     kernels.check(lib, code, "cudaOccupancyMaxActiveClusters")
     return found.value
@@ -184,7 +184,7 @@ def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Te
     vec = 4 if p % 4 == 0 and x.data_ptr() % 16 == 0 else 1
     smem = kernels.device_limits(dev.index)[1]
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = kernels.current_stream(dev)
     outs = []
     for k0 in range(0, k_all, MAX_RANKS):
         r = ranks[:, k0:k0 + MAX_RANKS].contiguous()
@@ -196,7 +196,7 @@ def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Te
             c, (slice_, resident) = csize, cluster_slice(p, csize, resident_budget(k, smem))
         kernels.folded_grid(rows, c, "kth_smallest_pallas")
         out = torch.empty((rows, k), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
+        with kernels.on_device(dev):
             code = lib.stainx_kth_smallest_rows(
                 x.data_ptr(), rows, p, r.data_ptr(), k, out.data_ptr(), vec, c, slice_,
                 resident, stream

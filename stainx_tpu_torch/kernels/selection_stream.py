@@ -121,7 +121,7 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
     blocks_x = kernels.row_blocks(rows, p // vec, dev)
     kernels.folded_grid(rows, blocks_x, "kth_smallest_streaming")
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = kernels.current_stream(dev)
     outs = []
     for k0 in range(0, k_all, MAX_RANKS):
         r = ranks[:, k0:k0 + MAX_RANKS].contiguous()
@@ -130,7 +130,7 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
         layout, total = scratch_layout(rows, p, k)
         scratch = torch.empty(total, dtype=torch.uint8, device=dev)
         base = scratch.data_ptr()
-        with torch.cuda.device(dev):
+        with kernels.on_device(dev):
             code = lib.stainx_kth_smallest_streaming(
                 x.data_ptr(), rows, p, r.data_ptr(), k,
                 None if init3 is None else init3.data_ptr(), base + layout["counts"][0],

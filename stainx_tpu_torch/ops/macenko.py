@@ -48,33 +48,37 @@ ALPHA = 1  # integer percent: percentile ranks are computed exactly
 _KERNEL_DTYPES = (torch.uint8, torch.float32)
 
 # The H100's size ladder, from the three-round sweep of B1 against B4 and
-# B2 against B5 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), run twice
-# on the same tree. A multi-block kernel takes a size only where it was
-# faster as called in every round of both runs; each bound is the last size
-# measured on the winning side. B4 and B5 make one C call (one cluster
-# launch for rows that fit a cluster), so their host cost needs no margin of
-# its own.
+# B2 against B5 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W). A
+# multi-block kernel takes a size only where it was faster as called in
+# every round; each bound is the last size measured on the winning side. B4
+# and B5 make one C call (one cluster launch for rows that fit a cluster),
+# so their host cost needs no margin of its own. The figures are the last
+# sweep's, after B1 took its resident body for images that fit a block's
+# shared memory (uint8 up to 19 222 pixels, float32 up to 10 572; larger
+# rows keep the body that re-reads L2).
 # Transform (B4): uint8 rows of at least 50 176 pixels (224²) in batches of
 # up to 512 rows. B4 won every cell from 224² up, 4 to 512 rows: 4x224² at
-# 0.073-0.109 ms called against B1's 0.290-0.294, the WSI tiles' 256x224²
-# at 0.436-0.476 against 0.587-0.624, 64x512² at 0.512-0.515 against
-# 1.508-1.510, 512x224² at 0.816-0.880 against 1.178-1.227. At 128² the
-# rounds of 64 rows overlapped in one run (0.105-0.132 against 0.109-0.110;
-# on the device 0.057 against 0.103); B1 won 4x64² and 256x64². float32
-# rows of at least 25 600 pixels (160²) in batches of up to 256 rows: path
-# (a)'s 256x224² at 0.960-0.987 against 1.131-1.142; B1 won 256x128²
-# (0.349-0.350 against 0.410-0.412), though B4 won 4 and 64 rows of 96² and
-# 128².
+# 0.068-0.069 ms called against B1's 0.285-0.289, the WSI tiles' 256x224²
+# at 0.414-0.445 against 0.593-0.609, 64x512² at 0.499-0.513 against
+# 1.494-1.514, 512x224² at 0.808-0.815 against 1.155-1.161. B1 won every
+# cell measured below (64², 96², 128² and 136², 4 to 256 rows; 256x64²
+# 0.035-0.044 against 0.083-0.085, 64x128² 0.053-0.054 against
+# 0.059-0.062). float32
+# rows of at least 25 600 pixels (160²) in batches of up to 256 rows: B4
+# won 4 to 256 rows of 160² (256x160² 0.518-0.530 against 0.562) and path
+# (a)'s 256x224² (0.939-0.943 against 1.103-1.106); B1 won 96² and 102² at
+# 4 to 256 rows and 256x128² (0.345-0.346 against 0.405-0.406), though B4
+# won 4 and 64 rows of 128² (0.073-0.075 against 0.171-0.173).
 STREAM_MIN_ELEMS = 50_176
 STREAM_MAX_ROWS = 512
 STREAM_MIN_ELEMS_F32 = 25_600
 STREAM_MAX_ROWS_F32 = 256
-# Fit (B5): uint8 pools of at least 50 176 pixels (a 224² tile: 0.069-0.118
-# ms called against B2's 0.263-0.269; 4x128²: 0.076-0.088 against
-# 0.332-0.335). At 1x128² the rounds overlapped in one run (0.098-0.167
-# against 0.099-0.101); B2 won 1x64² and 1x96². float32 pools of at least
-# 9 216 pixels, the smallest measured (1x96²: 0.069-0.104 against
-# 0.110-0.111).
+# Fit (B5): uint8 pools of at least 50 176 pixels (a 224² tile: 0.065-0.067
+# ms called against B2's 0.261-0.262; 4x128²: 0.067 against 0.327-0.328).
+# B5 also won 1x96² and 1x128² (0.062-0.066 against 0.068-0.096), which the
+# ladder leaves to B2, and B2 won 1x64² (0.037-0.048 against 0.061-0.065).
+# float32 pools of at least 9 216 pixels, the smallest measured (1x96²:
+# 0.068 against 0.107-0.108).
 FIT_STREAM_MIN_ELEMS = 50_176
 FIT_STREAM_MIN_ELEMS_F32 = 9_216
 # The staged pipeline's selections, from the three-round sweep of B3

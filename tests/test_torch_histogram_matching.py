@@ -198,6 +198,94 @@ class TestTransform:
                           GREY["uint8"])
 
 
+def _quantized(images):
+    """The uint8 values the port's HM path counts, (N, C, H·W)."""
+    x = torch.as_tensor(np.array(images))
+    if x.dtype != torch.uint8:
+        x = torch.clamp(x * 255.0, 0.0, 255.0).to(torch.uint8)
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+class TestFusedEntryPoints:
+    """The fit's and the transform's one C call each (B8a with its finalize,
+    then B8b at transform) through their plain versions on the CPU, against
+    the JAX package's hm_fit, hm_transform and hm_build_lut on the same
+    inputs. Rows of 899 and 3034 pixels a channel: odd P."""
+
+    @pytest.mark.parametrize("c", [1, 3, 12])
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_reference_matches_jax_fit(self, c, dtype):
+        ref = _images(dtype, *REF, seed=61, c=c)
+        want = np.asarray(jax_hm.hm_fit(jnp.asarray(ref)))
+        got = hk.hm_reference(_quantized(ref))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (c, 256)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        assert torch.equal(hm.hm_fit(_t(ref)), got)
+
+    @pytest.mark.parametrize("case", ["random", "self_match", "empty_reference_channel"])
+    @pytest.mark.parametrize("c", [1, 3, 12])
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_transfer_matches_jax(self, case, c, dtype):
+        src = _images(dtype, *SRC, seed=62, c=c)
+        ref = src if case == "self_match" else _images(dtype, *REF, seed=63, c=c)
+        hist = np.array(jax_hm.hm_fit(jnp.asarray(ref)))
+        if case == "empty_reference_channel":
+            hist[c - 1] = 0.0
+        values = _quantized(src)
+        out_dtype = torch.uint8 if dtype == "uint8" else torch.float32
+        out, lut, table = hk.hm_transfer(values, _t(hist), out_dtype)
+        counts = _counts(values.numpy().reshape(src.shape[0], c, SRC[1], SRC[2]))
+        lut_j = np.asarray(jax_hm.hm_build_lut(jnp.asarray(counts), jnp.asarray(hist),
+                                               float(SRC[0] * SRC[1] * SRC[2])))
+        np.testing.assert_allclose(lut.numpy(), lut_j, atol=1e-4, rtol=0)
+        for pin in (0.0, 255.0):
+            np.testing.assert_array_equal(lut.numpy() == pin, lut_j == pin)
+        if case == "empty_reference_channel":
+            assert (lut[c - 1] == 255.0).all()
+        assert torch.equal(table, hk.lut_table(lut, out_dtype))
+        got = hm.hm_transform(_t(src), _t(hist))
+        assert torch.equal(got.reshape(out.shape), out)
+        for use_pallas in (True, False):
+            want = jax_hm.hm_transform(jnp.asarray(src), jnp.asarray(hist), use_pallas=use_pallas)
+            _assert_close(got, want, GREY[dtype])
+
+    @pytest.mark.parametrize("c", [1, 3, 12])
+    @pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+    def test_finalize_alone_on_an_empty_source_channel(self, c, out_dtype):
+        """An empty source channel cannot come from images: the finalize
+        alone (hm_lut) takes counts with one channel emptied."""
+        src = _images("uint8", *SRC, seed=64, c=c)
+        ref = _images("uint8", *REF, seed=65, c=c)
+        counts = _counts(src)
+        counts[c // 2] = 0.0
+        hist = np.asarray(jax_hm.hm_fit(jnp.asarray(ref)))
+        num = SRC[0] * SRC[1] * SRC[2]
+        lut, table = hk.hm_lut(_t(counts).to(torch.int32), _t(hist), num, out_dtype)
+        want = np.asarray(jax_hm.hm_build_lut(jnp.asarray(counts), jnp.asarray(hist), float(num)))
+        np.testing.assert_allclose(lut.numpy(), want, atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(lut.numpy() == 0.0, want == 0.0)
+        assert (lut[c // 2] == 0.0).all()
+        assert torch.equal(lut, hm.hm_build_lut(_t(counts), _t(hist), float(num)))
+        assert torch.equal(table, hk.lut_table(lut, out_dtype))
+
+    def test_float_table_is_a_true_division(self):
+        """The float table divides by a float32 tensor: bit for bit the
+        float32 quotient numpy computes, as the finalize's division."""
+        lut = np.random.default_rng(9).random((3, 256)).astype(np.float32) * 260.0 - 2.0
+        want = np.clip(lut / np.float32(255.0), np.float32(0.0), np.float32(1.0))
+        np.testing.assert_array_equal(hk.lut_table(_t(lut), torch.float32).numpy(), want)
+
+    @pytest.mark.parametrize("n, c, p", [(64, 3, 512 * 512), (1, 12, 5001), (3, 1, 1), (0, 3, 10),
+                                         (2, 130, 257)])
+    def test_hist_split_covers_each_channel(self, n, c, p):
+        bpc, chunk = hk.hist_split(n, c, p, 132)
+        assert chunk % 16 == 0 and bpc >= 1
+        assert bpc * chunk >= n * p and (bpc - 1) * chunk < max(n * p, 1)
+        assert bpc <= max(1, -(-4 * 132 // c))
+        if n * p >= hk.MIN_BLOCK_VALUES:
+            assert chunk >= hk.MIN_BLOCK_VALUES
+
+
 @pytest.fixture(scope="module")
 def ref_u8():
     return _images("uint8", *REF, seed=51)

@@ -103,6 +103,63 @@ class TestTransform:
         _assert_grey_close(mk.macenko_transform(_t(x), _t(he), _t(mc)), want)
 
 
+# The largest images B1's resident body holds on an H100 (232 448 bytes of
+# opt-in shared memory a block): 20 992 fixed bytes, 8 bytes of keys a pixel
+# and 3 (uint8) or 12 (float32) of planes, each rounded up to 16. Shapes
+# (H, W) of that many pixels and of one more.
+H100_SMEM_OPTIN = 232_448
+RESIDENT_EDGE = {
+    "uint8": [((14, 1373), "resident"), ((47, 409), "l2")],
+    "float32": [((12, 881), "resident"), ((97, 109), "l2")],
+}
+
+
+class TestResidentRule:
+    """B1's two bodies compute one function; the size rule only picks the
+    body. Its plain version is held against the JAX kernel at the shapes
+    that bound the rule, and the rule itself is a pure function."""
+
+    @pytest.mark.parametrize("dtype", ["uint8", "float32"])
+    def test_body_at_the_limit(self, dtype):
+        torch_dtype = getattr(torch, dtype)
+        for (h, w), body in RESIDENT_EDGE[dtype]:
+            assert mf.transform_body(h * w, torch_dtype, H100_SMEM_OPTIN) == body
+            fits = mf.resident_bytes(h * w, torch_dtype) <= H100_SMEM_OPTIN
+            assert fits == (body == "resident")
+        assert mf.transform_body(64 * 64, torch_dtype, H100_SMEM_OPTIN) == "resident"
+        assert mf.resident_bytes(64 * 64, torch_dtype) % 16 == 0
+
+    @pytest.mark.parametrize(
+        "dtype, shape",
+        [(d, hw) for d, cases in RESIDENT_EDGE.items() for hw, _ in cases]
+        + [("uint8", (64, 64)), ("float32", (64, 64))],
+    )
+    def test_plain_matches_jax_kernel_at_the_rule_edges(self, dtype, shape, fitted):
+        he, mc = fitted
+        x = _as_dtype(np.concatenate([_tile(*shape, seed=s, he_scale=1.1) for s in (8, 9)]), dtype)
+        want = jax_mk.macenko_transform(jnp.asarray(x), he, mc, use_pallas=True)
+        got = mf.macenko_transform_mega_plain(_t(x), _t(he), _t(mc))
+        assert got.dtype == getattr(torch, dtype) and got.shape == x.shape
+        _assert_grey_close(got, want)
+
+    def test_fallback_tile_matches_jax(self, fitted):
+        """A tile whose red plane is light (OD below β) but for two pixels:
+        fewer than 3 survive the β-mask, so the transform takes every
+        pixel's moments and angles. As in :class:`TestEdgeTiles`, the JAX
+        XLA path is the comparison (the Pallas kernel's float32 sums move
+        this tile's stain plane)."""
+        he, mc = fitted
+        tile = _tile(64, 64, seed=11).copy()
+        tile[0, 0] = np.maximum(tile[0, 0], 215)
+        tile[0, :, 5, 7] = (120, 60, 150)
+        tile[0, :, 40, 3] = (90, 70, 130)
+        od = -np.log((tile.astype(np.float32) + 1.0) / 240.0)
+        assert (od.min(axis=1) >= 0.15).sum() == 2
+        want = jax_mk.macenko_transform(jnp.asarray(tile), he, mc, use_pallas=False)
+        got = mf.macenko_transform_mega_plain(_t(tile), _t(he), _t(mc))
+        _assert_grey_close(got, want)
+
+
 class TestEdgeTiles:
     """Tiles whose covariance is exactly zero. Their output rests on what the
     degenerate eigh branch makes of it: the port sums in float64, gets an
