@@ -10,11 +10,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build every kernel from ``stainx_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the same CUDA tensors:
-   the Macenko fit (B2) on the 1×3×512² uint8 reference (HE atol 2e-5, maxC
-   rtol 1e-4); the Macenko transform (B1) on the 64×3×512² uint8 batch, an
-   8×3×512² float32 batch, a ragged 2×3×71×73 batch and a 2×3×1024² batch
-   (≤ 1 grey level); the fit also on float32 and on a pooled 4×3×256² batch;
-   all-white and uniform tiles; the Reinhard LAB moments (B7b, rtol 1e-4,
+   the Macenko transform (B1) on the 64×3×512² uint8 batch, an 8×3×512²
+   float32 batch, a ragged 2×3×71×73 batch and a 2×3×1024² batch (≤ 1 grey
+   level), all-white and uniform tiles; the Reinhard LAB moments (B7b, rtol 1e-4,
    atol 1e-2) and apply (B7a, ≤ 1 grey level or 1/255, with the share of
    outputs that differ at all) on the batch, the float32 batch, the
    ragged batch, the colour cube (every RGB triple once, 1×3×4096² uint8;
@@ -40,7 +38,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tiles, a tile that takes the <3-pixel fallback, ragged rows, and the
    largest rows it keeps resident and the first it does not, within 1 grey
    level of its plain version, its four selections bit for bit against
-   ``kth_smallest`` on the keys it selected on; the streaming tier: the
+   ``kth_smallest`` on the keys it selected on; the Macenko fit (B2: the
+   pool in one block's shared memory) on a 64² patch (uint8 and float32),
+   a ragged 71×73 patch (uint8 and float32, also at an odd byte and a
+   4-byte offset, as ``batch_ref_index=1`` hands it), pools of 4×64²,
+   8×48² and a ragged 3×71×73, the largest pools it holds (uint8 and
+   float32), uniform pools (one past the β-mask, one with no pixel past
+   it, whose HE is NaN as the plain version's is) and a white float32
+   patch, within HE atol 2e-5 and maxC rtol 1e-4 of its plain version and
+   repeated bit for bit, its four selections bit for bit against
+   ``kth_smallest`` on the keys it selected on; the first pool past the
+   largest, which B2 refuses and B5 fits; the streaming tier: the
    exact selection (B6) bit for bit on (1, 2²⁴), (512, 224²) and ragged
    (3, 1 000 003) fields, K = 2, with and without init, with sentinels,
    ranks past the count and an empty row, K = 10 (two launches),
@@ -55,8 +63,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version on 4×3×2048² and 1×3×4096² uint8, 1×3×2048² float32, a ragged
    1×3×1999×2011, an all-white 2048² tile, 1×3×8192² uint8, the 64×3×512²
    batch and path (a)'s 256×3×224² float32 batch, and B1 on 256×3×64²
-   and 256×3×224² uint8 and 256×3×224² float32 (≤ 1 grey level), B2 on a
-   64² and a 224² reference; B4 and B5 on both their routes
+   and 256×3×224² uint8 and 256×3×224² float32 (≤ 1 grey level); B4 and B5 on both their routes
    (cluster and streamed) wherever the rows fit a cluster; the selections
    fused into B4 and B5 bit for bit against B6's plain version on the keys
    the call selected on (written by a check-only entry with the kernels'
@@ -90,7 +97,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    matching in batch mode once each; WSI tiles, ``Macenko().fit(tile)
    .transform(tiles)`` on 256×3×224² uint8 with one of the tiles as the
    reference (MAE ≤ 0.35 on 8 tiles); small patches, the same on
-   256×3×64² uint8 with a 64² reference patch; path (b), ``Macenko().fit(ref)
+   256×3×64² uint8 with a 64² reference patch; small-patch batch mode,
+   ``StainNormalizerTransform("macenko", mode="batch")`` with its default
+   ``batch_ref_index=0`` on 256×3×64² uint8 and float32 (B2 and B1 once
+   each; oracle fitted on the first patch, MAE ≤ 0.35 on 8 patches); path
+   (b), ``Macenko().fit(ref)
    .transform(batch)`` on 4×3×2048² and 1×3×4096² uint8 (MAE ≤ 0.35 on one
    image); path (c), the staged route, ``Macenko(precision=...).fit(ref)
    .transform(batch)`` at 64×3×512² bfloat16 under "stable" and "fast" and
@@ -109,10 +120,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    time and idle share, which the kernel time ``torch.profiler`` records
    cross-checks); the histogram on an all-white batch; the HM finalize
    alone and each kernel of the HM fit and transform by ``torch.profiler``;
-   B1 at small patches on both its bodies; the sweep of B1's resident body
-   against its L2 body up to the resident limit; the sweep of
-   B1 against B4 and of B2 against B5 over sizes, in three rounds with
-   their spread, that sets the route ladder of
+   B1 at small patches on both its bodies; B2 at a 64² patch (uint8,
+   float32), a 128² reference and the largest pool it holds; the
+   small-patch batch-mode forwards; the sweep of B1's resident body
+   against its L2 body up to the resident limit; the sweep of B1 against
+   B4 over sizes and of B2 against B5 over the pools B2 holds, in three
+   rounds with their spread, that sets the route ladder of
    ``stainx_tpu_torch/ops/macenko.py``; B3 at the shapes of paths (c)
    (its fit and transform) and (d), on their own fields, and on short
    rows (224² and 64², as a staged fit of such a reference gives), on every
@@ -328,25 +341,10 @@ def main() -> int:
     batch = dev_u8(synthetic_he_batch(BATCH, SIZE, SIZE, seed=args.seed + 123))
     batch_b = dev_u8(synthetic_he_batch(BATCH, SIZE, SIZE, seed=args.seed + 124, he_scale=1.1))
 
-    # 3. Each kernel against its plain version on the same tensors.
-    he_k, mc_k = mf.macenko_fit_mega(ref)
-    he_p, mc_p = mf.macenko_fit_mega_plain(ref)
-    torch.cuda.synchronize()
-    mc_rel = ((mc_k - mc_p).abs() / mc_p.abs()).max().item()
-    print(f"B2 fit 1x3x{SIZE}^2 u8: HE max|d| {(he_k - he_p).abs().max().item():.3g} "
-          f"(atol 2e-5), maxC max rel {mc_rel:.3g} (rtol 1e-4)")
-    torch.testing.assert_close(he_k, he_p, atol=2e-5, rtol=0)
-    torch.testing.assert_close(mc_k, mc_p, atol=0, rtol=1e-4)
-    he2, mc2 = mf.macenko_fit_mega(ref)
-    require(torch.equal(he2, he_k) and torch.equal(mc2, mc_k), "two B2 runs differ")
-    for label, x in [("1x3x512^2 f32", ref.float() / 255.0),
-                     ("pooled 4x3x256^2 u8", dev_u8(synthetic_he_batch(4, 256, 256, seed=args.seed + 5)))]:
-        he_x, mc_x = mf.macenko_fit_mega(x)
-        he_xp, mc_xp = mf.macenko_fit_mega_plain(x)
-        torch.cuda.synchronize()
-        print(f"B2 fit {label}: HE max|d| {(he_x - he_xp).abs().max().item():.3g}")
-        torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
-        torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
+    # 3. Each kernel against its plain version on the same tensors. The
+    # transforms normalize to the reference's plain fit (B5's fit of it is
+    # checked below, B2's fits at the pools it holds).
+    he_k, mc_k = mf.macenko_fit_mega_plain(ref)
 
     def check_transform(label, x, he, mc, kernel=mf.macenko_transform_mega, name="B1"):
         out_k = kernel(x, he, mc)
@@ -733,10 +731,9 @@ def main() -> int:
     check_b4(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch)", pool_a)
     torch.cuda.empty_cache()
 
-    # B1 and B2 at the shapes of the small-patch path (256x3x64^2 uint8, a
-    # 64^2 reference patch), which the ladder gives them, and at those of
-    # WSI tiles (256x3x224^2 uint8, a 224^2 reference tile) and path (a)'s
-    # float32 batch, which it gives B4 and B5.
+    # B1 at the shape of the small-patch path (256x3x64^2 uint8), which the
+    # ladder gives it, and at those of WSI tiles (256x3x224^2 uint8) and
+    # path (a)'s float32 batch, which it gives B4. B2's checks follow.
     tiles_b = dev_u8(synthetic_he_batch(A_BATCH, A_SIZE, A_SIZE, seed=args.seed + 227,
                                         he_scale=1.1))
     patches = dev_u8(synthetic_he_batch(A_BATCH, P_SIZE, P_SIZE, seed=args.seed + 64))
@@ -818,18 +815,100 @@ def main() -> int:
     check_transform(f"{A_BATCH}x3x{A_SIZE}^2 u8 (WSI tiles)", tiles_b, he_k, mc_k)
     check_transform(f"{A_BATCH}x3x{A_SIZE}^2 f32 (path (a))", pool_a, he_k, mc_k)
 
+    # B2 (the pool in one block's shared memory, read once) on the pools it
+    # holds, each within HE atol 2e-5 and maxC rtol 1e-4 of the plain
+    # version (NaN where the plain version gives NaN, as on a pool with no
+    # pixel past the beta-mask) and repeated bit for bit. Its four
+    # selections are held bit for bit against kth_smallest on the keys it
+    # selected on, which a check-only launch of the same kernel keeps.
+    # Larger pools are B5's: B2 refuses them.
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def check_fit_selections(label, x, he_x, mc_x):
+        pool = x.shape[0] * x.shape[2] * x.shape[3]
+        he_s, mc_s, keys, sel_s = mf.fit_selections(x)
+        k = keys.to(torch.int64) & 0xFFFFFFFF
+        vals = sel.unkey(k)
+        member = k[:1] < 0xFF800000
+        cnt = member.sum(-1)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
+        idx = torch.full((1,), static_nearest_rank_index(99, pool), device=dev)
+        want = torch.cat([kth_smallest(vals[:1], ranks, member)[0], kth_smallest(vals[1:2], idx),
+                          kth_smallest(vals[2:3], idx)])
+        same_fit = torch.equal(bits(he_s), bits(he_x)) and torch.equal(bits(mc_s), bits(mc_x))
+        torch.cuda.synchronize()
+        exact = torch.equal(bits(sel_s), bits(want))
+        print(f"B2 selections {label}: angles and maxC equal to kth_smallest on the "
+              f"kernel's keys {exact} ({int(cnt)} of {pool} pixels in the angle selections); the "
+              f"checked launch's fit equal to the wrapper's {same_fit}")
+        require(exact, f"{label}: B2's selections differ from kth_smallest on its keys")
+        require(same_fit, f"{label}: the checked launch and the wrapper's differ")
+
     def check_fit_mega(label, x):
         he_x, mc_x = mf.macenko_fit_mega(x)
         he_xp, mc_xp = mf.macenko_fit_mega_plain(x)
+        he_2, mc_2 = mf.macenko_fit_mega(x)
         torch.cuda.synchronize()
-        err = max((he_x - he_xp).abs().max().item(), (mc_x - mc_xp).abs().max().item())
-        print(f"B2 fit {label}: max|d| {err:.3g}")
-        torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0)
-        torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4)
-        return err
+        he_err = (he_x - he_xp).abs().nan_to_num(0.0).max().item()
+        mc_err = (mc_x - mc_xp).abs().nan_to_num(0.0).max().item()
+        rel = ((mc_x - mc_xp).abs() / mc_xp.abs()).nan_to_num(0.0).max().item()
+        print(f"B2 fit {label}: HE max|d| {he_err:.3g} (atol 2e-5), maxC max rel "
+              f"{rel:.3g} (rtol 1e-4); HE {he_x.flatten().tolist()[:2]}..., maxC {mc_x.tolist()}")
+        torch.testing.assert_close(he_x, he_xp, atol=2e-5, rtol=0, equal_nan=True)
+        torch.testing.assert_close(mc_x, mc_xp, atol=0, rtol=1e-4, equal_nan=True)
+        require(torch.equal(bits(he_2), bits(he_x)) and torch.equal(bits(mc_2), bits(mc_x)),
+                f"{label}: two B2 runs differ")
+        check_fit_selections(label, x, he_x, mc_x)
+        return max(he_err, mc_err)
 
+    def largest_fit_pool(dtype):
+        lo, hi = 1, 1 << 20
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            fits = mk.fit_route(mid, dtype, smem_optin) == "mega"
+            lo, hi = (mid, hi) if fits else (lo, mid - 1)
+        return lo
+
+    patch_f32 = patches_b[:1].float() / 255.0
     fit_err = check_fit_mega(f"1x3x{P_SIZE}^2 u8 (a small patch as reference)", patches_b[:1])
-    check_fit_mega(f"1x3x{A_SIZE}^2 u8 (a WSI tile as reference)", tiles_b[:1])
+    check_fit_mega(f"1x3x{P_SIZE}^2 f32 (a small patch as reference)", patch_f32)
+    check_fit_mega("1x3x71x73 u8 (ragged, one pixel a thread)", ragged[:1])
+    check_fit_mega("1x3x71x73 f32 (ragged)", ragged[:1].float() / 255.0)
+    # The second image of a batch, as batch_ref_index=1 hands it over: an
+    # odd byte offset (byte copies) and, in float32, a 4-byte one.
+    check_fit_mega("1x3x71x73 u8 at an odd byte offset", ragged[1:2])
+    check_fit_mega("1x3x71x73 f32 at a 4-byte offset", (ragged.float() / 255.0)[1:2])
+    check_fit_mega(f"4x3x{P_SIZE}^2 u8 (a pool of patches)", patches_b[:4])
+    check_fit_mega("8x3x48^2 u8 (a pool of patches)",
+                   dev_u8(synthetic_he_batch(8, 48, 48, seed=args.seed + 48)))
+    check_fit_mega("3x3x71x73 u8 (a ragged pool, byte copies)",
+                   dev_u8(synthetic_he_batch(3, 71, 73, seed=args.seed + 73)))
+    # The largest pool B2 holds, and the next: the route sends it to B5,
+    # and B2 refuses it rather than fall back.
+    for dtype_name, dtype in (("u8", torch.uint8), ("f32", torch.float32)):
+        p_max = largest_fit_pool(dtype)
+        xs = [dev_u8(synthetic_he_batch(1, 1, p_x, seed=args.seed + p_x))
+              for p_x in (p_max, p_max + 1)]
+        xs = xs if dtype == torch.uint8 else [x.float() / 255.0 for x in xs]
+        check_fit_mega(f"1x3x1x{p_max} {dtype_name} (the largest pool B2 holds)", xs[0])
+        route = mk.fit_route(p_max + 1, dtype, smem_optin)
+        require(route == "stream", f"fit of {p_max + 1} pixels: route {route}")
+        check_fit_stream(f"1x3x1x{p_max + 1} {dtype_name} (the first pool past B2)", xs[1])
+        try:
+            mf.macenko_fit_mega(xs[1])
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        print(f"B2 on 1x3x1x{p_max + 1} {dtype_name}: refused ({refused})")
+        require("shared memory" in refused, f"B2 took a pool of {p_max + 1} pixels")
+    for value in (100, 250):
+        uniform_pool = torch.full((2, 3, P_SIZE, P_SIZE), value, dtype=torch.uint8, device=dev)
+        check_fit_mega(f"uniform {value} 2x3x{P_SIZE}^2 u8"
+                       + (" (no pixel past the beta-mask)" if value == 250 else ""), uniform_pool)
+    check_fit_mega(f"white 1x3x{P_SIZE}^2 f32 (no pixel past the beta-mask)",
+                   torch.ones_like(patch_f32))
 
     # The selections fused into B4 and B5, bit for bit: a call's selected
     # pseudo-angles and maxC (its RowParams) against B6's plain version on
@@ -852,7 +931,6 @@ def main() -> int:
                            device=dev)
         maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
         torch.cuda.synchronize()
-        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
         same_phi = torch.equal(bits(phi), bits(params[:, ms.PHI_COLUMNS]))
         same_maxc = torch.equal(bits(maxc), bits(params[:, ms.MAXC_COLUMNS]))
         print(f"fused selections of {'B5' if fit else 'B4'} {label}, {force} route: angles "
@@ -1181,6 +1259,29 @@ def main() -> int:
     print(f"small patches: oracle MAE on 8 patches {mae_p:.4f} (gate 0.35)")
     require(mae_p <= 0.35, f"small patches: oracle MAE {mae_p} above 0.35")
 
+    # Small-patch batch mode: the training transform with its default
+    # batch_ref_index=0 re-fits on the first patch every forward (B2, the
+    # resident body) and transforms the batch (B1); output float32 in [0, 1].
+    patch_batch = {"u8": patches, "f32": patches.float() / 255.0}
+    transform_s = {}
+    for dtype_name, x in patch_batch.items():
+        transform_s[dtype_name] = StainNormalizerTransform("macenko", mode="batch")
+        out_s, _ = drive_macenko(
+            f"small-patch batch mode, {A_BATCH}x3x{P_SIZE}^2 {dtype_name}, batch_ref_index=0",
+            lambda t=transform_s[dtype_name], x=x: t(x), launches(b2=1, b1=1))  # B6: 0
+        require(out_s.is_cuda and out_s.dtype == torch.float32 and out_s.shape == x.shape,
+                f"small-patch batch mode {dtype_name}: output is not a float32 batch of the "
+                f"input shape on the card")
+        require(bool(torch.isfinite(out_s).all()) and 0.0 <= out_s.min() and out_s.max() <= 1.0,
+                f"small-patch batch mode {dtype_name}: output is not finite in [0, 1]")
+        x_np = x.cpu().numpy()
+        he_s, mc_s = oracle.macenko_fit(x_np[:1])
+        mae_s = mae_255(out_s[:8], oracle.macenko_transform(x_np[:8], he_s, mc_s))
+        print(f"small-patch batch mode {dtype_name}: oracle MAE on 8 patches (oracle fitted on the "
+              f"first) {mae_s:.4f} (gate 0.35)")
+        require(mae_s <= 0.35, f"small-patch batch mode {dtype_name}: oracle MAE {mae_s} above 0.35")
+    del out_s
+
     # Path (b): whole-slide regions, a 512^2 reference fit then large rows.
     b_normalizers = {}
     b_launches = {}
@@ -1273,8 +1374,6 @@ def main() -> int:
               lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair)
     print(f"B1 plain {BATCH}x3x{SIZE}^2 u8: "
           f"{event_ms(lambda x: mf.macenko_transform_mega_plain(x, he_k, mc_k), pair, 3):.4f} ms")
-    kernel_ms(f"B2 macenko_fit_mega 1x3x{SIZE}^2 u8", mf.macenko_fit_mega, [ref, ref_b])
-    print(f"B2 plain 1x3x{SIZE}^2 u8: {event_ms(mf.macenko_fit_mega_plain, [ref, ref_b], 5):.4f} ms")
     api_ms("Macenko transform", normalizer.transform, pair)
     print(f"public API Macenko fit 1x3x{SIZE}^2: "
           f"{event_ms(lambda x: Macenko().fit(x), [ref, ref_b], 20):.4f} ms")
@@ -1350,6 +1449,15 @@ def main() -> int:
     ms_f = kernel_ms(f"B2 macenko_fit_mega 1x3x{P_SIZE}^2 u8 (a small patch as reference)",
                      mf.macenko_fit_mega, [patches[:1], patches_b[:1]])
     ms_fp = event_ms(mf.macenko_fit_mega_plain, [patches[:1], patches_b[:1]], 5)
+    # B2 at the aims' shapes and at the largest pool it holds.
+    refs_128 = [dev_u8(synthetic_he_batch(1, 128, 128, seed=args.seed + 128 + k)) for k in range(2)]
+    p_fit = largest_fit_pool(torch.uint8)
+    refs_max = [dev_u8(synthetic_he_batch(1, 1, p_fit, seed=args.seed + 900 + k)) for k in range(2)]
+    for label, xs in [(f"1x3x{P_SIZE}^2 f32", [patches[:1].float() / 255.0, patch_f32]),
+                      ("1x3x128^2 u8", refs_128),
+                      (f"1x3x1x{p_fit} u8 (the largest pool B2 holds)", refs_max)]:
+        kernel_ms(f"B2 macenko_fit_mega {label}", mf.macenko_fit_mega, xs)
+    del refs_128, refs_max
     kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{P_SIZE}^2 u8 (small patches), the body "
               f"that re-reads L2",
               lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="l2"), pair_p)
@@ -1358,8 +1466,6 @@ def main() -> int:
               [patches.float() / 255.0, patches_b.float() / 255.0])
     kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 u8 (the WSI tiles' shape)",
               lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_t)
-    kernel_ms(f"B2 macenko_fit_mega 1x3x{A_SIZE}^2 u8 (a WSI tile's shape)",
-              mf.macenko_fit_mega, [tiles[:1], tiles_b[:1]])
     kernel_ms(f"B1 macenko_transform_mega {A_BATCH}x3x{A_SIZE}^2 f32 (path (a)'s batch shape)",
               lambda x: mf.macenko_transform_mega(x, he_k, mc_k), pair_a)
     # B4 and B5 at every path shape, on the route the wrapper takes (and the
@@ -1548,6 +1654,11 @@ def main() -> int:
             A_BATCH, A_BATCH * a_px)
     path_ms(f"small patches Macenko.transform {A_BATCH}x3x{P_SIZE}^2 u8", norm_p.transform, pair_p,
             A_BATCH, A_BATCH * P_SIZE * P_SIZE)
+    for dtype_name, scale in (("u8", None), ("f32", 255.0)):
+        xs = pair_p if scale is None else [x.float() / scale for x in pair_p]
+        path_ms(f"small-patch batch mode forward {A_BATCH}x3x{P_SIZE}^2 {dtype_name}, "
+                f"batch_ref_index=0", transform_s[dtype_name], xs, A_BATCH,
+                A_BATCH * P_SIZE * P_SIZE)
     path_ms(f"main path Macenko.transform {BATCH}x3x{SIZE}^2 u8", normalizer.transform, pair,
             BATCH, BATCH * SIZE * SIZE)
     path_ms("path (b) Macenko.transform 4x3x2048^2 u8", b_normalizers["4x3x2048^2"].transform,
@@ -1572,11 +1683,13 @@ def main() -> int:
     # (ops/macenko.py) keeps the one-block kernel there.
     print(f"route ladder: STREAM_MIN_ELEMS {mk.STREAM_MIN_ELEMS}, STREAM_MAX_ROWS "
           f"{mk.STREAM_MAX_ROWS}, STREAM_MIN_ELEMS_F32 {mk.STREAM_MIN_ELEMS_F32}, "
-          f"STREAM_MAX_ROWS_F32 {mk.STREAM_MAX_ROWS_F32}, FIT_STREAM_MIN_ELEMS "
-          f"{mk.FIT_STREAM_MIN_ELEMS} (float32 {mk.FIT_STREAM_MIN_ELEMS_F32})")
+          f"STREAM_MAX_ROWS_F32 {mk.STREAM_MAX_ROWS_F32}; fit_route sends B5 pools from "
+          f"{largest_fit_pool(torch.uint8) + 1} uint8 pixels and "
+          f"{largest_fit_pool(torch.float32) + 1} float32 up (past the largest B2 holds)")
 
     def sweep_inputs(n, side, dtype, seed):
-        xs = [dev_u8(synthetic_he_batch(n, side, side, seed=seed + k)) for k in range(2)]
+        h, w = side if isinstance(side, tuple) else (side, side)
+        xs = [dev_u8(synthetic_he_batch(n, h, w, seed=seed + k)) for k in range(2)]
         return [x.float() / 255.0 for x in xs] if dtype == "f32" else xs
 
     unearned, kept = [], []
@@ -1629,16 +1742,17 @@ def main() -> int:
               ("B4", lambda x: ms.macenko_transform_stream(x, he_k, mc_k))],
              sweep_inputs(n, side, dtype, args.seed + 300),
              mk.transform_route(n, side * side, types[dtype]))
-    for n, side, dtype in [(1, 64, "u8"), (1, 96, "u8"), (1, 96, "f32"), (1, 128, "f32"),
-                           (1, 160, "f32"), (1, 128, "u8"), (1, 224, "u8"), (1, 256, "u8"), (1, 288, "u8"),
-                           (1, 320, "u8"), (1, 384, "u8"), (1, 416, "u8"), (1, 448, "u8"),
-                           (1, 512, "u8"), (4, 128, "u8"), (4, 256, "u8"), (1, 192, "f32"),
-                           (1, 224, "f32"), (1, 256, "f32"), (1, 288, "f32"), (1, 320, "f32"),
-                           (2, 224, "f32"), (4, 224, "f32"), (256, 224, "f32")]:
-        race(f"fit {n}x3x{side}^2 {dtype}",
+    # B2 against B5 at pools B2 holds; every larger pool is B5's.
+    for n, side, dtype in [(1, 64, "u8"), (1, 96, "u8"), (1, 96, "f32"), (1, 128, "u8"),
+                           (1, 136, "u8"), (2, 96, "u8"), (4, 64, "u8"), (8, 48, "u8"),
+                           (1, 64, "f32"), (1, 80, "f32"), (2, 64, "f32"), (1, 102, "f32")] + [
+            # the largest pool B2 holds
+            (1, (1, largest_fit_pool(types[d])), d) for d in ("u8", "f32")]:
+        h, w = side if isinstance(side, tuple) else (side, side)
+        race(f"fit {n}x3x{h}x{w} {dtype}",
              [("B2", mf.macenko_fit_mega), ("B5", ms.macenko_fit_stream)],
              sweep_inputs(n, side, dtype, args.seed + 400),
-             mk.fit_route(n * side * side, types[dtype]))
+             mk.fit_route(n * h * w, types[dtype], smem_optin))
     print(f"sweep: the ladder gives the multi-block kernel a size it did not win in every "
           f"round at {unearned or 'no size'}; it keeps the one-block kernel where the "
           f"multi-block one won (host-cost margin, row cap) at {kept or 'no size'}")

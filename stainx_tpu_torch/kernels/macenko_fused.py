@@ -230,7 +230,9 @@ def _lib() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
         ]
         lib.stainx_macenko_transform_mega.restype = i32
-        lib.stainx_macenko_fit_mega.argtypes = [ptr, ptr, i64, i64, i32, i32, i64, ptr]
+        lib.stainx_macenko_fit_mega.argtypes = [
+            ptr, ptr, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
+        ]
         lib.stainx_macenko_fit_mega.restype = i32
         lib._stainx_declared = True
     return lib
@@ -333,30 +335,69 @@ def resident_selections(images, stain_matrix, target_max_conc):
     return _transform(images, stain_matrix, target_max_conc, None, check=True)
 
 
-def macenko_fit_mega(images):
-    """Pooled Macenko fit (B2): (N, 3, H, W) uint8/float32 → ``(stain_matrix
-    (3, 2) float32, max_concentrations (2,) float32)``. One launch per call,
-    one thread block for the whole pool."""
-    kernels.check_rgb_batch(images, "macenko_fit_mega")
-    if images.device.type == "cpu":
-        return macenko_fit_mega_plain(images)
+# B2's block (csrc/macenko_fused.cu kFitFixed: B1's resident head with a
+# 1024-thread block's partial sums) holds a pool as B1's holds an image.
+FIT_FIXED_BYTES = 22272
+
+
+def fit_resident_bytes(pixels: int, dtype: torch.dtype) -> int:
+    """Shared memory of B2's block for a pool of ``pixels``."""
+    return resident_bytes(pixels, dtype) + FIT_FIXED_BYTES - RESIDENT_FIXED_BYTES
+
+
+def _fit(images, check: bool):
+    """One B2 launch: HE, maxC and, with ``check``, the keys and selections
+    of :func:`fit_selections`."""
     kernels.check_cuda(images, "macenko_fit_mega")
     n, _, h, w = images.shape
     p = h * w
-    if n * p == 0 or n * p >= 2**31:
-        raise ValueError(f"macenko_fit_mega pools 1 to 2^31-1 pixels, got {n * p}")
+    pool = n * p
+    if pool == 0:
+        raise ValueError("macenko_fit_mega pools at least one pixel")
     dev = images.device
+    smem_limit = kernels.device_limits(dev.index)[1]
+    smem = fit_resident_bytes(pool, images.dtype)
+    if smem > smem_limit:
+        raise ValueError(f"macenko_fit_mega: a pool of {pool} pixels needs {smem} bytes of "
+                         f"shared memory, more than the card's {smem_limit}; larger pools "
+                         f"take macenko_fit_stream (B5)")
     out = torch.empty(8, dtype=torch.float32, device=dev)
+    keys = torch.empty((3, pool), dtype=torch.int32, device=dev) if check else None
+    sel = torch.empty(4, dtype=torch.float32, device=dev) if check else None
     lib = _lib()
     with kernels.on_device(dev):
         code = lib.stainx_macenko_fit_mega(
-            images.data_ptr(), out.data_ptr(), n, p,
-            int(images.dtype == torch.uint8), int(_vec4(p, images)),
-            static_nearest_rank_index(99, n * p), kernels.current_stream(dev),
+            images.data_ptr(), out.data_ptr(), n, p, int(images.dtype == torch.uint8),
+            int(pool % 4 == 0), static_nearest_rank_index(99, pool), smem,
+            keys.data_ptr() if check else None, sel.data_ptr() if check else None,
+            kernels.current_stream(dev),
         )
     kernels.check(lib, code, "macenko_fit_mega")
+    return out[:6].reshape(3, 2), out[6:8], keys, sel
+
+
+def macenko_fit_mega(images):
+    """Pooled Macenko fit (B2): (N, 3, H, W) uint8/float32 → ``(stain_matrix
+    (3, 2) float32, max_concentrations (2,) float32)``. One launch per call:
+    one thread block holds the whole pool in its shared memory, so on the
+    card the pool must fit it (:func:`fit_resident_bytes`)."""
+    kernels.check_rgb_batch(images, "macenko_fit_mega")
+    if images.device.type == "cpu":
+        return macenko_fit_mega_plain(images)
+    he, maxc, _, _ = _fit(images, check=False)
     macenko_fit_mega.launches += 1
-    return out[:6].reshape(3, 2), out[6:8]
+    return he, maxc
+
+
+def fit_selections(images):
+    """Check only, on the card: B2 run with its keys kept.
+    Returns ``(he, maxc, keys, sel)``: the fit, the (3, N·P) int32 monotone
+    keys the pool selected on (the angle keys, +inf's key off the β-mask,
+    then the two concentrations' keys; pixels pooled channel-major, image
+    by image) and the (4,) float32 selected values (the α and 100−α angles,
+    the two maxC). Not counted as a launch."""
+    kernels.check_rgb_batch(images, "macenko_fit_mega")
+    return _fit(images, check=True)
 
 
 macenko_transform_mega.launches = 0

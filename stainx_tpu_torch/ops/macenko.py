@@ -53,9 +53,10 @@ _KERNEL_DTYPES = (torch.uint8, torch.float32)
 # every round; each bound is the last size measured on the winning side. B4
 # and B5 make one C call (one cluster launch for rows that fit a cluster),
 # so their host cost needs no margin of its own. The figures are the last
-# sweep's, after B1 took its resident body for images that fit a block's
-# shared memory (uint8 up to 19 222 pixels, float32 up to 10 572; larger
-# rows keep the body that re-reads L2).
+# sweep's, after B1 and B2 took their resident bodies for images and pools
+# that fit a block's shared memory (B1: uint8 up to 19 222 pixels, float32
+# up to 10 572, larger images keep a body that re-reads L2; B2: 19 106 and
+# 10 508).
 # Transform (B4): uint8 rows of at least 50 176 pixels (224²) in batches of
 # up to 512 rows. B4 won every cell from 224² up, 4 to 512 rows: 4x224² at
 # 0.068-0.069 ms called against B1's 0.285-0.289, the WSI tiles' 256x224²
@@ -73,14 +74,24 @@ STREAM_MIN_ELEMS = 50_176
 STREAM_MAX_ROWS = 512
 STREAM_MIN_ELEMS_F32 = 25_600
 STREAM_MAX_ROWS_F32 = 256
-# Fit (B5): uint8 pools of at least 50 176 pixels (a 224² tile: 0.065-0.067
-# ms called against B2's 0.261-0.262; 4x128²: 0.067 against 0.327-0.328).
-# B5 also won 1x96² and 1x128² (0.062-0.066 against 0.068-0.096), which the
-# ladder leaves to B2, and B2 won 1x64² (0.037-0.048 against 0.061-0.065).
-# float32 pools of at least 9 216 pixels, the smallest measured (1x96²:
-# 0.068 against 0.107-0.108).
-FIT_STREAM_MIN_ELEMS = 50_176
-FIT_STREAM_MIN_ELEMS_F32 = 9_216
+# Fit (fit_route): B2 takes every pool that fits one block's shared memory
+# (kernels/macenko_fused.py::fit_resident_bytes; on the H100 up to 19 106
+# uint8 pixels, 10 508 float32), B5 every larger one. In two sweeps B2 won
+# every round at every pool it holds, from 1x64² (0.055-0.061 ms called
+# against B5's 0.076-0.078) through 1x128² (0.044-0.046 against
+# 0.063-0.065), 4x64², 8x48², 2x96² and 1x136²; float32 1x64² (0.058-0.075
+# against 0.079-0.090), 1x80², 2x64², 1x96², 1x102² and the largest,
+# 1x1x10 508 (0.058-0.064 against 0.077-0.081); at the largest uint8 pool,
+# 1x1x19 106, the second sweep's rounds overlapped as called (0.056-0.068
+# against 0.065-0.077; on the device 0.052 against 0.062), so B2 keeps it.
+# Past it B5 beat a B2 body that re-read the pool from L2 in every round
+# at every pool: 1x1x19 107 uint8 (0.077-0.092 against 0.117-0.118),
+# 1x144² to 1x192², 224² and up; float32 1x1x10 509 (0.070-0.074 against
+# 0.112-0.114), 1x128² and up. So B2 keeps no body for larger pools, and
+# the card's shared memory alone sets the fit step.
+# The CPU runs the plain version of either route; it takes the route of an
+# H100, whose blocks opt in to 232 448 bytes (227 KiB) of shared memory.
+CPU_ROUTE_SMEM = 232_448
 # The staged pipeline's selections, from the three-round sweep of B3
 # against B6 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule
 # of the ladder above, after both were redesigned (B3: a thread-block
@@ -113,10 +124,13 @@ def transform_route(n: int, p: int, dtype: torch.dtype) -> str:
     return "stream" if p >= floor and n <= cap else "mega"
 
 
-def fit_route(pixels: int, dtype: torch.dtype) -> str:
-    """``"stream"`` (B5) or ``"mega"`` (B2) for a pool of that many pixels."""
-    floor = FIT_STREAM_MIN_ELEMS if dtype == torch.uint8 else FIT_STREAM_MIN_ELEMS_F32
-    return "stream" if pixels >= floor else "mega"
+def fit_route(pixels: int, dtype: torch.dtype, smem_limit: int) -> str:
+    """``"mega"`` (B2) for a pool of that many pixels of the kernel input
+    ``dtype`` that fits one block's ``smem_limit`` bytes of shared memory,
+    else ``"stream"`` (B5)."""
+    from stainx_tpu_torch.kernels.macenko_fused import fit_resident_bytes
+
+    return "mega" if fit_resident_bytes(pixels, dtype) <= smem_limit else "stream"
 
 
 def select_route(rows: int, p: int) -> str:
@@ -317,12 +331,14 @@ def macenko_fit(images: torch.Tensor, seed_state: torch.Tensor | None = None):
     fallback, covariance and angle percentiles over the filtered pixels,
     concentration 99th percentiles over all pooled pixels. With
     ``seed_state`` the return is ``(he, maxc, seed_state)``."""
+    from stainx_tpu_torch import kernels
     from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
 
     if images.dtype in _KERNEL_DTYPES:
         x = images.contiguous()
         n, _, h, w = x.shape
-        if fit_route(n * h * w, x.dtype) == "stream":
+        smem = kernels.device_limits(x.device.index)[1] if x.is_cuda else CPU_ROUTE_SMEM
+        if fit_route(n * h * w, x.dtype, smem) == "stream":
             he, maxc = macenko_stream.macenko_fit_stream(x)
         else:
             he, maxc = macenko_fused.macenko_fit_mega(x)

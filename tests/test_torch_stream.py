@@ -254,11 +254,11 @@ class TestRouteLadder:
         ref = oracle.synthetic_he_tile(40, 48, seed=42)
         batch = _tiles(2, 40, 48, seed=3, he_scale=1.1)
         want = Macenko(device="cpu").fit(ref).transform(batch)
-        assert mk.fit_route(40 * 48, torch.uint8) == "mega"
+        assert mk.fit_route(40 * 48, torch.uint8, mk.CPU_ROUTE_SMEM) == "mega"
         assert mk.transform_route(2, 40 * 48, torch.uint8) == "mega"
 
         monkeypatch.setattr(mk, "STREAM_MIN_ELEMS", 40 * 48)
-        monkeypatch.setattr(mk, "FIT_STREAM_MIN_ELEMS", 40 * 48)
+        monkeypatch.setattr(mk, "CPU_ROUTE_SMEM", 0)
         monkeypatch.setattr(ms, "macenko_fit_stream", spy(ms.macenko_fit_stream))
         monkeypatch.setattr(ms, "macenko_transform_stream", spy(ms.macenko_transform_stream))
         got = Macenko(device="cpu").fit(ref).transform(batch)
@@ -272,7 +272,7 @@ class TestRouteLadder:
         whose selections go to B3 or, past the select threshold, to B6."""
         calls = []
         monkeypatch.setattr(mk, "STREAM_MIN_ELEMS_F32", 16 * 16)
-        monkeypatch.setattr(mk, "FIT_STREAM_MIN_ELEMS_F32", 16 * 16)
+        monkeypatch.setattr(mk, "CPU_ROUTE_SMEM", 0)
         monkeypatch.setattr(ms, "macenko_fit_stream", lambda x: calls.append("B5"))
         monkeypatch.setattr(mk, "SELECT_STREAM_MIN_ELEMS", 16 * 16 * 2)
         b3, b6 = sel.kth_smallest_pallas, ss.kth_smallest_streaming
@@ -288,15 +288,17 @@ class TestRouteLadder:
     def test_main_path_sizes(self):
         """Where the H100 measurements put the port's configurations."""
         u8, f32 = torch.uint8, torch.float32
-        assert mk.fit_route(256 * 224 * 224, f32) == "stream"  # path (a)
-        assert mk.fit_route(224 * 224, f32) == "stream"  # path (a), batch_ref_index=0
-        assert mk.fit_route(512 * 512, u8) == "stream"  # the 512² reference
-        assert mk.fit_route(224 * 224, u8) == "stream"  # a WSI tile as reference
-        assert mk.fit_route(4 * 128 * 128, u8) == "stream"
-        assert mk.fit_route(128 * 128, u8) == "mega"  # rounds overlapped in one run
-        assert mk.fit_route(64 * 64, u8) == "mega"  # a small patch as reference
-        assert mk.fit_route(96 * 96, f32) == "stream"  # the smallest float32 pool measured
-        assert mk.fit_route(64 * 64, f32) == "mega"
+        h100 = 232_448  # a block's opt-in shared memory
+        assert mk.fit_route(256 * 224 * 224, f32, h100) == "stream"  # path (a)
+        assert mk.fit_route(224 * 224, f32, h100) == "stream"  # path (a), batch_ref_index=0
+        assert mk.fit_route(512 * 512, u8, h100) == "stream"  # the 512² reference
+        assert mk.fit_route(224 * 224, u8, h100) == "stream"  # a WSI tile as reference
+        assert mk.fit_route(4 * 128 * 128, u8, h100) == "stream"
+        assert mk.fit_route(128 * 128, u8, h100) == "mega"  # B2 holds it
+        assert mk.fit_route(64 * 64, u8, h100) == "mega"  # a small patch as reference
+        assert mk.fit_route(96 * 96, f32, h100) == "mega"  # B2 holds it
+        assert mk.fit_route(128 * 128, f32, h100) == "stream"  # past it
+        assert mk.fit_route(64 * 64, f32, h100) == "mega"
         assert mk.transform_route(256, 224 * 224, f32) == "stream"  # path (a)'s batch
         assert mk.transform_route(4, 2048 * 2048, u8) == "stream"  # path (b)
         assert mk.transform_route(1, 4096 * 4096, u8) == "stream"  # path (b)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
-    python3 tools/probe_b1.py
+    python3 tools/probe_b1.py [--against OTHER.cu]
 
 Builds ``stainx_tpu_torch/csrc/macenko_fused.cu`` as it is and in variants
 whose resident kernel stops after one phase more each (the image loaded;
@@ -21,11 +21,17 @@ eager calls), with the wrappers' stream and device helpers as built
 (``kernels.current_stream``, ``kernels.on_device``) and with
 ``torch.cuda.current_stream(device).cuda_stream`` and
 ``torch.cuda.device(device)`` in their place, in ten alternating rounds.
-Imports no JAX and nothing of ``stainx_tpu``.
+With ``--against``, also builds another source of ``macenko_fused.cu``
+(such as an older one unpacked from git into ``build/``), holds B1's
+outputs of both builds bit for bit on small patches (uint8 and float32),
+ragged rows, a tile that takes the <3-pixel fallback, a uniform tile and
+the largest resident rows, and times both at 256x3x64^2 uint8 in six
+alternating rounds. Imports no JAX and nothing of ``stainx_tpu``.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -37,20 +43,23 @@ STOP = ("  if (threadIdx.x == 0) out[offset] = static_cast<T>(sh.sums[0] + sh.pr
         "sh.prefix[1] + sh.evs[0] + sh.m0[0] + keys0[0] + keys1[0]);\n  return;\n")
 # (phase ended, source text the stop goes before)
 PHASES = [
-    ("load", "  rmoments<T, V>(planes, p, false, sh);\n"),
-    ("moments", "  if (threadIdx.x == 0) {\n    float a[6];\n"),
-    ("covariance, eigh, ranks", "  // The angle keys, once:"),
-    ("angle keys", "  if constexpr (kCheck) copy_keys(keys0, keys, blockIdx.x, 0, 1, p);\n"),
-    ("angle selections", "  if (threadIdx.x == 0) {\n    if constexpr (kCheck) {\n"),
-    ("H/E, normal rows", "  // The two concentration keys, once;"),
+    ("load", "  rmoments<T, V, kRThreads>(planes, p, false, sh);\n"),
+    ("moments", "  angle_setup(sh);\n"),
+    ("covariance, eigh, ranks", "  angle_keys<T, V, kRThreads>("),
+    ("angle keys", "  if constexpr (kCheck) copy_keys<kRThreads>(keys0, keys + offset, p);\n"),
+    ("angle selections", "  if (kCheck && threadIdx.x == 0) {\n    sel[4 * blockIdx.x] ="),
+    ("H/E, normal rows", "  conc_keys<T, V, kRThreads>("),
     ("concentration keys",
-     "  if constexpr (kCheck) copy_keys(keys0, keys, blockIdx.x, 1, 2, p);\n"),
+     "  if constexpr (kCheck) copy_keys<kRThreads>(keys0, keys + offset + p, 2 * p);\n"),
     ("concentration selections", "  float st[6];\n  for (int k = 0; k < 6; ++k) st[k] = stain[k];\n"
      "  const float sc0 = maxc_scale(tmc[0], unkey(sh.prefix[0]));\n"),
 ]
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", help="another source of macenko_fused.cu to hold B1 against")
+    args = parser.parse_args()
     import ctypes
 
     import torch
@@ -73,6 +82,8 @@ def main() -> int:
         at = source.index(anchor, start)
         builds.append((f"stops after {name}", source[:at] + STOP + source[at:]))
     builds.append(("as built", source))
+    if args.against:
+        builds.append(("against", Path(args.against).read_text()))
     nvcc = kernels.nvcc_path()
     procs = []
     for i, (name, text) in enumerate(builds):
@@ -89,7 +100,10 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name!r}:\n{log}")
-        libs.append((name, ctypes.CDLL(str(lib))))
+        cdll = ctypes.CDLL(str(lib))
+        cdll.stainx_error_string.argtypes = [ctypes.c_int]
+        cdll.stainx_error_string.restype = ctypes.c_char_p
+        libs.append((name, cdll))
 
     dev = torch.device("cuda", 0)
     ref = torch.as_tensor(synthetic_he_batch(1, 64, 64, seed=1)).to(dev)
@@ -116,12 +130,45 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / iters
 
+    if args.against:
+        (_, built), (_, other) = libs[-2], libs.pop()
+
+        def b1_with(lib, x):
+            kernels._libs["macenko_fused"] = lib
+            return mf.macenko_transform_mega(x, he, mc)
+
+        def u8(n, h, w, seed):
+            return torch.as_tensor(synthetic_he_batch(n, h, w, seed=seed)).to(dev)
+
+        fallback = u8(2, 64, 64, 11).clone()
+        fallback[:, 0] = torch.clamp(fallback[:, 0], min=215)
+        fallback[:, :, 5, 7] = torch.tensor([120, 60, 150], dtype=torch.uint8, device=dev)[None]
+        fallback[:, :, 40, 3] = torch.tensor([90, 70, 130], dtype=torch.uint8, device=dev)[None]
+        cases = [("256x3x64^2 u8", u8(256, 64, 64, 7)),
+                 ("256x3x64^2 f32", u8(256, 64, 64, 7).float() / 255.0),
+                 ("2x3x71x73 u8", u8(2, 71, 73, 8)), ("the <3-pixel fallback", fallback),
+                 ("uniform 250", torch.full((2, 3, 64, 64), 250, dtype=torch.uint8, device=dev)),
+                 ("3x3x1x19222 u8 (the largest resident rows)", u8(3, 1, 19222, 9))]
+        for label, x in cases:
+            a, b = b1_with(built, x), b1_with(other, x)
+            same = torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b.view(torch.int32) if b.is_floating_point() else b)
+            print(f"B1 {label}: as built and {args.against} bit for bit {same}")
+        xs = [u8(256, 64, 64, 20 + k) for k in range(2)]
+        rounds = []
+        for r in range(6):
+            pair = [("as built", built), ("against", other)]
+            if r % 2:
+                pair.reverse()
+            rounds.append({name: replay_ms(lambda x, lb=lib: b1_with(lb, x), xs) for name, lib in pair})
+        for name in ("as built", "against"):
+            t = [r[name] for r in rounds]
+            print(f"B1 256x3x64^2 u8 {name}: {min(t):.4f}-{max(t):.4f} ms on the device, 6 rounds")
+
     for n in (4, 256):
         xs = [torch.as_tensor(synthetic_he_batch(n, 64, 64, seed=s)).to(dev) for s in (2, 3)]
         prev = 0.0
         for name, lib in libs:
-            lib.stainx_error_string.argtypes = [ctypes.c_int]
-            lib.stainx_error_string.restype = ctypes.c_char_p
             kernels._libs["macenko_fused"] = lib  # the wrapper launches this build
             ms = replay_ms(lambda x: mf.macenko_transform_mega(x, he, mc, body="resident"), xs)
             print(f"{n}x3x64^2 u8, resident body {name}: {ms:.4f} ms on the device "
