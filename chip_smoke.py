@@ -109,6 +109,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float16 (oracle MAE ≤ 0.35 on 8 images, the oracle run on the float32
    values of the same low-precision input). Each Macenko path must launch
    the kernels written beside it;
+4b. in a spawned process of its own (its process groups and profiler
+   runs leave this process's later timings as they were; inputs made
+   from the same seeds), the distributed layer (``stainx_tpu_torch.
+   parallel``) on a 1-rank group (NCCL for the card, gloo for the CPU; the
+   card count printed):
+   ``fit_on_mesh`` and ``transform_on_mesh`` of every method on the main
+   batch against the single-device port on the card (JAX's mesh
+   tolerances: HE atol 2e-3, maxC rtol 1e-2, transforms 1 grey level) and,
+   driven with the launch counts zeroed before and read after, against the
+   same calls on the CPU through the plain versions (Reinhard mean and std
+   rtol 1e-4 atol 1e-3, HM histograms atol 1e-6, Macenko HE atol 2e-5 and
+   maxC rtol 1e-4, transforms 1 grey level): the fits launch B7b, B8a and
+   no kernel (the eager Macenko fit), the transforms B7b and B7a, B8a and
+   B8b, B4; the batch-mode ``StainNormalizerTransform(mesh=...)`` on
+   256×3×64² patches launches B2 and B1; the pixel-sharded Macenko
+   transform of 1×3×4096² on a (1, 1) ``("batch", "pixel")`` mesh (eager)
+   against the CPU and against B4; then each path timed as called, with
+   its device busy time (``torch.profiler``) and idle share, beside the
+   single-device call, and the pixel-sharded transform split on the
+   device between the collectives that end its steps. With two cards or
+   more, the fits and transforms also run on a group of two ranks, one
+   card each, against the single-device port;
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
@@ -277,6 +299,350 @@ def profiled_ms(fn, inputs, iters: int):
     device_us = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     return device_us / 1e3 / iters if device_us > 0 else None
+
+
+MESH_TIMING_ITERS = 10  # calls a mesh path is timed over, two inputs cycled
+
+
+class CollectiveMarks:
+    """Records a CUDA event on the current stream after every
+    ``all_reduce`` and ``all_gather`` while active (the functions of
+    ``torch.distributed`` are wrapped, nothing of the port is changed): the
+    device-time boundaries of a mesh call's steps, each step ending in its
+    collective."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.marks = dist, []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = self.dist.all_reduce, self.dist.all_gather
+        self.marks = [("start", torch.cuda.Event(enable_timing=True))]
+        self.marks[0][1].record()
+
+        def wrap(name, fn):
+            def call(*a, **k):
+                out = fn(*a, **k)
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.marks.append((name, event))
+                return out
+            return call
+
+        self.dist.all_reduce = wrap("all_reduce", self.saved[0])
+        self.dist.all_gather = wrap("all_gather", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.dist.all_reduce, self.dist.all_gather = self.saved
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.marks.append(("end", end))
+        end.synchronize()
+
+    def spans(self) -> list[float]:
+        """ms between consecutive marks on the device."""
+        return [a[1].elapsed_time(b[1]) for a, b in zip(self.marks, self.marks[1:])]
+
+
+def mesh_checks(mesh, mesh_px, dev, batch, ref, out=print):
+    """The mesh paths held against the single-device port on the same card
+    (JAX's mesh tolerances: HE atol 2e-3, maxC rtol 1e-2, transforms 1 grey
+    level): the fits and transforms of every method on ``batch``, the
+    pixel-sharded Macenko transform of two images and the batch-mode
+    training transform. Returns the fitted reference parameters."""
+    import torch
+
+    from stainx_tpu_torch import (HistogramMatching, Macenko, Reinhard,
+                                  StainNormalizerTransform, parallel)
+
+    single = {"reinhard": Reinhard(dev), "histogram_matching": HistogramMatching(dev),
+              "macenko": Macenko(dev)}
+    fitted = {}
+    for method, norm in single.items():
+        got = parallel.fit_on_mesh(method, batch, mesh)
+        got = got if isinstance(got, tuple) else (got,)
+        norm.fit(batch)
+        want = tuple(norm.state.values())
+        tol = {"reinhard": [(1e-4, 1e-3)] * 2, "histogram_matching": [(0.0, 1e-6)],
+               "macenko": [(0.0, 2e-3), (1e-2, 0.0)]}[method]
+        for g, w, (rtol, atol) in zip(got, want, tol):
+            err = ((g - w).abs() - rtol * w.abs()).max().item()
+            out(f"fit_on_mesh {method} vs the single-device fit: max(|d| - rtol|w|) {err:.3g} "
+                f"(atol {atol})")
+            require(g.device == dev and err <= atol, f"fit_on_mesh {method}: {err} past {atol}")
+        fitted[method] = tuple(norm.fit(ref).state.values())
+        params = fitted[method] if method != "histogram_matching" else fitted[method][0]
+        got = parallel.transform_on_mesh(method, batch, params, mesh)
+        err = (got.float() - norm.transform(batch).float()).abs().max().item()
+        out(f"transform_on_mesh {method} vs the single-device transform: max|d| {err} grey "
+            f"levels (tolerance 1)")
+        require(got.shape == batch.shape and got.dtype == batch.dtype and err <= 1.0,
+                f"transform_on_mesh {method}: {err} grey levels")
+    pair = batch[:2]
+    got = parallel.transform_on_mesh("macenko", pair, fitted["macenko"], mesh_px,
+                                     pixel_axis="pixel")
+    err = (got.float() - single["macenko"].transform(pair).float()).abs().max().item()
+    out(f"transform_on_mesh macenko, pixel_axis, 2 images vs the single-device transform: "
+        f"max|d| {err} grey levels (tolerance 1)")
+    require(err <= 1.0, f"pixel-sharded transform: {err} grey levels")
+    forward = StainNormalizerTransform("macenko", mode="batch", batch_ref_index=None, mesh=mesh)
+    got = forward(batch)
+    fit_all = Macenko(dev).fit(batch)
+    err = (got.float() * 255.0 - fit_all.transform(batch).float()).abs().max().item()
+    out(f"StainNormalizerTransform(mesh=..., mode='batch', batch_ref_index=None) vs the "
+        f"single-device fit and transform: max|d| {err:.3g} grey levels (tolerance 1)")
+    require(err <= 1.0 + 1e-3, f"mesh batch-mode forward: {err} grey levels")
+    return fitted
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, seed: int) -> None:
+    """One rank of the multi-card mesh check (run when the machine has
+    two cards or more): a (world,) batch mesh and a (1, world) pixel mesh
+    on NCCL, each rank on its own card, the batch of 8×3×512² uint8 images
+    made from ``seed`` on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from stainx_tpu_torch import parallel
+    from stainx_tpu_torch.testing import synthetic_he_batch
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device("cuda", rank)
+        mesh = parallel.make_mesh(axis_names=("batch",))
+        mesh_px = parallel.make_mesh((1, world), ("batch", "pixel"))
+        batch = torch.as_tensor(synthetic_he_batch(8, SIZE, SIZE, seed=seed + 123)).to(dev)
+        ref = torch.as_tensor(synthetic_he_batch(1, SIZE, SIZE, seed=seed + 42)).to(dev)
+        mesh_checks(mesh, mesh_px, dev, batch, ref,
+                    out=(lambda m: print(f"[rank {rank}] {m}")) if rank == 0 else (lambda m: None))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(seed: int) -> None:
+    """Phase 4b, run in a process of its own (its process groups and its
+    profiler runs leave the other phases' process as it was): the
+    distributed layer (``stainx_tpu_torch.parallel``) on a 1-rank group
+    whose CUDA collectives go through NCCL (CPU ones through gloo), then,
+    where the machine has two cards or more, on a group of two ranks
+    (module docstring). The inputs are the main process's, made from the
+    same seeds."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, ROOT)
+    from stainx_tpu_torch import (HistogramMatching, Macenko, Reinhard,
+                                  StainNormalizerTransform, parallel)
+    from stainx_tpu_torch.testing import synthetic_he_batch
+
+    dev = torch.device("cuda", 0)
+
+    def dev_u8(n, side, seed_k, **kw):
+        return torch.as_tensor(synthetic_he_batch(n, side, side, seed=seed + seed_k, **kw)).to(dev)
+
+    ref = dev_u8(1, SIZE, 42)
+    batch, batch_b = dev_u8(BATCH, SIZE, 123), dev_u8(BATCH, SIZE, 124, he_scale=1.1)
+    big1, big1_b = dev_u8(1, 4096, 4096), dev_u8(1, 4096, 4097, he_scale=1.1)
+    patches = dev_u8(256, P_SIZE, 64)  # phase 4's small patches
+    from stainx_tpu_torch.kernels import histogram as hk
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import macenko_stream as ms
+    from stainx_tpu_torch.kernels import reinhard_fused as rf
+    from stainx_tpu_torch.kernels import selection as sel
+    from stainx_tpu_torch.kernels import selection_stream as ss
+
+    cards = torch.cuda.device_count()
+    print(f"mesh phase: {cards} card(s); a 1-rank group (NCCL for the card, gloo for the CPU), "
+          f"{'then a group of 2 ranks on 2 cards' if cards >= 2 else 'no multi-card group'}")
+    tmp = tempfile.mkdtemp(prefix="stainx_mesh_")
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{tmp}/init", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(axis_names=("batch",))
+        mesh_px = parallel.make_mesh((1, 1), ("batch", "pixel"))
+        cpu_mesh = parallel.make_mesh(axis_names=("batch",), device_type="cpu")
+        cpu_px = parallel.make_mesh((1, 1), ("batch", "pixel"), device_type="cpu")
+        fitted = mesh_checks(mesh, mesh_px, dev, batch, ref)
+
+        wrappers = [rf.reinhard_moments, rf.reinhard_apply, hk.histogram_256, hk.apply_lut,
+                    mf.macenko_fit_mega, mf.macenko_transform_mega, ms.macenko_fit_stream,
+                    ms.macenko_transform_stream, sel.kth_smallest_pallas,
+                    ss.kth_smallest_streaming]
+
+        def drive(label, fn, want):
+            """Run a mesh path with the counts zeroed just before and read
+            just after; exactly the wrappers in ``want`` must launch."""
+            for w in wrappers:
+                w.launches = 0
+            result = fn()
+            torch.cuda.synchronize()
+            counts = {w.__name__: w.launches for w in wrappers if w.launches}
+            print(f"mesh path {label} launches: {counts}")
+            require(set(counts) == set(want), f"mesh path {label}: launches {counts}, "
+                    f"the path must launch {sorted(want)}")
+            return result
+
+        def cpu_param(p):
+            return tuple(t.cpu() for t in p) if isinstance(p, tuple) else p.cpu()
+
+        def hold_fit(label, got, want, tol):
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w, (rtol, atol) in zip(got, want, tol):
+                g = g.cpu()
+                err = ((g - w).abs() - rtol * w.abs()).max().item()
+                print(f"{label} vs the same call on the CPU (plain versions): "
+                      f"max(|d| - rtol|w|) {err:.3g} (rtol {rtol}, atol {atol})")
+                require(bool(torch.isfinite(g).all()) and err <= atol,
+                        f"{label}: {err} from the CPU past {atol}")
+
+        def hold_out(label, got, want):
+            require(got.is_cuda and got.shape == want.shape and got.dtype == want.dtype,
+                    f"{label}: output shape or dtype")
+            err = (got.cpu().float() - want.float()).abs().max().item()
+            print(f"{label} vs the same call on the CPU (plain versions): max|d| {err} grey "
+                  f"levels (tolerance 1)")
+            require(err <= 1.0, f"{label}: {err} grey levels from the CPU")
+
+        # The Numbers table's paths on the (1,) batch mesh: each driven with
+        # its launch counts, held against the CPU, then timed.
+        cpu_batch = batch.cpu()
+        fit_tol = {"reinhard": [(1e-4, 1e-3)] * 2, "histogram_matching": [(0.0, 1e-6)],
+                   "macenko": [(0.0, 2e-5), (1e-4, 0.0)]}
+        fit_want = {"reinhard": ["reinhard_moments"], "histogram_matching": ["histogram_256"],
+                    "macenko": []}
+        tr_want = {"reinhard": ["reinhard_moments", "reinhard_apply"],
+                   "histogram_matching": ["histogram_256", "apply_lut"],
+                   "macenko": ["macenko_transform_stream"]}
+        classes = {"reinhard": Reinhard, "histogram_matching": HistogramMatching,
+                   "macenko": Macenko}
+        rows = []
+        for method in ("reinhard", "histogram_matching", "macenko"):
+            got = drive(f"fit_on_mesh {method} {BATCH}x3x{SIZE}^2 u8",
+                        lambda m=method: parallel.fit_on_mesh(m, batch, mesh), fit_want[method])
+            hold_fit(f"fit_on_mesh {method}", got,
+                     parallel.fit_on_mesh(method, cpu_batch, cpu_mesh), fit_tol[method])
+            rows.append((f"fit_on_mesh {method}", lambda x, m=method: parallel.fit_on_mesh(m, x, mesh),
+                         f"single-device {method} fit",
+                         lambda x, cls=classes[method]: cls(dev).fit(x)))
+            params = fitted[method] if method != "histogram_matching" else fitted[method][0]
+            got = drive(f"transform_on_mesh {method} {BATCH}x3x{SIZE}^2 u8",
+                        lambda m=method, p=params: parallel.transform_on_mesh(m, batch, p, mesh),
+                        tr_want[method])
+            hold_out(f"transform_on_mesh {method}", got,
+                     parallel.transform_on_mesh(method, cpu_batch, cpu_param(params), cpu_mesh))
+            rows.append((f"transform_on_mesh {method}",
+                         lambda x, m=method, p=params: parallel.transform_on_mesh(m, x, p, mesh),
+                         None, None))
+        del cpu_batch
+        # Small patches through the training transform in batch mode: the
+        # reference patch fitted on one device (B2), the batch on the mesh (B1).
+        forward = StainNormalizerTransform("macenko", mode="batch", mesh=mesh)
+        got = drive(f"StainNormalizerTransform(mesh=..., mode='batch') {patches.shape[0]}x3x"
+                    f"{patches.shape[2]}^2 u8", lambda: forward(patches),
+                    ["macenko_fit_mega", "macenko_transform_mega"])
+        want = StainNormalizerTransform("macenko", mode="batch", device="cpu")(patches.cpu())
+        err = (got.cpu() - want).abs().max().item() * 255.0
+        print(f"mesh batch-mode forward on small patches vs the CPU: max|d| {err:.3g} grey levels "
+              f"(tolerance 1)")
+        require(err <= 1.0 + 1e-3, f"mesh batch-mode forward on small patches: {err} grey levels")
+
+        # The pixel-sharded Macenko transform of one 4096^2 image on the
+        # (1, 1) mesh: eager, no kernel of the port.
+        mc_params = fitted["macenko"]
+        got = drive("transform_on_mesh macenko, pixel_axis, 1x3x4096^2 u8",
+                    lambda: parallel.transform_on_mesh("macenko", big1, mc_params, mesh_px,
+                                                       pixel_axis="pixel"), [])
+        hold_out("transform_on_mesh macenko, pixel_axis, 1x3x4096^2",
+                 got, parallel.transform_on_mesh("macenko", big1.cpu(), cpu_param(mc_params),
+                                                 cpu_px, pixel_axis="pixel"))
+        single = Macenko(dev)
+        single.load_state(dict(zip(("_stain_matrix", "_target_max_conc"), mc_params)))
+        err = (got.float() - single.transform(big1).float()).abs().max().item()
+        print(f"pixel-sharded 1x3x4096^2 vs the single-device transform (B4): max|d| {err} grey "
+              f"levels (tolerance 1)")
+        require(err <= 1.0, f"pixel-sharded 4096^2 vs B4: {err} grey levels")
+
+        # Times: as called (CUDA events), the device's busy time by
+        # torch.profiler and the idle share, beside the single-device call.
+        def timed(label, fn, xs, n_px):
+            eager = event_ms(fn, xs, MESH_TIMING_ITERS)
+            busy = profiled_ms(fn, xs, 3)
+            busy_txt = ("device busy not measured" if busy is None else
+                        f"device busy {busy:.4f} ms, idle share {1.0 - busy / eager:.3f}")
+            print(f"{label}: {eager:.4f} ms as called ({n_px / eager / 1e3:.1f} MPix/s), "
+                  f"{busy_txt}")
+            return eager
+
+        pair = [batch, batch_b]
+        for label, fn, other, other_fn in rows:
+            timed(f"mesh {label} {BATCH}x3x{SIZE}^2 u8 on the (1,) mesh", fn, pair,
+                  BATCH * SIZE * SIZE)
+            if other is not None:
+                timed(f"{other} {BATCH}x3x{SIZE}^2 u8", other_fn, pair, BATCH * SIZE * SIZE)
+        for method, cls in classes.items():
+            norm = cls(dev).fit(ref)
+            timed(f"single-device {method} transform {BATCH}x3x{SIZE}^2 u8", norm.transform, pair,
+                  BATCH * SIZE * SIZE)
+        big_pair = [big1, big1_b]
+        px = lambda x: parallel.transform_on_mesh("macenko", x, mc_params, mesh_px,  # noqa: E731
+                                                  pixel_axis="pixel")
+        timed("mesh transform_on_mesh macenko, pixel_axis, 1x3x4096^2 u8 on the (1, 1) mesh", px,
+              big_pair, 4096 * 4096)
+        timed("single-device Macenko transform (B4) 1x3x4096^2 u8", single.transform, big_pair,
+              4096 * 4096)
+        # Its split on the device, between the collectives that end each
+        # step: the first-pass and second-pass moments (each an all_gather),
+        # the eigh, projection and angles (to the count all_reduce), the
+        # four key levels of the angle descent (the first with the keys), the
+        # concentrations (to the second count), the four levels of the
+        # concentration descent, the reconstruction, and the all_gather of
+        # the output.
+        names = (["moments pass 1", "moments pass 2", "eigh, projection, atan2"]
+                 + [f"angle descent level {k}" for k in range(4)] + ["concentrations"]
+                 + [f"concentration descent level {k}" for k in range(4)]
+                 + ["reconstruction", "output gather"])
+        splits = []
+        for i in range(4):
+            with CollectiveMarks() as marks:
+                px(big_pair[i % 2])
+            splits.append(marks.spans())
+        require(all(len(s) == len(names) for s in splits),
+                f"pixel-sharded split: {[len(s) for s in splits]} spans, expected {len(names)}")
+        mean = [sum(s[k] for s in splits[1:]) / (len(splits) - 1) for k in range(len(names))]
+        print("pixel-sharded 1x3x4096^2 split on the device (ms, mean of 3 calls): "
+              + "; ".join(f"{n} {t:.4f}" for n, t in zip(names, mean))
+              + f"; total {sum(mean):.4f}")
+    finally:
+        dist.destroy_process_group()
+
+    if cards >= 2:
+        init = os.path.join(tmp, "init2")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, 2, init, seed)) for r in range(2)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(timeout=600)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        print(f"mesh phase on 2 ranks (2 cards): exit codes {codes}")
+        require(codes == [0, 0], f"the 2-rank mesh phase failed: exit codes {codes}")
 
 
 def main() -> int:
@@ -1347,6 +1713,18 @@ def main() -> int:
           f"{mae_d:.4f} (gate 0.35)")
     require(mae_d <= 0.35, f"path (d): oracle MAE {mae_d} above 0.35")
     del out_d
+
+    # 4b. The distributed layer, in a process of its own.
+    sys.stdout.flush()
+    import torch.multiprocessing as mp
+
+    mesh_proc = mp.get_context("spawn").Process(target=mesh_phase, args=(args.seed,))
+    mesh_proc.start()
+    mesh_proc.join(timeout=900)
+    if mesh_proc.is_alive():
+        mesh_proc.kill()
+        mesh_proc.join()
+    require(mesh_proc.exitcode == 0, f"the mesh phase failed (exit code {mesh_proc.exitcode})")
 
     # 5. Timing: CUDA events, warm-up first, two distinct inputs cycled. A
     # kernel's time is its wrapper replayed from CUDA graphs, the device's

@@ -145,6 +145,38 @@ def optical_density(images_float: torch.Tensor) -> torch.Tensor:
     return -torch.log((images_float * 255.0 + 1.0) / IO)
 
 
+# The distributed fit accumulates its OD moments about this fixed shift:
+# the covariance does not depend on it, and centring removes the
+# E[xxᵀ] − μμᵀ cancellation of raw float32 moments.
+MOMENT_CENTER = 1.0
+
+
+def masked_od_moments(od_c, weights: torch.Tensor):
+    """Additive masked OD moments of each row from three (N, P) channel
+    planes ``od_c`` and 0/1 float ``weights`` (N, P): ``(count (N,), sum
+    (N, 3), outer-product sum (N, 3, 3))`` about :data:`MOMENT_CENTER`, in
+    float32. They add across shards, so the distributed fit reduces them."""
+    y = [od_c[i] - MOMENT_CENTER for i in range(3)]
+    cnt = weights.sum(-1)
+    s1 = torch.stack([(weights * y[i]).sum(-1) for i in range(3)], dim=-1)
+    s2 = torch.stack(
+        [torch.stack([(weights * y[i] * y[j]).sum(-1) for j in range(3)], dim=-1)
+         for i in range(3)],
+        dim=-2,
+    )
+    return cnt, s1, s2
+
+
+def cov_from_moments(cnt: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """Covariance (N, 3, 3) from :func:`masked_od_moments`' (reduced)
+    moments: ``(s2 − cnt·μμᵀ) / max(cnt − 1, 1)``, zeros where cnt ≤ 1."""
+    mu = s1 / torch.clamp(cnt, min=1.0)[:, None]
+    cov = (s2 - cnt[:, None, None] * mu[:, :, None] * mu[:, None, :]) / torch.clamp(
+        cnt - 1.0, min=1.0
+    )[:, None, None]
+    return torch.where((cnt > 1.0)[:, None, None], cov, 0.0)
+
+
 def maxc_scale(tmc: torch.Tensor, maxc: torch.Tensor) -> torch.Tensor:
     """``tmc / maxC`` with the sign-preserving floor: a uniform tile's maxC
     of 0 becomes 1e-30 (finite scale), while a negative 99th-percentile

@@ -32,27 +32,53 @@ LAB_MOMENT_CENTER = 128.0
 _KERNEL_DTYPES = (torch.uint8, torch.float32)
 
 
-def lab_moments(images: torch.Tensor) -> tuple[float, torch.Tensor, torch.Tensor]:
+def lab_moments(
+    images: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    valid_rows: torch.Tensor | None = None,
+) -> tuple[float, torch.Tensor, torch.Tensor]:
     """Per-channel CENTERED LAB pixel count, sum and sum of squares of an
-    (N, 3, H, W) batch: ``(n, (3,), (3,))``. Sums are taken in float64 and
-    returned as float32; ``n`` is the exact count N·H·W. Consume with
-    :func:`moments_to_mean_std`. (The JAX package's ``weights`` and
-    ``valid_rows`` belong to its distributed layer, not ported yet.)"""
+    (N, 3, H, W) batch: ``(n, (3,), (3,))``, the additive statistics the
+    distributed fit reduces. Consume with :func:`moments_to_mean_std`.
+
+    ``weights`` ((N,) 0/1, optional) marks the real batch rows and
+    ``valid_rows`` ((H,) bool, optional) the real pixel rows; ``n`` is the
+    exact product of the factor sums. Unweighted, the sums come from the
+    moments kernel (B7b, :func:`~stainx_tpu_torch.kernels.reinhard_fused.
+    reinhard_moments`; its plain version on the CPU). Weighted on the CPU,
+    the weight stays factored as an (N, 1, H, 1) broadcast into float64
+    sums; weighted on CUDA, B7b runs on the rows the weights keep, picked
+    by a boolean index (which reads the weights back to the host)."""
+    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_moments
+
+    if weights is None and valid_rows is None:
+        s, sq = reinhard_moments(_kernel_input(images))
+        return float(images.shape[0] * images.shape[2] * images.shape[3]), s, sq
+    rw = torch.ones(images.shape[0]) if weights is None else (weights > 0).to(torch.float32)
+    rv = torch.ones(images.shape[2]) if valid_rows is None else valid_rows.to(torch.float32)
+    rw, rv = rw.to(images.device), rv.to(images.device)
+    if images.is_cuda:
+        kept = images[rw > 0][:, :, rv > 0]
+        s, sq = reinhard_moments(_kernel_input(kept))
+        return float(kept.shape[0] * kept.shape[2] * kept.shape[3]), s, sq
     lab = color.rgb_to_lab(images, channel_axis=1) - LAB_MOMENT_CENTER
-    n = float(lab.shape[0] * lab.shape[2] * lab.shape[3])
-    s = lab.to(torch.float64).sum(dim=(0, 2, 3))
-    sq = (lab * lab).to(torch.float64).sum(dim=(0, 2, 3))
+    wpx = (rw[:, None, None, None] * rv[None, None, :, None]).to(torch.float64)
+    n = float(rw.sum()) * float(rv.sum()) * float(images.shape[3])
+    s = (lab.to(torch.float64) * wpx).sum(dim=(0, 2, 3))
+    sq = ((lab * lab).to(torch.float64) * wpx).sum(dim=(0, 2, 3))
     return n, s.to(torch.float32), sq.to(torch.float32)
 
 
-def moments_to_mean_std(n: float, s: torch.Tensor, sq: torch.Tensor):
+def moments_to_mean_std(n, s: torch.Tensor, sq: torch.Tensor):
     """Bessel-corrected mean and std from centred additive moments: the
-    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``. ``n`` and
-    ``max(n − 1, 1)`` enter as float32 tensors, so each step is one rounded
-    float32 operation and both divisions are true divisions on any device:
-    the plain version of what the moments kernel's finalize writes."""
-    nf = torch.tensor(float(n), dtype=torch.float32, device=s.device)
-    den = torch.tensor(max(float(n) - 1.0, 1.0), dtype=torch.float32, device=s.device)
+    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``. ``n`` (a number
+    or a float64 tensor) and ``max(n − 1, 1)``, taken in float64, enter as
+    float32 tensors, so each step is one rounded float32 operation and both
+    divisions are true divisions on any device: the plain version of what
+    the moments kernel's finalize writes."""
+    n64 = torch.as_tensor(n, dtype=torch.float64).to(s.device)
+    nf = n64.to(torch.float32)
+    den = torch.clamp(n64 - 1.0, min=1.0).to(torch.float32)
     mean_c = s / nf
     var = torch.clamp(sq - nf * mean_c * mean_c, min=0.0) / den
     return mean_c + LAB_MOMENT_CENTER, torch.sqrt(var)
@@ -83,3 +109,23 @@ def reinhard_transform(
     if images.dtype not in _KERNEL_DTYPES:
         out = color.preserve_dtype(out, images.dtype)
     return out
+
+
+def reinhard_fit_sharded(
+    images: torch.Tensor,
+    *,
+    group=None,
+    weights: torch.Tensor | None = None,
+    valid_rows: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Distributed fit: the LAB moments of :func:`lab_moments` on this
+    rank's shard, reduced over the process ``group`` (``None``: the
+    default group) exactly, as
+    :func:`stainx_tpu_torch.parallel.distributed.rank_sum` adds them: the
+    same mean and std on every rank. ``weights`` and ``valid_rows`` are
+    :func:`lab_moments`'s."""
+    from stainx_tpu_torch.parallel.distributed import rank_sum
+
+    n, s, sq = lab_moments(images, weights, valid_rows)
+    n, sums = rank_sum(n, torch.cat([s, sq]), group)
+    return moments_to_mean_std(n, sums[:3], sums[3:])

@@ -20,9 +20,13 @@ inference pipeline. It keeps the JAX package's contracts:
   normalizer is a plain attribute, not a submodule, and holds no buffers.
   Use ``.normalizer.state`` to persist them.
 
-The JAX package's ``backend``, ``mesh`` and ``pixel_axis`` are left out: the
-port has no backend knob (the device decides the route), and the mesh waits
-for the port's distributed layer.
+- Mesh: ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) runs every
+  forward through :mod:`stainx_tpu_torch.parallel`, and ``pixel_axis=``
+  also shards each image's rows (see :meth:`StainNormalizerTransform.
+  __init__`).
+
+The JAX package's ``backend`` is left out: the port has no backend knob
+(the device decides the route).
 """
 
 from __future__ import annotations
@@ -58,13 +62,35 @@ class StainNormalizerTransform(nn.Module):
         batch_ref_index: int | None = 0,
         normalize_to_0_1: bool | None = None,
         normalizer: Any | None = None,
+        mesh: Any | None = None,
+        pixel_axis: str | None = None,
     ):
+        """``mesh``: an optional ``DeviceMesh``
+        (:func:`stainx_tpu_torch.parallel.make_mesh`). With it, batches are
+        sharded over the mesh's ``"batch"`` axis, transforms run
+        batch-parallel, and batch-mode fits reduce their statistics over
+        every rank exactly; every rank of the mesh calls the transform, with
+        the same global batch or a ``DTensor``. The normalizer (and its
+        fitted state) lives on the rank's mesh device unless ``device`` is
+        given. ``pixel_axis``: an optional mesh axis to ALSO shard each
+        image's rows over, for images beyond one card (any H; padded rows
+        are left out of the statistics and cut off the output; see
+        :func:`stainx_tpu_torch.parallel.transform_on_mesh`)."""
         super().__init__()
         self.mode = mode
         self.channel_axis = channel_axis
         self.batch_ref_index = batch_ref_index
+        self.mesh = mesh
+        if pixel_axis is not None and mesh is None:
+            raise ValueError("pixel_axis requires mesh= (a torch.distributed DeviceMesh).")
+        self.pixel_axis = pixel_axis
         # None = follow a CUDA input's device each call.
         self.device = None if device is None else get_device(device)
+        norm_device = self.device
+        if norm_device is None and mesh is not None:
+            from stainx_tpu_torch.parallel.mesh import mesh_device
+
+            norm_device = mesh_device(mesh)
 
         if mode not in ("reference", "batch"):
             raise ValueError(f"Unsupported mode '{mode}'. Use 'reference' or 'batch'.")
@@ -106,11 +132,16 @@ class StainNormalizerTransform(nn.Module):
                 raise ValueError("normalize_to_0_1 only applies to Macenko (method='macenko').")
             cls = _METHOD_MAP[method]
             if method == "histogram_matching":
-                self.normalizer = cls(device=self.device, channel_axis=channel_axis)
+                self.normalizer = cls(device=norm_device, channel_axis=channel_axis)
             elif method == "macenko":
-                self.normalizer = cls(device=self.device, normalize_to_0_1=bool(normalize_to_0_1))
+                self.normalizer = cls(device=norm_device, normalize_to_0_1=bool(normalize_to_0_1))
             else:
-                self.normalizer = cls(device=self.device)
+                self.normalizer = cls(device=norm_device)
+
+        # After a prebuilt normalizer may have set channel_axis: the sharded
+        # ops are NCHW only.
+        if mesh is not None and self.channel_axis not in _CHANNELS_FIRST:
+            raise ValueError("mesh execution currently requires NCHW (channel_axis=1).")
 
         if mode == "reference":
             if reference is None and not getattr(self.normalizer, "_is_fitted", False):
@@ -174,7 +205,18 @@ class StainNormalizerTransform(nn.Module):
         return images.to(target)
 
     def fit_reference(self, reference: Any) -> "StainNormalizerTransform":
-        """Fit the underlying normalizer on a reference image or batch."""
+        """Fit the underlying normalizer on a reference image or batch. With
+        ``pixel_axis`` the fit runs pixel-sharded on the mesh: one image may
+        exceed a card, so it is never placed whole on one."""
+        if self.mesh is not None and self.pixel_axis is not None:
+            from stainx_tpu_torch import parallel
+
+            method = self._method_name()
+            params = parallel.fit_on_mesh(
+                method, self._validate_layout(reference), self.mesh, pixel_axis=self.pixel_axis
+            )
+            self._store_mesh_params(method, params)
+            return self
         self.normalizer.fit(self._prepare(reference))
         return self
 
@@ -183,6 +225,9 @@ class StainNormalizerTransform(nn.Module):
         if not torch.is_tensor(img) and not hasattr(img, "ndim"):
             img = np.asarray(img)
         was_single = img.ndim == 3
+        if self.mesh is not None:
+            result = self._forward_on_mesh(img)
+            return result[0] if was_single else result
         batch = self._prepare(img)
 
         if self.mode == "batch":
@@ -200,3 +245,93 @@ class StainNormalizerTransform(nn.Module):
 
         result = self.normalizer.transform(batch)
         return result[0] if was_single else result
+
+    # ------------------------------------------------------------ mesh path
+    def _method_name(self) -> str:
+        for name, cls in _METHOD_MAP.items():
+            if isinstance(self.normalizer, cls):
+                return name
+        raise TypeError(f"Unknown normalizer type {type(self.normalizer)}")
+
+    def _mesh_params(self, method: str):
+        n = self.normalizer
+        if method == "macenko":
+            # The single-device transform's fitted-state gates.
+            n._validate_fitted_params()
+            return (n._stain_matrix, n._target_max_conc)
+        if method == "reinhard":
+            return (n._reference_mean, n._reference_std)
+        return n._ref_histograms_256
+
+    def _store_mesh_params(self, method: str, params) -> None:
+        """Keep mesh-fitted state on the normalizer's device, usable by its
+        single-device transform."""
+        n = self.normalizer
+        put = lambda p: p.to(n.device)  # noqa: E731
+        if method == "macenko":
+            n._stain_matrix, n._target_max_conc = put(params[0]), put(params[1])
+        elif method == "reinhard":
+            n._reference_mean, n._reference_std = put(params[0]), put(params[1])
+        else:
+            n._ref_histograms_256 = put(params)
+        n._is_fitted = True
+
+    def _fit_mesh_reference(self, method: str, img, idx: int):
+        """The fitted parameters of image ``idx`` of the batch: fitted
+        pixel-sharded with ``pixel_axis`` (one image may exceed a card),
+        else by the normalizer on one device. From a DTensor batch, only
+        image ``idx`` moves (:func:`~stainx_tpu_torch.parallel.distributed.
+        image_from_mesh`)."""
+        from torch.distributed.tensor import DTensor
+
+        from stainx_tpu_torch import parallel
+        from stainx_tpu_torch.parallel import distributed
+        from stainx_tpu_torch.parallel.mesh import axis_group
+
+        if not isinstance(img, DTensor):
+            if self.pixel_axis is not None:
+                return parallel.fit_on_mesh(
+                    method, img[idx : idx + 1], self.mesh, pixel_axis=self.pixel_axis
+                )
+            self.normalizer.fit(img[idx : idx + 1])
+            return self._mesh_params(method)
+        slab = distributed.image_from_mesh(img, idx, self.mesh)
+        if self.pixel_axis is not None:
+            group = axis_group(self.mesh, self.pixel_axis)
+            return distributed.FIT_SHARDED[method](slab, group=group)
+        self.normalizer.fit(slab)
+        return self._mesh_params(method)
+
+    def _forward_on_mesh(self, img: Any) -> torch.Tensor:
+        """Sharded forward: the batch-parallel transform; in batch mode the
+        fit's statistics reduce over every rank of the mesh
+        (``batch_ref_index`` picks one image, ``None`` makes it an exact
+        whole-batch distributed fit)."""
+        from stainx_tpu_torch import parallel
+
+        img = self._validate_layout(img)
+        method = self._method_name()
+        if self.mode == "batch":
+            idx = self.batch_ref_index
+            if idx is None:
+                params = parallel.fit_on_mesh(method, img, self.mesh, pixel_axis=self.pixel_axis)
+            else:
+                if idx < 0 or idx >= img.shape[0]:
+                    raise IndexError(
+                        f"batch_ref_index={idx} out of range for batch size {img.shape[0]}"
+                    )
+                params = self._fit_mesh_reference(method, img, idx)
+            self._store_mesh_params(method, params)
+        else:
+            params = self._mesh_params(method)
+
+        kwargs = {}
+        if method == "macenko":
+            # Numerics must not depend on whether a mesh is attached.
+            kwargs["precision"] = self.normalizer.precision
+        elif method == "histogram_matching":
+            params = self.normalizer._coerce_reference(params, img)
+        result = parallel.transform_on_mesh(
+            method, img, params, self.mesh, pixel_axis=self.pixel_axis, **kwargs
+        )
+        return self.normalizer._finalize_range(result)
