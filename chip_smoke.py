@@ -131,6 +131,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    device between the collectives that end its steps. With two cards or
    more, the fits and transforms also run on a group of two ranks, one
    card each, against the single-device port;
+4c. the tile-ingest path (``stainx_tpu_torch.io``): 512 tiles of 3×512²
+   uint8 written one a file under the temporary directory, then
+   ``RawTileLoader(files, (3, 512, 512), 64, drop_remainder=True)`` on the
+   card (the native readers, built under ``build/stainx_tpu_torch/``, and
+   the page-locked copy) into ``StainNormalizerTransform("macenko",
+   reference=ref)``, with the launch counts zeroed before and read after
+   (B5 once, B4 once a batch, nothing else); its output bit for bit the
+   same transform's of the batches read with ``np.fromfile`` and copied to
+   the card, and a CPU-device loader's batches byte for byte those; the
+   JAX package's ``stainx_tpu/io/_tilepipe.so`` left as it was;
+   ``masked_nearest_rank_percentile`` and ``percentile_all`` on the card
+   (B3 on (64, 512²), B6 on (1, 2²⁴) float32 rows with a random mask, −inf
+   and NaN entries and an empty row) bit for bit their CPU versions;
+   ``profiling.time_fn`` on the Macenko transform within 10 % of
+   ``event_ms`` and a trace written by ``profiling.trace``; then the times
+   of ``examples/torch_wsi_ingest_example.py``'s legs (ingest-only,
+   copy-only, compute-only, end to end; the host link's rate; the overlap
+   efficiency) and the device's busy time a batch by graph replay of the
+   transform (the idle share of the end-to-end loop);
 5. timing with CUDA events after warm-up, cycling two distinct inputs:
    each kernel (replayed from CUDA graphs, the device's time, and called
    eagerly), its plain version and, where one PyTorch call computes the
@@ -169,6 +188,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -299,6 +319,27 @@ def profiled_ms(fn, inputs, iters: int):
     device_us = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     return device_us / 1e3 / iters if device_us > 0 else None
+
+
+def device_steps(call, steps: tuple[str, ...]):
+    """``call()``'s device work in order, as ``torch.profiler`` records it:
+    each kernel's name shortened to the first of ``steps`` it holds. A
+    marker kernel (a fill) runs and finishes first inside the same session
+    and every event up to it is dropped, since the first launch of a
+    session can go unrecorded while the tracer starts (the process's first
+    CUDA session lost B7b this way once). Returns ``(call(), names)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.empty(1, device="cuda").fill_(0)
+        torch.cuda.synchronize()
+        result = call()
+        torch.cuda.synchronize()
+    names = [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                                        if e.device_type == torch.autograd.DeviceType.CUDA)]
+    marker = next((i for i, name in enumerate(names) if "FillFunctor" in name), -1)
+    return result, [next((k for k in steps if k in name), name) for name in names[marker + 1:]]
 
 
 MESH_TIMING_ITERS = 10  # calls a mesh path is timed over, two inputs cycled
@@ -645,6 +686,175 @@ def mesh_phase(seed: int) -> None:
         require(codes == [0, 0], f"the 2-rank mesh phase failed: exit codes {codes}")
 
 
+INGEST_TILES = 512  # phase 4c: 8 batches of the main path's 64 tiles of 3x512^2 uint8
+INGEST_DRIFT = 0.10  # profiling.time_fn against event_ms
+
+
+def _load_example():
+    """``examples/torch_wsi_ingest_example.py`` loaded from its path (an
+    installed package named ``examples`` would shadow the directory)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "torch_wsi_ingest_example.py")
+    spec = importlib.util.spec_from_file_location("torch_wsi_ingest_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_so) -> None:
+    """Phase 4c, the tile-ingest path (module docstring): 512 tiles of
+    3x512^2 uint8 written one a file, ``RawTileLoader`` on the card (the
+    native readers, the page-locked copy) into
+    ``StainNormalizerTransform("macenko", reference=ref)``, its launches,
+    its output bit for bit against the same transform of batches read with
+    ``np.fromfile``, a CPU-device loader byte for byte, the percentile
+    wrappers on the card against their CPU versions, ``profiling``, and the
+    path's times. ``tilepipe_jax_so``: the (exists, mtime) of the JAX
+    package's reader library before the run, which this phase must leave
+    as it was."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stainx_tpu_torch import StainNormalizerTransform, kernels, profiling
+    from stainx_tpu_torch.io import RawTileLoader, tilepipe, tilepipe_available
+    from stainx_tpu_torch.kernels import selection as sel
+    from stainx_tpu_torch.kernels import selection_stream as ss
+    from stainx_tpu_torch.ops.percentile import masked_nearest_rank_percentile, percentile_all
+
+    example = _load_example()
+    require(tilepipe_available(), f"the native tile reader did not build ({tilepipe._loaded})")
+    lib = tilepipe.lib_path()
+    require(lib.is_file() and lib.parent == kernels.BUILD_DIR,
+            f"the reader library is not under {kernels.BUILD_DIR}: {lib}")
+    print(f"ingest: native reader {lib}")
+    shape = (3, SIZE, SIZE)
+    n_batches = INGEST_TILES // BATCH
+    with tempfile.TemporaryDirectory(prefix="stainx_ingest_") as td:
+        t0 = time.perf_counter()
+        files = example.write_tile_store(Path(td), INGEST_TILES, SIZE, seed=seed + 500)
+        store_mb = INGEST_TILES * SIZE * SIZE * 3 / 1e6
+        print(f"ingest: wrote {INGEST_TILES} tiles of 3x{SIZE}^2 u8 ({store_mb:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # The path, with every kernel's count zeroed before and read after:
+        # the fit of the reference is B5, each batch B4, nothing else.
+        for w in wrappers:
+            w.launches = 0
+        transform = StainNormalizerTransform("macenko", reference=ref)
+        loaded, outs = [], []
+        for b in RawTileLoader(files, shape, BATCH, drop_remainder=True):
+            loaded.append(b)
+            outs.append(transform(b))
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"ingest path launches: {counts}")
+        want = {w.__name__: 0 for w in wrappers}
+        want.update(macenko_fit_stream=1, macenko_transform_stream=n_batches)
+        require(counts == want, f"ingest path: launches {counts}, the path must launch {want}")
+        require(len(loaded) == n_batches and all(
+            b.is_cuda and b.dtype == torch.uint8 and tuple(b.shape) == (BATCH,) + shape
+            for b in loaded), "the loader did not yield uint8 batches of the card")
+
+        # Held bit for bit against the same transform of the batches read
+        # directly (np.fromfile) and copied to the card; a CPU-device loader
+        # gives the same bytes.
+        direct = [np.stack([np.fromfile(f, np.uint8, count=3 * SIZE * SIZE).reshape(shape)
+                            for f in files[i * BATCH:(i + 1) * BATCH]]) for i in range(n_batches)]
+        for i, arr in enumerate(direct):
+            require(torch.equal(loaded[i].cpu(), torch.from_numpy(arr)),
+                    f"ingest batch {i}: the card's batch differs from np.fromfile")
+            got = transform(torch.from_numpy(arr).to(dev))
+            require(torch.equal(got, outs[i]), f"ingest batch {i}: output differs from the "
+                    "transform of the directly read batch")
+        require(all(torch.isfinite(o).all() and o.dtype == torch.float32 and o.min() >= 0
+                    and o.max() <= 1 for o in outs), "ingest output not finite float in [0, 1]")
+        for i, b in enumerate(RawTileLoader(files, shape, BATCH, drop_remainder=True,
+                                            device="cpu")):
+            require(b.device.type == "cpu" and torch.equal(b, torch.from_numpy(direct[i])),
+                    f"ingest batch {i}: the CPU-device loader's bytes differ")
+        print(f"ingest path: {n_batches} batches, output bit for bit the directly read batches'; "
+              f"the CPU-device loader byte for byte")
+        resident = loaded[0]
+        del loaded, outs, direct
+
+        # The percentile wrappers on the card (B3 for 64 rows of 512^2, B6
+        # for one row of 2^24, the staged route's threshold) against their
+        # CPU versions, bit for bit.
+        rng = np.random.default_rng(seed + 501)
+        fields = []
+        for rows, p in ((BATCH, SIZE * SIZE), (1, 1 << 24)):
+            x = rng.standard_normal((rows, p), dtype=np.float32)
+            mask = rng.random((rows, p)) < 0.8
+            x[:, :11] = -np.inf
+            x[:, 11:29] = np.nan
+            if rows > 1:
+                mask[3] = False  # an empty row: +inf
+            fields.append((torch.from_numpy(x), torch.from_numpy(mask)))
+        for w in (sel.kth_smallest_pallas, ss.kth_smallest_streaming):
+            w.launches = 0
+        checks = []
+        for x, mask in fields:
+            cnt = mask.sum(-1)
+            for q in (1, 99) if x.shape[0] > 1 else (50,):
+                checks.append((f"masked q={q} {tuple(x.shape)}",
+                               masked_nearest_rank_percentile(x.to(dev), mask.to(dev),
+                                                              cnt.to(dev), q),
+                               masked_nearest_rank_percentile(x, mask, cnt, q)))
+            q = 99 if x.shape[0] > 1 else 1
+            checks.append((f"percentile_all q={q} {tuple(x.shape)}",
+                           percentile_all(x.to(dev), q), percentile_all(x, q)))
+        torch.cuda.synchronize()
+        b3, b6 = sel.kth_smallest_pallas.launches, ss.kth_smallest_streaming.launches
+        for label, got, cpu in checks:
+            require(got.is_cuda and torch.equal(got.cpu().view(torch.int32),
+                                                cpu.view(torch.int32)),
+                    f"percentile {label}: the card's result differs from the CPU's")
+        print(f"percentile wrappers on the card: {len(checks)} calls bit for bit the CPU "
+              f"versions; B3 launched {b3}, B6 {b6}")
+        require(b3 > 0 and b6 > 0, "the percentile wrappers did not select on the card")
+        del fields, checks
+
+        # profiling: time_fn (chained, CUDA events) against event_ms, and a trace.
+        t_fn = profiling.time_fn(normalizer.transform, batch, iters=20) * 1e3
+        t_ev = event_ms(normalizer.transform, [batch], 20)
+        print(f"profiling.time_fn Macenko transform {BATCH}x3x{SIZE}^2 u8: {t_fn:.4f} ms, "
+              f"event_ms {t_ev:.4f} ms ({t_fn / t_ev - 1:+.1%}, tolerance "
+              f"{INGEST_DRIFT:.0%})")
+        require(abs(t_fn / t_ev - 1) <= INGEST_DRIFT, "profiling.time_fn disagrees with event_ms")
+        with profiling.trace(os.path.join(td, "trace")) as log_dir:
+            with profiling.annotate("stainx_transform"):
+                normalizer.transform(batch)
+        traces = list(Path(log_dir).glob("*.pt.trace.json"))
+        require(len(traces) == 1 and traces[0].stat().st_size > 0,
+                f"profiling.trace wrote {traces}")
+        print(f"profiling.trace: {traces[0].name}, {traces[0].stat().st_size} bytes")
+
+        # The times: ingest-only, copy-only, compute-only and end to end;
+        # the device's busy time a batch by graph replay of the transform
+        # (the profiler undercounts late in the run, PERF.md section 7).
+        result = example.measure(files, shape, BATCH, transform)
+        example.report(result, BATCH, SIZE, out=lambda m: print(f"ingest {m}"))
+        t0 = time.perf_counter()
+        for _ in RawTileLoader(files, shape, BATCH, drop_remainder=True, device="cpu"):
+            pass
+        print(f"ingest a CPU-device loader's pass (its slots allocated and faulted in anew): "
+              f"{(time.perf_counter() - t0) * 1e3 / n_batches:.4f} ms/batch")
+        busy = graph_ms(transform, [resident], 20)
+        copy_ms = result["seconds"]["copy-only"] * 1e3 / n_batches
+        t_e2e = result["seconds"]["end-to-end"] * 1e3
+        print(f"ingest end to end: device busy {busy:.4f} ms/batch in the transform (graph "
+              f"replay), {copy_ms:.4f} ms/batch in the copy (copy-only leg); idle share "
+              f"{1 - n_batches * busy / t_e2e:.3f} (kernels), "
+              f"{1 - n_batches * (busy + copy_ms) / t_e2e:.3f} (kernels and copies, summed) of "
+              f"{t_e2e:.3f} ms")
+    require((os.path.exists(tilepipe_jax_so[0]),
+             os.path.exists(tilepipe_jax_so[0]) and os.stat(tilepipe_jax_so[0]).st_mtime_ns)
+            == tilepipe_jax_so[1:], "the run wrote the JAX package's stainx_tpu/io/_tilepipe.so")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -656,6 +866,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a card",
               file=sys.stderr)
         return 2
+    # The JAX package builds its reader library beside its source; this run
+    # must not (phase 4c checks it is as it was).
+    jax_so = os.path.join(ROOT, "stainx_tpu", "io", "_tilepipe.so")
+    tilepipe_jax_so = (jax_so, os.path.exists(jax_so),
+                       os.path.exists(jax_so) and os.stat(jax_so).st_mtime_ns)
     sys.path.insert(0, ROOT)
     # tests/ has no __init__.py, and an installed package named `tests`
     # would shadow it: load the numpy oracle from its own directory.
@@ -1503,16 +1718,9 @@ def main() -> int:
     # The transform's device work is B7b (and its finalize, which writes the
     # mean and std), then B7a: no other kernel between them. Its output
     # repeats the main path's bit for bit.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        r_again = reinhard.transform(batch)
-        torch.cuda.synchronize()
+    r_again, steps = device_steps(lambda: reinhard.transform(batch),
+                                  ("moments_kernel", "moments_finalize", "apply_kernel"))
     require(torch.equal(r_again, r_out), "two Reinhard transforms of the main path differ")
-    on_device = sorted((e.time_range.start, e.name) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-    steps = [next((k for k in ("moments_kernel", "moments_finalize", "apply_kernel") if k in name),
-                  name) for _, name in on_device]
     print(f"Reinhard transform, device work in order: {steps}")
     require(steps == ["moments_kernel", "moments_finalize", "apply_kernel"],
             f"the Reinhard transform ran {steps} on the device, not B7b then B7a alone")
@@ -1525,14 +1733,9 @@ def main() -> int:
     hm_plain = hk.hm_transfer_plain(batch.reshape(BATCH, 3, -1), hist_match._ref_histograms_256,
                                     torch.uint8)[0].reshape(batch.shape)
     require(torch.equal(hm_out, hm_plain), "the HM main path differs from its plain steps")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hm_again = hist_match.transform(batch)
-        torch.cuda.synchronize()
+    hm_again, hm_steps = device_steps(lambda: hist_match.transform(batch),
+                                      ("hist_kernel", "hist_finalize", "apply_kernel"))
     require(torch.equal(hm_again, hm_out), "two HM transforms of the main path differ")
-    on_device = sorted((e.time_range.start, e.name) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-    hm_steps = [next((k for k in ("hist_kernel", "hist_finalize", "apply_kernel") if k in name),
-                     name) for _, name in on_device]
     print(f"HistogramMatching transform, device work in order: {hm_steps}; equal to the plain "
           f"steps and to a second transform")
     require(hm_steps == ["hist_kernel", "hist_finalize", "apply_kernel"],
@@ -1726,6 +1929,15 @@ def main() -> int:
         mesh_proc.join()
     require(mesh_proc.exitcode == 0, f"the mesh phase failed (exit code {mesh_proc.exitcode})")
 
+    # 4c. The tile-ingest path, from files on disk to the card.
+    all_wrappers = [mf.macenko_fit_mega, mf.macenko_transform_mega, ms.macenko_fit_stream,
+                    ms.macenko_transform_stream, ss.kth_smallest_streaming,
+                    sel.kth_smallest_pallas, rf.reinhard_moments, rf.reinhard_apply,
+                    hk.histogram_256, hk.apply_lut]
+    t0 = time.perf_counter()
+    ingest_phase(args.seed, dev, ref, batch, normalizer, all_wrappers, tilepipe_jax_so)
+    print(f"phase 4c: {time.perf_counter() - t0:.1f} s")
+
     # 5. Timing: CUDA events, warm-up first, two distinct inputs cycled. A
     # kernel's time is its wrapper replayed from CUDA graphs, the device's
     # time (the wrapper's own small ops, such as the LUT table, included);
@@ -1794,6 +2006,8 @@ def main() -> int:
     fin_bound, fin_by = bound_ms(3 * 256 * (4 + 4 + 4 + 1), 3 * 256 * 30)
     print(f"HM finalize plain (hm_build_lut, lut_table): {ms_fin_p:.4f} ms; the finalize's bound "
           f"{fin_bound:.6f} ms by {fin_by}")
+    from torch.profiler import ProfilerActivity, profile
+
     for label, call in [("transform", hist_match.transform), ("fit", HistogramMatching().fit)]:
         for x in pair:
             call(x)

@@ -63,3 +63,43 @@ def kth_smallest(
     r = torch.minimum(r.clamp(min=0), last.unsqueeze(-1))
     out = unkey(torch.sort(keys, dim=-1).values.gather(-1, r))
     return out.squeeze(-1) if flat else out
+
+
+def _select_rows(x: torch.Tensor, rank: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """:func:`kth_smallest` of ``x`` (..., P) at one rank a row (...,): the
+    plain version on a CPU tensor, :func:`_select_on_card` on a CUDA one."""
+    if x.device.type == "cpu":
+        return kth_smallest(x, rank, mask)
+    return _select_on_card(x, rank, mask)
+
+
+def _select_on_card(x: torch.Tensor, rank: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """B3 or B6 on the rows of ``x`` with every invalid entry (masked, NaN
+    or ±inf) made a +inf sentinel, which those kernels leave out of the
+    count; on a CPU tensor their plain versions run."""
+    # ops.macenko imports this module: import it at the call.
+    from stainx_tpu_torch.ops import macenko
+
+    xf = x.to(torch.float32)
+    valid = torch.isfinite(xf) if mask is None else mask.to(x.device) & torch.isfinite(xf)
+    rows = torch.where(valid, xf, torch.inf).reshape(-1, x.shape[-1]).contiguous()
+    ranks = rank.to(device=x.device, dtype=torch.int32).reshape(-1, 1)
+    return macenko._select(rows, ranks).reshape(x.shape[:-1])
+
+
+def masked_nearest_rank_percentile(
+    x: torch.Tensor, mask: torch.Tensor | None, cnt: torch.Tensor, q: int
+) -> torch.Tensor:
+    """Nearest-rank ``q``-th percentile of the masked elements of ``x``
+    (last axis), with ``cnt`` the number of valid elements of each row.
+    Conventions of :func:`kth_smallest`: a masked or non-finite entry is not
+    valid, a rank past the valid count takes the row's largest valid
+    element, and a row with none gives +inf."""
+    return _select_rows(x, nearest_rank_index(q, torch.as_tensor(cnt).to(x.device)), mask)
+
+
+def percentile_all(x: torch.Tensor, q: int) -> torch.Tensor:
+    """Nearest-rank ``q``-th percentile over the full last axis (a static
+    rank; the clamp to each row's valid count as :func:`kth_smallest`'s)."""
+    idx = static_nearest_rank_index(q, x.shape[-1])
+    return _select_rows(x, torch.full(x.shape[:-1], idx, dtype=torch.int32, device=x.device), None)

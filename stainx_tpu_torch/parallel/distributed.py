@@ -27,8 +27,10 @@ holds the global batch, N is zero-padded to the batch axis and H to the
 pixel axis, and each rank takes the shard of its mesh coordinate; or a
 ``DTensor`` already sharded ``Shard(0)`` on the batch axis (and
 ``Shard(2)`` on the pixel axis), the multi-controller case, whose local
-shard is used as it is. Such a ``DTensor`` needs N divisible by the batch
-axis and H by the pixel axis, since padding is a global operation.
+shard is used as it is (a ``DTensor`` of another mesh is first brought
+onto the call's, :func:`onto_mesh`). Such a ``DTensor`` needs N divisible
+by the batch axis and H by the pixel axis, since padding is a global
+operation.
 """
 
 from __future__ import annotations
@@ -341,6 +343,19 @@ def _check_pixel_axis(mesh, pixel_axis: str | None, batch_axis: str) -> None:
         )
 
 
+def onto_mesh(images, mesh, batch_axis: str = "batch", pixel_axis: str | None = None):
+    """``images`` as the mesh calls take it: a ``DTensor`` that lives on
+    another mesh is brought onto ``mesh`` from its full tensor, with the
+    call's placements (JAX's ``_put_unless_committed`` moves an array
+    committed elsewhere onto the call's sharding); anything else is
+    returned as it is. Every rank of both meshes calls it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(images, DTensor) or images.device_mesh == mesh:
+        return images
+    return distribute_tensor(images.full_tensor(), mesh, placements(mesh, batch_axis, pixel_axis))
+
+
 def _local_shard(images, mesh, batch_axis: str, pixel_axis: str | None) -> _Local:
     """This rank's shard of ``images`` on ``mesh`` (module docstring: a
     plain tensor is padded and cut here, a DTensor gives its local shard)."""
@@ -349,11 +364,9 @@ def _local_shard(images, mesh, batch_axis: str, pixel_axis: str | None) -> _Loca
     n_b = check_axis(mesh, batch_axis, "batch_axis")
     _check_pixel_axis(mesh, pixel_axis, batch_axis)
     n_p = 1 if pixel_axis is None else check_axis(mesh, pixel_axis, "pixel_axis")
+    images = onto_mesh(images, mesh, batch_axis, pixel_axis)
     if isinstance(images, DTensor):
         want = placements(mesh, batch_axis, pixel_axis)
-        if images.device_mesh != mesh:
-            raise ValueError("a DTensor input must live on the mesh it is fitted or "
-                             "transformed on")
         if tuple(images.placements) != want:
             images = images.redistribute(mesh, want)
         n, _, h, _ = images.shape

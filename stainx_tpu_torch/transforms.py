@@ -308,8 +308,9 @@ class StainNormalizerTransform(nn.Module):
         (``batch_ref_index`` picks one image, ``None`` makes it an exact
         whole-batch distributed fit)."""
         from stainx_tpu_torch import parallel
+        from stainx_tpu_torch.parallel.distributed import onto_mesh
 
-        img = self._validate_layout(img)
+        img = onto_mesh(self._validate_layout(img), self.mesh, pixel_axis=self.pixel_axis)
         method = self._method_name()
         if self.mode == "batch":
             idx = self.batch_ref_index

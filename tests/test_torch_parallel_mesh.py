@@ -13,7 +13,12 @@ method, pixel-sharded fits with and without odd H and uneven N, the batch
 and pixel axes together, randomized compositions, the batch-only wrappers
 on a 2D mesh, ``macenko_fit_sharded`` over both axes, the validation
 errors, and ``DTensor`` inputs (the local shard used as it is, the same
-bits as the plain input). Every rank's result, and a second run of each
+bits as the plain input; a ``DTensor`` of another mesh brought onto the
+call's). The (2, 2, 1) and (1, 2, 2) ``("batch", "pixel", "model")``
+meshes run the three pixel-sharded fits and transforms (the statistics
+reduce over the batch and pixel axes only), and ``make_mesh`` builds
+("batch",) meshes of the first two of four ranks, by ``devices`` and by
+shape (the ranks outside get ``ValueError``). Every rank's result, and a second run of each
 case, must be the same bits.
 """
 
@@ -131,6 +136,45 @@ def _mesh4_refs(mesh):
 
     refs["fit_sharded_2d"] = (fit_sharded_2d, "macenko", None)
     refs["presharded_no_copy"] = (lambda: {}, None, None)
+
+    axes3 = ("batch", "pixel", "model")
+    devices = jax.devices()[:4]
+    m3 = {name: jp.make_mesh(shape=shape, axis_names=axes3, devices=devices)
+          for name, shape in (("221", (2, 2, 1)), ("122", (1, 2, 2)))}
+    for name, m in m3.items():
+        for method in METHODS:
+            refs[f"mesh3d_{name}_fit_{method}"] = (lambda method=method, m=m: cases.fit_out(
+                jp.fit_on_mesh(method, he, m, pixel_axis="pixel")), method, None)
+            refs[f"mesh3d_{name}_transform_{method}"] = (lambda method=method, m=m: _tr(
+                method, he, _params(method, he[:1]), m, pixel_axis="pixel"), None, None)
+    refs["mesh3d_221_odd_h_uneven_reinhard"] = (lambda: _tr(
+        "reinhard", he[:3, :, :31], _params("reinhard", he[3:4]), m3["221"], pixel_axis="pixel"),
+        None, None)
+    refs["mesh3d_122_batch_only_fit_reinhard"] = (lambda: cases.fit_out(
+        jp.fit_on_mesh("reinhard", he, m3["122"])), "reinhard", None)
+
+    def fit_sharded_3d():
+        spec = P("batch", None, "pixel")
+        run = jax.jit(jax.shard_map(
+            functools.partial(jp.macenko_fit_sharded, axis_name=("batch", "pixel")),
+            mesh=m3["122"], in_specs=spec, out_specs=P(), check_vma=False))
+        return cases.fit_out(run(jax.device_put(jnp.asarray(he), NamedSharding(m3["122"], spec))))
+
+    refs["mesh3d_122_fit_sharded"] = (fit_sharded_3d, "macenko", None)
+    # JAX's make_mesh takes the first devices: two of them, by list and by shape.
+    first2 = jp.make_mesh(shape=None, axis_names=("batch",), devices=devices[:2])
+    refs["submesh_devices_fit_reinhard"] = (lambda: cases.fit_out(
+        jp.fit_on_mesh("reinhard", he, first2)), "reinhard", None)
+    refs["submesh_devices_transform_macenko"] = (lambda: _tr(
+        "macenko", he, _params("macenko", he[:1]), first2), None, None)
+    refs["submesh_shape_fit_histogram_matching"] = (lambda: cases.fit_out(jp.fit_on_mesh(
+        "histogram_matching", he, jp.make_mesh(shape=(2,), axis_names=("batch",),
+                                               devices=devices))), "histogram_matching", None)
+    for m in METHODS:
+        # The port's batch lives on the (2, 2, 1) mesh; JAX's is the host array.
+        refs[f"dtensor_other_mesh_{m}"] = (lambda m=m: {
+            **cases.fit_out(jp.fit_on_mesh(m, he, mesh, pixel_axis="pixel")),
+            **tr(m, he, _params(m, he[:1]))}, m, None)
     return refs
 
 

@@ -1,6 +1,7 @@
 """The port's ``StainNormalizerTransform(mesh=...)`` against the JAX
-package's on virtual CPU devices: a ``("batch",)`` mesh of 4 ranks and a
-(2, 2) ``("batch", "pixel")`` mesh (suite "nn").
+package's on virtual CPU devices: a ``("batch",)`` mesh of 4 ranks, a
+(2, 2) ``("batch", "pixel")`` mesh and a (1, 2, 2) ``("batch", "pixel",
+"model")`` mesh (suite "nn").
 
 One ``gloo`` group runs every case of ``tests/torch_parallel_cases.py``
 while this process runs the JAX transform on the same seeded inputs; each
@@ -27,7 +28,7 @@ NAMES = cases.suite_case_names(SUITE)
 
 
 
-def _jax_cases(m1, m2):
+def _jax_cases(m1, m2, m3):
     ref = oracle.synthetic_he_tile(64, 64, seed=42)
     big = np.concatenate([oracle.synthetic_he_tile(32, 32, seed=s, he_scale=1.1) for s in range(8)])
 
@@ -96,6 +97,18 @@ def _jax_cases(m1, m2):
             None, None),
         "dtensor_batch_index_hm": (lambda: out(
             T("histogram_matching", mode="batch", batch_ref_index=2, mesh=m2), big), None, None),
+        "mesh3d_px_reference_macenko": (lambda: out(
+            T("macenko", reference=ref, mesh=m3, pixel_axis="pixel"), big), None, None),
+        "mesh3d_px_batch_whole_reinhard": (lambda: out(
+            T("reinhard", mode="batch", batch_ref_index=None, mesh=m3, pixel_axis="pixel"), big),
+            None, None),
+        "mesh3d_px_batch_index_hm": (lambda: out(
+            T("histogram_matching", mode="batch", batch_ref_index=1, mesh=m3,
+              pixel_axis="pixel"), big), None, None),
+        # The port's batch is a DTensor of the ("batch",) mesh, called on the 2D one.
+        "dtensor_other_mesh_batch_index_macenko": (lambda: out(
+            T("macenko", mode="batch", batch_ref_index=4, mesh=m2, pixel_axis="pixel"), big),
+            None, None),
     }
 
 
@@ -106,8 +119,9 @@ def suite(tmp_path_factory):
     devices = jax.devices()[:4]
     m1 = jp.make_mesh(shape=(4,), axis_names=("batch",), devices=devices)
     m2 = jp.make_mesh(shape=(2, 2), axis_names=("batch", "pixel"), devices=devices)
+    m3 = jp.make_mesh(shape=(1, 2, 2), axis_names=("batch", "pixel", "model"), devices=devices)
     refs = {}
-    for name, (fn, fit, error) in _jax_cases(m1, m2).items():
+    for name, (fn, fit, error) in _jax_cases(m1, m2, m3).items():
         try:
             refs[name] = (fn(), fit, error)
         except Exception as exc:  # reported by the case's own test

@@ -310,7 +310,9 @@ def pixel_cases(meshes) -> dict:
 
 
 def mesh4_cases(meshes) -> dict:
-    """Suite "mesh4": the ("batch", "pixel") mesh of shape (2, 2)."""
+    """Suite "mesh4": the ("batch", "pixel") mesh of shape (2, 2); the
+    ("batch", "pixel", "model") meshes of shapes (2, 2, 1) and (1, 2, 2);
+    ("batch",) meshes of ranks 0 and 1, by ``devices`` and by shape."""
     import torch
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -369,7 +371,80 @@ def mesh4_cases(meshes) -> dict:
                                     loc.placements == (Shard(0), Shard(2))])}
 
     cases["presharded_no_copy"] = no_copy
+
+    for shape_name in ("221", "122"):
+        m3 = meshes[f"3d_{shape_name}"]
+        for method in ("macenko", "reinhard", "histogram_matching"):
+            cases[f"mesh3d_{shape_name}_fit_{method}"] = lambda m=method, m3=m3: fit_out(
+                parallel.fit_on_mesh(m, he, m3, pixel_axis="pixel"))
+            cases[f"mesh3d_{shape_name}_transform_{method}"] = lambda m=method, m3=m3: {
+                "out": _np(parallel.transform_on_mesh(m, he, _params(oracle_params(m, he[:1])), m3,
+                                                      pixel_axis="pixel"))}
+    cases["mesh3d_221_odd_h_uneven_reinhard"] = lambda: {"out": _np(parallel.transform_on_mesh(
+        "reinhard", he[:3, :, :31], _params(oracle_params("reinhard", he[3:4])), meshes["3d_221"],
+        pixel_axis="pixel"))}
+    cases["mesh3d_122_batch_only_fit_reinhard"] = lambda: fit_out(
+        parallel.fit_on_mesh("reinhard", he, meshes["3d_122"]))
+
+    def fit_sharded_3d():
+        m3 = meshes["3d_122"]
+        p = m3.get_coordinate()[1]
+        return fit_out(parallel.macenko_fit_sharded(torch.as_tensor(he[:, :, 16 * p : 16 * p + 16]),
+                                                    group=axis_group(m3, ("batch", "pixel"))))
+
+    cases["mesh3d_122_fit_sharded"] = fit_sharded_3d
+    cases["submesh_devices_fit_reinhard"] = lambda: _submesh(
+        meshes["devices01"], lambda m: fit_out(parallel.fit_on_mesh("reinhard", he, m)))
+    cases["submesh_devices_transform_macenko"] = lambda: _submesh(
+        meshes["devices01"], lambda m: {"out": _np(parallel.transform_on_mesh(
+            "macenko", he, _params(oracle_params("macenko", he[:1])), m))})
+    cases["submesh_shape_fit_histogram_matching"] = lambda: _submesh(
+        meshes["first2"], lambda m: fit_out(parallel.fit_on_mesh("histogram_matching", he, m)))
+    for method in ("macenko", "reinhard", "histogram_matching"):
+        cases[f"dtensor_other_mesh_{method}"] = lambda m=method: _other_mesh(
+            m, he, mesh, meshes["3d_221"])
     return cases
+
+
+def _submesh(mesh, run) -> dict:
+    """``run(mesh)`` on a mesh of ranks 0 and 1 in a world of 4: rank 0's
+    result on every rank, and whether the mesh holds ranks 0 and 1 and
+    ranks 2 and 3 (outside it) got ``ValueError("... not in the mesh")``."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    try:
+        result, error = run(mesh), ""
+    except ValueError as exc:
+        result, error = None, str(exc)
+    shared = [result]
+    dist.broadcast_object_list(shared, src=0)
+    outside = rank >= 2
+    return {**shared[0], "same": np.asarray([
+        mesh.mesh.flatten().tolist() == [0, 1], outside == (result is None),
+        not outside or "not in the mesh" in error])}
+
+
+def _other_mesh(method, he, mesh, other):
+    """Fit and transform on ``mesh`` of a DTensor batch that lives on
+    ``other``: the outputs, and whether they equal the plain global batch's
+    bit for bit, with the transform a DTensor on ``mesh``."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from stainx_tpu_torch import parallel
+
+    dt = distribute_tensor(torch.as_tensor(he), other, [Shard(0), Replicate(), Replicate()])
+    p_dt = parallel.fit_on_mesh(method, dt, mesh, pixel_axis="pixel")
+    p_host = parallel.fit_on_mesh(method, he, mesh, pixel_axis="pixel")
+    params = _params(oracle_params(method, he[:1]))
+    out_dt = parallel.transform_on_mesh(method, dt, params, mesh, pixel_axis="pixel")
+    out_host = parallel.transform_on_mesh(method, he, params, mesh, pixel_axis="pixel")
+    fits = p_dt if isinstance(p_dt, tuple) else (p_dt,)
+    hosts = p_host if isinstance(p_host, tuple) else (p_host,)
+    return {**fit_out(p_dt), "out": _np(out_dt), "same": np.asarray([
+        all(torch.equal(a, b) for a, b in zip(fits, hosts)), isinstance(out_dt, DTensor),
+        out_dt.device_mesh == mesh, torch.equal(out_dt.full_tensor(), out_host)])}
 
 
 def _presharded(method, he, mesh):
@@ -398,7 +473,8 @@ def _presharded(method, he, mesh):
 
 def nn_cases(meshes) -> dict:
     """Suite "nn": ``StainNormalizerTransform(mesh=...)`` on the ("batch",)
-    mesh of 4 ranks and the (2, 2) ("batch", "pixel") mesh."""
+    mesh of 4 ranks, the (2, 2) ("batch", "pixel") mesh and the (1, 2, 2)
+    ("batch", "pixel", "model") mesh."""
     import torch
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -477,6 +553,17 @@ def nn_cases(meshes) -> dict:
     cases["dtensor_batch_index_hm"] = lambda: out(
         StainNormalizerTransform("histogram_matching", mode="batch", batch_ref_index=2, mesh=m2),
         distribute_tensor(torch.as_tensor(big), m2, [Shard(0), Replicate()]))
+    m3 = meshes["3d_122"]
+    cases["mesh3d_px_reference_macenko"] = lambda: out(
+        StainNormalizerTransform("macenko", reference=ref, mesh=m3, pixel_axis="pixel"), big)
+    cases["mesh3d_px_batch_whole_reinhard"] = lambda: out(StainNormalizerTransform(
+        "reinhard", mode="batch", batch_ref_index=None, mesh=m3, pixel_axis="pixel"), big)
+    cases["mesh3d_px_batch_index_hm"] = lambda: out(StainNormalizerTransform(
+        "histogram_matching", mode="batch", batch_ref_index=1, mesh=m3, pixel_axis="pixel"), big)
+    cases["dtensor_other_mesh_batch_index_macenko"] = lambda: out(
+        StainNormalizerTransform("macenko", mode="batch", batch_ref_index=4, mesh=m2,
+                                 pixel_axis="pixel"),
+        distribute_tensor(torch.as_tensor(big), m1, [Shard(0)]))
     return cases
 
 
@@ -523,7 +610,9 @@ SUITE_CASES = {"batch": batch_cases, "pixel": pixel_cases, "mesh4": mesh4_cases,
 def suite_case_names(suite: str) -> list[str]:
     """The case names of a suite, without a process group (the meshes are
     only named)."""
-    return list(SUITE_CASES[suite]({"batch": None, "px": None, "2d": None, "batch4": None}))
+    return list(SUITE_CASES[suite]({"batch": None, "px": None, "2d": None, "batch4": None,
+                                    "3d_221": None, "3d_122": None, "devices01": None,
+                                    "first2": None}))
 
 
 # ---------------------------------------------------------------- worker
@@ -534,10 +623,16 @@ def _meshes(suite: str) -> dict:
         return {"batch": make_mesh(axis_names=("batch",), device_type="cpu")}
     if suite == "pixel":
         return {"px": make_mesh((1, 2), ("batch", "pixel"), device_type="cpu")}
+    axes3 = ("batch", "pixel", "model")
     if suite == "mesh4":
-        return {"2d": make_mesh((2, 2), ("batch", "pixel"), device_type="cpu")}
+        return {"2d": make_mesh((2, 2), ("batch", "pixel"), device_type="cpu"),
+                "3d_221": make_mesh((2, 2, 1), axes3, device_type="cpu"),
+                "3d_122": make_mesh((1, 2, 2), axes3, device_type="cpu"),
+                "devices01": make_mesh(axis_names=("batch",), device_type="cpu", devices=[0, 1]),
+                "first2": make_mesh((2,), ("batch",), device_type="cpu")}
     return {"batch4": make_mesh(axis_names=("batch",), device_type="cpu"),
-            "2d": make_mesh((2, 2), ("batch", "pixel"), device_type="cpu")}
+            "2d": make_mesh((2, 2), ("batch", "pixel"), device_type="cpu"),
+            "3d_122": make_mesh((1, 2, 2), axes3, device_type="cpu")}
 
 
 def _same(a: dict, b: dict) -> bool:
