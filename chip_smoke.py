@@ -174,6 +174,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    library call; the staged paths (c) and (d) and the staged 512² fit; and
    the sweep of B3 against B6 over rows and row lengths, in three rounds,
    that sets ``SELECT_STREAM_MIN_ELEMS`` and ``SELECT_STREAM_MAX_ROWS``.
+6. the measuring scripts (``bench_torch.py``, ``benchmarks_torch/``), each
+   ``main`` called in this process at reduced runs: the bench's last line
+   has ``bench.py``'s four keys and a finite positive value, and a call
+   launches B4 once; one tile a call at 512², 2048² and 4096², each tile
+   bit-identical on its next pass; batch mode for the three methods on
+   256×3×224² uint8, each launching kernels, and the pooled Macenko fit on
+   float32; the correctness report on uint8 and float32 with the 321×199
+   probe (32 rows), every gate passed; one grid row a method at 64×3×512²
+   uint8 within its MAE gate. Their full output goes to
+   ``build/harness.log``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -189,6 +199,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from benchmarks_torch.utils import capture_graphs, event_ms, graph_ms, replay_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -245,63 +257,6 @@ def run(cmd: list[str]) -> str:
     return subprocess.run(cmd, check=True, capture_output=True, text=True).stdout.strip()
 
 
-def event_ms(fn, inputs, iters: int) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` calls cycling ``inputs``,
-    after one warm-up call on each input, timed with CUDA events."""
-    import torch
-
-    for x in inputs:
-        fn(x)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(inputs[i % len(inputs)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def capture_graphs(fn, inputs) -> list:
-    """One CUDA graph of ``fn`` per input, captured after a warm-up call."""
-    import torch
-
-    for x in inputs:
-        fn(x)
-    torch.cuda.synchronize()
-    graphs = []
-    for x in inputs:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn(x)
-        graphs.append(graph)
-    return graphs
-
-
-def replay_ms(graphs, iters: int) -> float:
-    """Mean ms per replay over ``iters`` replays cycling ``graphs``, after
-    one replay of each."""
-    import torch
-
-    for graph in graphs:
-        graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        graphs[i % len(graphs)].replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, inputs, iters: int) -> float:
-    """Mean ms per call of ``fn`` replayed from CUDA graphs, one captured
-    per input: the device's time for the call's launches, without the
-    host's cost of issuing them."""
-    return replay_ms(capture_graphs(fn, inputs), iters)
-
-
 def profiled_ms(fn, inputs, iters: int):
     """Mean device time per call of ``fn``: the sum of the CUDA kernel and
     memset times ``torch.profiler`` records over ``iters`` eager calls, or
@@ -321,25 +276,35 @@ def profiled_ms(fn, inputs, iters: int):
     return device_us / 1e3 / iters if device_us > 0 else None
 
 
-def device_steps(call, steps: tuple[str, ...]):
+def device_steps(call, steps: tuple[str, ...], sessions: int = 3):
     """``call()``'s device work in order, as ``torch.profiler`` records it:
     each kernel's name shortened to the first of ``steps`` it holds. A
     marker kernel (a fill) runs and finishes first inside the same session
     and every event up to it is dropped, since the first launch of a
     session can go unrecorded while the tracer starts (the process's first
-    CUDA session lost B7b this way once). Returns ``(call(), names)``."""
+    CUDA session lost B7b this way once). A session that recorded nothing
+    after the marker (late in this process the profiler has recorded no
+    device event at all) is run again, up to ``sessions`` sessions; the
+    names are those of the first session that recorded any. Returns
+    ``(call(), names)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.empty(1, device="cuda").fill_(0)
-        torch.cuda.synchronize()
-        result = call()
-        torch.cuda.synchronize()
-    names = [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
-                                        if e.device_type == torch.autograd.DeviceType.CUDA)]
-    marker = next((i for i, name in enumerate(names) if "FillFunctor" in name), -1)
-    return result, [next((k for k in steps if k in name), name) for name in names[marker + 1:]]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.empty(1, device="cuda").fill_(0)
+            torch.cuda.synchronize()
+            result = call()
+            torch.cuda.synchronize()
+        names = [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                                            if e.device_type == torch.autograd.DeviceType.CUDA)]
+        marker = next((i for i, name in enumerate(names) if "FillFunctor" in name), -1)
+        names = names[marker + 1:]
+        if names:
+            break
+        print(f"device_steps: the profiler recorded no device work after the marker "
+              f"({marker + 1} event(s) before it); another session")
+    return result, [next((k for k in steps if k in name), name) for name in names]
 
 
 MESH_TIMING_ITERS = 10  # calls a mesh path is timed over, two inputs cycled
@@ -853,6 +818,92 @@ def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_
     require((os.path.exists(tilepipe_jax_so[0]),
              os.path.exists(tilepipe_jax_so[0]) and os.stat(tilepipe_jax_so[0]).st_mtime_ns)
             == tilepipe_jax_so[1:], "the run wrote the JAX package's stainx_tpu/io/_tilepipe.so")
+
+
+HARNESS_LOG = os.path.join(ROOT, "build", "harness.log")  # phase 6's full output
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's last line
+
+
+def harness_phase() -> None:
+    """Phase 6, the port's measuring scripts (``bench_torch.py`` and
+    ``benchmarks_torch/``), each ``main`` called in this process at reduced
+    runs; their full output goes to :data:`HARNESS_LOG`, a few lines each to
+    standard output."""
+    import contextlib
+    import io
+    import math
+
+    import bench_torch
+    from benchmarks_torch import bench_batch_mode, bench_serving, benchmark_grid, correctness_report
+
+    os.makedirs(os.path.dirname(HARNESS_LOG), exist_ok=True)
+    with open(HARNESS_LOG, "w") as log:
+        def call(script, main, argv):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = main(argv)
+            secs = time.perf_counter() - t0
+            log.write(f"$ {script} {' '.join(argv)} ({secs:.1f} s)\n{out.getvalue()}\n")
+            log.flush()
+            return result, out.getvalue().strip().splitlines()
+
+        bench, lines = call("bench_torch.py", bench_torch.main, ["--runs", "5"])
+        last = json.loads(lines[-1])
+        print(f"harness: {lines[0]}")
+        print(f"harness: bench_torch {bench['called_ms']:.4f} ms called, {bench['busy_ms']:.4f} "
+              f"busy, idle share {bench['idle_share']:.3f}, launches {bench['launches']}, oracle "
+              f"MAE {bench['mae']:.4f}; last line {lines[-1]}")
+        require(set(last) == BENCH_KEYS and last["metric"] == bench_torch.METRIC,
+                f"bench_torch's last line {lines[-1]} is not bench.py's four keys")
+        require(isinstance(last["value"], float) and math.isfinite(last["value"])
+                and last["value"] > 0, f"bench_torch's value {last['value']} is not positive")
+        require(bench["launches"] == {"B4": 1}, f"bench_torch launched {bench['launches']}")
+
+        serving, _ = call("benchmarks_torch.bench_serving", bench_serving.main,
+                          ["--size", "512", "2048", "4096", "--tiles", "4", "--runs", "4",
+                           "--json"])
+        for row in serving:
+            print(f"harness: serving 1x3x{row['size']}^2 u8: {row['called_ms_per_tile']:.4f} ms "
+                  f"called, {row['busy_ms_per_tile']:.4f} busy, idle share "
+                  f"{row['idle_share']:.3f}, {row['mpix_per_s']:.1f} MPix/s, {row['kernel']} "
+                  f"({row['b4_route']}), repeats bit for bit {row['repeat_bit_identical']}")
+            require(row["repeat_bit_identical"], f"serving {row['size']}^2: a tile did not repeat")
+        require([row["size"] for row in serving] == [512, 2048, 4096], "serving sizes")
+
+        batch_rows = []
+        for argv in (["--dtype", "uint8"], ["--dtype", "float32", "--pooled"]):
+            rows, _ = call("benchmarks_torch.bench_batch_mode", bench_batch_mode.main,
+                           ["--batch", "256", "--size", "224", "--runs", "5", "--json", *argv])
+            batch_rows += rows
+        for row in batch_rows:
+            print(f"harness: batch mode {row['method']} {row['mode']} {row['batch']}x3x"
+                  f"{row['size']}^2 {row['dtype']}: "
+                  f"{row['called_ms']:.4f} ms called ({row['img_per_s']:.0f} img/s), "
+                  f"{row['busy_ms']:.4f} busy, idle share {row['idle_share']:.3f}, "
+                  f"launches {row['launches']}")
+            require(row["launches"], f"batch mode {row['method']} launched no kernel")
+        require([r["method"] for r in batch_rows] == ["macenko", "reinhard", "histogram_matching",
+                                                      "macenko"], "batch mode rows")
+
+        report, _ = call("benchmarks_torch.correctness_report", correctness_report.main,
+                         ["--dtypes", "uint8", "float32", "--non-square"])
+        failed = correctness_report.failures(report)
+        print(f"harness: correctness report, {len(report)} rows, {failed} above their gate; the "
+              f"row nearest its gate: {max(report, key=lambda row: row[3] / row[4])}")
+        require(len(report) == 32 and failed == 0, f"the correctness report failed {failed} gates")
+
+        for method in ("macenko", "reinhard", "histogram_matching"):
+            (row,), _ = call("benchmarks_torch.benchmark_grid", benchmark_grid.main,
+                             ["--method", method, "--batch-size", "64", "--image-size", "512",
+                              "--runs", "5", "--json"])
+            gate = 0.35 if method == "macenko" else 1.0
+            print(f"harness: grid {method} 64x3x512^2 u8: {row['called_ms']:.4f} ms called "
+                  f"({row['mpix_per_s']:.1f} MPix/s), {row['busy_ms']:.4f} busy, idle share "
+                  f"{row['idle_share']:.3f}, MAE vs oracle {row['mae_vs_oracle']:.4f} (≤ {gate})")
+            require(row["mae_vs_oracle"] <= gate and row["mpix_per_s"] > 0,
+                    f"grid {method}: MAE {row['mae_vs_oracle']} or rate {row['mpix_per_s']}")
+    print(f"harness: full output in {os.path.relpath(HARNESS_LOG, ROOT)}")
 
 
 def main() -> int:
@@ -2485,6 +2536,11 @@ def main() -> int:
         lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"plain {r['plain_ms']:.4f} ms, library {lib_ms}")
+
+    # 6. The harness: the port's measuring scripts, in this process.
+    t0 = time.perf_counter()
+    harness_phase()
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card.splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

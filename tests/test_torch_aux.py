@@ -210,7 +210,9 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|stainx_tpu|triton)(?:\.|\
 
 def test_port_imports_no_jax_stainx_tpu_or_triton():
     sources = sorted((ROOT / "stainx_tpu_torch").rglob("*.py"))
-    sources += [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_wsi_ingest_example.py"]
+    sources += sorted((ROOT / "benchmarks_torch").glob("*.py"))
+    sources += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                ROOT / "examples" / "torch_wsi_ingest_example.py"]
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert len(sources) > 20 and not offenders, offenders
