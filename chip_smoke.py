@@ -183,7 +183,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32; the correctness report on uint8 and float32 with the 321×199
    probe (32 rows), every gate passed; one grid row a method at 64×3×512²
    uint8 within its MAE gate. Their full output goes to
-   ``build/harness.log``.
+   ``build/harness.log``;
+7. the committed structured tiles (``examples/data/``: target.png and
+   test_1..5.png, 384² RGB with white background, nuclei and texture, read
+   by ``examples_torch/_png.py``): the Macenko fit of the target (B5, on its
+   route and the other where the row fits a cluster) within HE atol 2e-5
+   and maxC rtol 1e-4 of B2's plain version, the transform of the five
+   sources as one 5×3×384² batch (B4 on both routes) within 1 grey level of
+   B1's plain version, the selections fused into B5 and B4 bit for bit
+   against B6's plain version on their keys; B7b's moments (rtol 1e-4,
+   atol 1e-2) and its finalize (bit for bit) on the target and the
+   sources, the Reinhard transform within 1 grey level of the plain steps;
+   the HM fit, counts, LUT, table and transform bit for bit; the public
+   calls launching exactly B5, B4; B7b, B7b + B7a; B8a, B8a + B8b, each
+   transform bit-identical on a second call, and timed (called and busy);
+   the numpy oracle on each tile at ``tests/test_real_data.py``'s
+   tolerances; then the port's user programs, each ``main`` called in this
+   process: ``benchmarks_torch/pareto_time_mae.py`` for the three methods
+   at ``--runs 3`` (every series a finite rate, its MAE under the gate, its
+   launches), ``examples_torch/simple_example.py``,
+   ``visualize_example.py macenko --runs 1 --save-plots``,
+   ``pipeline_example.py --epochs 1``, ``serving_example.py`` and the
+   quickstart notebook's code cells on ``cuda:0``. Their full output goes
+   to ``build/user_programs.log``, their panels to ``build/examples_torch/``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -904,6 +926,319 @@ def harness_phase() -> None:
             require(row["mae_vs_oracle"] <= gate and row["mpix_per_s"] > 0,
                     f"grid {method}: MAE {row['mae_vs_oracle']} or rate {row['mpix_per_s']}")
     print(f"harness: full output in {os.path.relpath(HARNESS_LOG, ROOT)}")
+
+
+USER_LOG = os.path.join(ROOT, "build", "user_programs.log")  # phase 7's full output
+EXAMPLES_OUT = os.path.join(ROOT, "build", "examples_torch")  # the examples' panels
+# tests/test_real_data.py's oracle tolerances on the committed tiles
+REAL_HE_RTOL, REAL_HE_ATOL, REAL_MC_RTOL, REAL_MC_ATOL = 1e-4, 1e-5, 1e-3, 1e-4
+REAL_MACENKO_MAX, REAL_MACENKO_MAE, REAL_GREY = 2.0, 0.35, 1.0
+
+
+def user_programs_phase(dev) -> None:
+    """Phase 7: the kernels on the committed structured tiles
+    (``examples/data/``: a 384² target and five 384² sources with white
+    background, nuclei and texture) against their plain versions and the
+    oracle, then the port's user programs (``benchmarks_torch/
+    pareto_time_mae.py``, ``examples_torch/``) called in this process; their
+    full output goes to :data:`USER_LOG`."""
+    import contextlib
+    import glob
+    import io
+    import math
+
+    import numpy as np
+    import numpy_reference as oracle
+    import torch
+
+    from benchmarks_torch import pareto_time_mae
+    from benchmarks_torch.utils import count_launches
+    from examples_torch import (
+        pipeline_example,
+        serving_example,
+        simple_example,
+        visualize_example,
+    )
+    from examples_torch._common import DATA_DIR, load_nchw, run_notebook
+    from examples_torch._png import read_png
+    from stainx_tpu_torch import HistogramMatching, Macenko, Reinhard, kernels
+    from stainx_tpu_torch.kernels import histogram as hk
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import macenko_stream as ms
+    from stainx_tpu_torch.kernels import reinhard_fused as rf
+    from stainx_tpu_torch.kernels import selection_stream as ss
+    from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
+    from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
+
+    # 7a. The kernels against their plain versions on the same CUDA tensors,
+    # at phase 3's gates, and the launches of each public call.
+    t0 = time.perf_counter()
+    names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(DATA_DIR, "test_*.png")))
+    target_np = load_nchw(os.path.join(DATA_DIR, "target.png"))
+    sources_np = np.concatenate([load_nchw(os.path.join(DATA_DIR, n)) for n in names])
+    require(target_np.shape == (1, 3, 384, 384) and sources_np.shape == (5, 3, 384, 384),
+            f"the committed tiles: target {target_np.shape}, sources {sources_np.shape}")
+    target, sources = torch.from_numpy(target_np).to(dev), torch.from_numpy(sources_np).to(dev)
+    tiles = f"the five 384^2 test tiles ({', '.join(names)})"
+    print(f"structured tiles: target {tuple(target.shape)}, sources {tuple(sources.shape)} u8; "
+          f"background (every channel ≥ 230) {float((sources >= 230).all(1).float().mean()):.4f} "
+          f"of the sources' pixels, {float((target >= 230).all(1).float().mean()):.4f} of the "
+          f"target's")
+    smem = kernels.device_limits(dev.index)[1]
+
+    def routes(x, fit):
+        n, _, h, w = x.shape
+        row_len = n * h * w if fit else h * w
+        default = ms.route(row_len, x.dtype, smem)
+        fits = ms.fits_cluster(row_len, x.element_size(), smem)
+        return [default] + [r for r in ("cluster", "stream") if r != default and fits]
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def check_fused(label, x, he, mc, fit, force):
+        """The selections fused into B4 or B5, bit for bit against B6's plain
+        version on the keys the call selected on; two calls the same bits."""
+        def call():
+            out = None if fit else torch.empty_like(x)
+            return ms._run(x, out, he.contiguous(), mc.contiguous(), fit=fit, force=force)
+
+        params, again = call(), call()
+        angles, conc = ms.kernel_keys(x, params, fit)
+        cnt = (angles < torch.inf).sum(1)
+        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                             nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
+        top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
+        phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
+        idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
+                           device=dev)
+        maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
+        torch.cuda.synchronize()
+        same = (torch.equal(bits(phi), bits(params[:, ms.PHI_COLUMNS])),
+                torch.equal(bits(maxc), bits(params[:, ms.MAXC_COLUMNS])))
+        print(f"fused selections of {'B5' if fit else 'B4'} {label}, {force} route: "
+              f"{int(cnt.min())}-{int(cnt.max())} of {angles.shape[1]} pixels past beta; phi, "
+              f"maxC bit-exact {same}")
+        require(all(same), f"{label}: a fused selection differs from B6's plain version")
+        stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
+        require(torch.equal(bits(stats(params)), bits(stats(again))),
+                f"{label}: two runs' statistics differ")
+
+    def launched(label, call, want):
+        result, got = count_launches(call)
+        print(f"{label}: launches {got}")
+        require(got == want, f"{label}: launched {got}, not {want}")
+        return result
+
+    # Macenko: the fit (B5) and the transform (B4).
+    macenko = Macenko(device=dev)
+    launched("Macenko().fit(target)", lambda: macenko.fit(target), {"B5": 1})
+    he, mc = macenko._stain_matrix, macenko._target_max_conc
+    he_p, mc_p = mf.macenko_fit_mega_plain(target)
+    fit_routes = routes(target, True)
+    for force in fit_routes:
+        he5, mc5 = ms.macenko_fit_stream(target, force=force)
+        again = ms.macenko_fit_stream(target, force=force)
+        torch.cuda.synchronize()
+        he_err = (he5 - he_p).abs().max().item()
+        mc_rel = ((mc5 - mc_p).abs() / mc_p.abs()).max().item()
+        print(f"B5 fit target 1x3x384^2 u8, {force} route: HE max|d| {he_err:.3g} (atol 2e-5), "
+              f"maxC max rel {mc_rel:.3g} (rtol 1e-4)")
+        torch.testing.assert_close(he5, he_p, atol=2e-5, rtol=0)
+        torch.testing.assert_close(mc5, mc_p, atol=0, rtol=1e-4)
+        require(torch.equal(again[0], he5) and torch.equal(again[1], mc5),
+                f"the target's B5 fit ({force} route): two runs differ")
+        if force == fit_routes[0]:  # the route the public fit took
+            require(torch.equal(he5, he) and torch.equal(mc5, mc),
+                    "Macenko().fit(target) differs from B5 on its own route")
+        check_fused("target 1x3x384^2 u8", target, he, mc, True, force)
+    out_m = launched(f"Macenko.transform of {tiles}", lambda: macenko.transform(sources),
+                     {"B4": 1})
+    plain_m = mf.macenko_transform_mega_plain(sources, he, mc)
+    for force in routes(sources, False):
+        out_k = ms.macenko_transform_stream(sources, he, mc, force=force)
+        torch.cuda.synchronize()
+        err = (out_k.float() - plain_m.float()).abs().max().item()
+        print(f"B4 transform 5x3x384^2 u8, {force} route: max|d| {err:.3g} grey levels from B1's "
+              f"plain version (tolerance 1), {(out_k != plain_m).float().mean().item():.6f} differ")
+        require(err <= 1.0, f"B4 ({force} route) on the tiles: {err} grey levels from plain")
+        check_fused("5x3x384^2 u8", sources, he, mc, False, force)
+    require(torch.equal(macenko.transform(sources), out_m), "two Macenko transforms differ")
+
+    # Reinhard: the fit (B7b and its finalize) and the transform (B7b, B7a).
+    for label, x in [("target 1x3x384^2", target), ("sources 5x3x384^2", sources)]:
+        s_k, s_p = torch.cat(rf.reinhard_moments(x)), torch.cat(rf.reinhard_moments_plain(x))
+        mean_k, std_k = rf.reinhard_mean_std(x)
+        mean_f, std_f = moments_to_mean_std(x.shape[0] * x.shape[2] * x.shape[3],
+                                            *rf.reinhard_moments(x))
+        torch.cuda.synchronize()
+        rel = ((s_k - s_p).abs() / s_p.abs()).max().item()
+        exact = torch.equal(mean_k, mean_f) and torch.equal(std_k, std_f)
+        print(f"B7b moments {label} u8: max|d| {(s_k - s_p).abs().max().item():.6g}, max rel "
+              f"{rel:.3g} (rtol 1e-4, atol 1e-2); the finalize's mean and std equal to "
+              f"moments_to_mean_std {exact}")
+        torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-2)
+        require(exact, f"{label}: B7b's finalize differs from moments_to_mean_std")
+    reinhard = Reinhard(device=dev)
+    launched("Reinhard().fit(target)", lambda: reinhard.fit(target), {"B7b": 1})
+    ref_mean, ref_std = reinhard._reference_mean, reinhard._reference_std
+    out_r = launched(f"Reinhard.transform of {tiles}", lambda: reinhard.transform(sources),
+                     {"B7b": 1, "B7a": 1})
+    n_px = sources.shape[0] * sources.shape[2] * sources.shape[3]
+    src_stats = moments_to_mean_std(n_px, *rf.reinhard_moments_plain(sources))
+    plain_r = rf.reinhard_apply_plain(sources, *src_stats, ref_mean, ref_std)
+    apply_k = rf.reinhard_apply(sources, *rf.reinhard_mean_std(sources), ref_mean, ref_std)
+    torch.cuda.synchronize()
+    err_r = (out_r.float() - plain_r.float()).abs().max().item()
+    err_a = (apply_k.float() - plain_r.float()).abs().max().item()
+    print(f"Reinhard transform (B7b, B7a) of the tiles: max|d| {err_r:.3g} from the plain steps "
+          f"(tolerance 1), {(out_r != plain_r).float().mean().item():.6f} differ; B7a alone on "
+          f"B7b's statistics {err_a:.3g}")
+    require(err_r <= 1.0 and err_a <= 1.0, f"Reinhard on the tiles: {err_r}, {err_a} grey levels")
+    require(torch.equal(reinhard.transform(sources), out_r), "two Reinhard transforms differ")
+
+    # Histogram matching: the fit (B8a, its finalize) and the transform (B8a,
+    # the finalize that builds the LUT and its table, B8b): bit for bit.
+    hist_match = HistogramMatching(device=dev)
+    launched("HistogramMatching().fit(target)", lambda: hist_match.fit(target), {"B8a": 1})
+    ref_hist = hist_match._ref_histograms_256
+    values = sources.reshape(5, 3, -1)
+    counts_p = hk.histogram_256_plain(values)
+    same_fit = torch.equal(ref_hist, hk.normalized_histogram(
+        hk.histogram_256_plain(target.reshape(1, 3, -1))))
+    same_hist = torch.equal(hk.histogram_256(values), counts_p)
+    out_h = launched(f"HistogramMatching.transform of {tiles}",
+                     lambda: hist_match.transform(sources), {"B8a": 1, "B8b": 1})
+    _, lut_k, table_k = hk.hm_transfer(values, ref_hist, torch.uint8)
+    lut_p = hk.hm_build_lut(counts_p, ref_hist, float(values.shape[0] * values.shape[2]))
+    plain_h = hk.apply_lut_plain(values, lut_p, torch.uint8).reshape(sources.shape)
+    torch.cuda.synchronize()
+    same = (same_fit, same_hist, torch.equal(lut_k, lut_p),
+            torch.equal(table_k, hk.lut_table(lut_p, torch.uint8)), torch.equal(out_h, plain_h))
+    print(f"HM on the tiles: fit histogram, B8a counts, LUT, table, output equal to the plain "
+          f"steps {same}; pinned LUT entries {int((lut_p == 0).sum())} at 0, "
+          f"{int((lut_p == 255).sum())} at 255")
+    require(all(same), "HM on the tiles differs from its plain steps")
+    require(torch.equal(hist_match.transform(sources), out_h), "two HM transforms differ")
+
+    pair = [sources, sources.flip(0).contiguous()]
+    for label, call in [("Macenko", macenko.transform), ("Reinhard", reinhard.transform),
+                        ("HistogramMatching", hist_match.transform)]:
+        called, busy = event_ms(call, pair, 20), graph_ms(call, pair, 20)
+        print(f"{label}.transform of the five 384^2 tiles: {called:.4f} ms called "
+              f"({5 * 384 * 384 / called / 1e3:.1f} MPix/s), {busy:.4f} busy, idle share "
+              f"{1.0 - busy / called:.3f}")
+    print(f"phase 7a: {time.perf_counter() - t0:.1f} s")
+
+    # 7b. The oracle on each tile, at tests/test_real_data.py's tolerances.
+    t0 = time.perf_counter()
+    he_o, mc_o = oracle.macenko_fit(target_np)
+    np.testing.assert_allclose(he.cpu().numpy(), he_o, rtol=REAL_HE_RTOL, atol=REAL_HE_ATOL)
+    np.testing.assert_allclose(mc.cpu().numpy(), mc_o, rtol=REAL_MC_RTOL, atol=REAL_MC_ATOL)
+    params_o, hists_o = oracle.reinhard_fit(target_np), oracle.hm_fit(target_np)
+    worst = {"macenko max": 0.0, "macenko MAE": 0.0, "reinhard": 0.0, "histogram_matching": 0.0}
+    for i, name in enumerate(names):
+        tile_np, tile = sources_np[i:i + 1], sources[i:i + 1]
+        d_m = np.abs(macenko.transform(tile).cpu().numpy().astype(np.float32)
+                     - oracle.macenko_transform(tile_np, he_o, mc_o).astype(np.float32))
+        d_r = np.abs(Reinhard(device=dev).fit(target).transform(tile).cpu().numpy()
+                     .astype(np.float32)
+                     - oracle.reinhard_transform(tile_np, *params_o).astype(np.float32)).max()
+        d_h = np.abs(HistogramMatching(device=dev).fit(target).transform(tile).cpu().numpy()
+                     .astype(np.float32)
+                     - oracle.hm_transform(tile_np, hists_o).astype(np.float32)).max()
+        print(f"oracle {name}: Macenko max|d| {d_m.max()} (gate 2), MAE {d_m.mean():.6f} "
+              f"(gate 0.35); Reinhard max|d| {d_r}, HM max|d| {d_h} (gate 1)")
+        require(d_m.max() <= REAL_MACENKO_MAX and d_m.mean() <= REAL_MACENKO_MAE,
+                f"{name}: Macenko {d_m.max()} / {d_m.mean()} from the oracle")
+        require(d_r <= REAL_GREY and d_h <= REAL_GREY, f"{name}: Reinhard {d_r}, HM {d_h}")
+        worst = {"macenko max": max(worst["macenko max"], float(d_m.max())),
+                 "macenko MAE": max(worst["macenko MAE"], float(d_m.mean())),
+                 "reinhard": max(worst["reinhard"], float(d_r)),
+                 "histogram_matching": max(worst["histogram_matching"], float(d_h))}
+    print(f"oracle on the tiles: fit HE and maxC within rtol {REAL_HE_RTOL} / {REAL_MC_RTOL}; "
+          f"worst tile {worst}")
+    print(f"phase 7b: {time.perf_counter() - t0:.1f} s")
+
+    # 7c. The user programs, each main called in this process.
+    t0 = time.perf_counter()
+    os.makedirs(EXAMPLES_OUT, exist_ok=True)
+    with open(USER_LOG, "w") as log:
+        def call(script, main, argv):
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = main(argv)
+            log.write(f"$ {script} {' '.join(argv)} ({time.perf_counter() - t1:.1f} s)\n"
+                      f"{out.getvalue()}\n")
+            log.flush()
+            lines = out.getvalue().strip().splitlines()
+            require(bool(lines), f"{script} printed nothing")
+            return result, lines
+
+        modes = {"macenko": ["numpy_oracle_cpu", "cuda_stable", "cuda_fast"],
+                 "reinhard": ["numpy_oracle_cpu", "cuda"],
+                 "histogram_matching": ["numpy_oracle_cpu", "cuda"]}
+        pareto_launches = {"macenko": {"B4": 1}, "reinhard": {"B7b": 1, "B7a": 1},
+                           "histogram_matching": {"B8a": 1, "B8b": 1}}
+        for method, want in modes.items():
+            rows, lines = call("benchmarks_torch.pareto_time_mae", pareto_time_mae.main,
+                               ["--method", method, "--runs", "3", "--json"])
+            if method == "macenko":
+                print(f"programs: {lines[0]}")
+            for row in rows:
+                print(f"programs: pareto {method} {row['mode']}: {row['img_per_s']:.2f} img/s "
+                      f"({row['ms_per_batch']:.4f} ms a batch of {pareto_time_mae.BATCH}), MAE "
+                      f"{row['mae']:.6f}, launches {row['launches']}")
+                require(math.isfinite(row["img_per_s"]) and row["img_per_s"] > 0,
+                        f"pareto {method} {row['mode']}: rate {row['img_per_s']}")
+                require(row["mae"] <= (0.35 if method == "macenko" else 1.0),
+                        f"pareto {method} {row['mode']}: MAE {row['mae']}")
+                if row["mode"].startswith("cuda"):
+                    require(row["launches"] == pareto_launches[method],
+                            f"pareto {method} {row['mode']} launched {row['launches']}")
+            require([row["mode"] for row in rows] == want, f"pareto {method} series {rows}")
+
+        panel_path = os.path.join(EXAMPLES_OUT, "normalized.png")
+        simple, lines = call("examples_torch/simple_example.py", simple_example.main,
+                             ["--out", panel_path])
+        require(np.array_equal(read_png(panel_path), simple["panel"]),
+                "simple_example's PNG does not read back as its panel")
+        print(f"programs: simple_example: {lines[-1]}")
+
+        vis, lines = call("examples_torch/visualize_example.py", visualize_example.main,
+                          ["macenko", "--runs", "1", "--save-plots", "--output-dir",
+                           EXAMPLES_OUT])
+        require(vis["names"] == names and len(vis["results"]) == 5,
+                f"visualize_example read {vis['names']}")
+        require(np.array_equal(read_png(vis["panel"]), visualize_example.panel(
+            vis["reference"], vis["sources"], vis["results"])), "visualize_example's panel")
+        print(f"programs: visualize_example: {lines[-2]}")
+
+        pipe, lines = call("examples_torch/pipeline_example.py", pipeline_example.main,
+                           ["--epochs", "1"])
+        for key in ("out", "batch_mode_out"):
+            y = pipe[key]
+            require(y.is_cuda and y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+                    and 0.0 <= float(y.min()) and float(y.max()) <= 1.0,
+                    f"pipeline_example's {key} is not float [0, 1] on the card")
+        print(f"programs: pipeline_example: {lines[0]}")
+
+        serve, lines = call("examples_torch/serving_example.py", serving_example.main, [])
+        require(len(serve["outputs"]) == 8 and all(o.is_cuda for o in serve["outputs"]),
+                "serving_example's outputs")
+        print(f"programs: serving_example: {lines[-1]}")
+
+        notebook, lines = call("examples_torch/quickstart_notebook.ipynb",
+                               lambda _argv: run_notebook(), [])
+        y = notebook["model_input"]
+        require(notebook["DEVICE"] == "cuda:0" and notebook["normalized"].is_cuda
+                and y.is_cuda and 0.0 <= float(y.min()) and float(y.max()) <= 1.0,
+                "the notebook's cells did not run on the card")
+        print(f"programs: quickstart_notebook: {len(lines)} lines of output; last {lines[-1]}")
+    print(f"programs: full output in {os.path.relpath(USER_LOG, ROOT)}")
+    print(f"phase 7c: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2541,6 +2876,11 @@ def main() -> int:
     t0 = time.perf_counter()
     harness_phase()
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # 7. The committed structured tiles, and the port's user programs.
+    t0 = time.perf_counter()
+    user_programs_phase(dev)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card.splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
