@@ -205,7 +205,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``visualize_example.py macenko --runs 1 --save-plots``,
    ``pipeline_example.py --epochs 1``, ``serving_example.py`` and the
    quickstart notebook's code cells on ``cuda:0``. Their full output goes
-   to ``build/user_programs.log``, their panels to ``build/examples_torch/``.
+   to ``build/user_programs.log``, their panels to ``build/examples_torch/``;
+8. the API pages ``docs_torch/gen_api.py`` renders under this machine's
+   torch, equal to the committed ``docs_torch/api/*.md``; then seeded
+   random shapes (from ``--seed``) on both sides of every kernel's route
+   edge, each edge read on this card: ``tests/test_fuzz_parity.py``'s 24
+   cases (odd extents of 17-96, uint8 and float32, the numpy oracle at
+   that sweep's gates too), B1's resident body or its L2 body, B1 or B4 by
+   pixels and by rows (512 and 513 rows of 224² uint8, 256 and 257 of 160²
+   float32), B2 or B5 (pools of one to three images), the cluster or the
+   streamed route, each at the size on either side of the edge and
+   ``EDGE_DRAWS`` sizes drawn within 1 % of it on each side; a batch view
+   at an odd byte offset and an NHWC-strided batch (uint8 and float32),
+   the histogram's split at 32 768 values a channel, a tile with two
+   pixels past β and the negative-maxC tile; B3 or B6 through
+   ``ops/macenko._select`` at 32 and 33 rows of 2²² − 1 and 2²² elements,
+   and the public staged route on bfloat16 2048² and float16 2047×2049.
+   Every case runs Macenko, Reinhard and histogram matching fit ->
+   transform through the public API with the launches the route ladder
+   names for its sizes, each kernel against its plain version at phase 3's
+   gates (the selections fused into B4 and B5 and B1's and B2's on their
+   own keys bit for bit), and a second run's bits; one line a case, then
+   the routes seen on each side of each edge and the worst error a kernel.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Data is synthetic, made from ``--seed``.
@@ -273,6 +294,98 @@ def require(ok: bool, what: str) -> None:
     """Fail the run when a check does not hold (kept under ``python -O``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def largest(fits) -> int:
+    """The largest size up to 2^24 for which ``fits(size)`` holds, where it
+    holds up to some size and never past it."""
+    lo, hi = 1, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def _int_bits(t):
+    import torch
+
+    return t.contiguous().view(torch.int32)
+
+
+def fused_selections(x, he, mc, fit: bool, force: str) -> dict:
+    """Check only: a B4 (``fit`` False) or B5 call on ``force``'s route, run
+    twice. Whether the pseudo-angles and maxC it selected (its RowParams)
+    equal, bit for bit, B6's plain version on the keys the call selected on
+    (which a check-only entry of the kernel source writes with the kernels'
+    own device functions), and whether the second run's statistics are the
+    same bits; with the fields' shapes and the pixels past beta a row."""
+    import torch
+
+    from stainx_tpu_torch.kernels import macenko_stream as ms
+    from stainx_tpu_torch.kernels import selection_stream as ss
+    from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
+
+    def call():
+        out = None if fit else torch.empty_like(x)
+        return ms._run(x, out, he.contiguous(), mc.contiguous(), fit=fit, force=force)
+
+    params, again = call(), call()
+    angles, conc = ms.kernel_keys(x, params, fit)
+    cnt = (angles < torch.inf).sum(1)
+    ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                         nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
+    top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
+    phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
+    idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
+                       device=x.device)
+    maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
+    torch.cuda.synchronize()
+    stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
+    return {"phi": torch.equal(_int_bits(phi), _int_bits(params[:, ms.PHI_COLUMNS])),
+            "maxc": torch.equal(_int_bits(maxc), _int_bits(params[:, ms.MAXC_COLUMNS])),
+            "repeat": torch.equal(_int_bits(stats(params)), _int_bits(stats(again))),
+            "angles": tuple(angles.shape), "conc": tuple(conc.shape),
+            "past_beta": (int(cnt.min()), int(cnt.max()))}
+
+
+def one_block_selections(x, he, mc, fit: bool):
+    """Check only: B2's selections (``fit``) or those of B1's resident body
+    against ``kth_smallest`` on the keys the kernel selected on, which a
+    check-only launch of the same kernel keeps. Returns ``(exact,
+    (fewest, most) pixels in the angle selections, the checked launch's
+    output or (HE, maxC))``."""
+    import torch
+
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import selection as sel
+    from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops.percentile import (
+        kth_smallest,
+        nearest_rank_index,
+        static_nearest_rank_index,
+    )
+
+    if fit:
+        he_s, mc_s, keys, got = mf.fit_selections(x)
+        keys, got, result = keys[None], got[None], (he_s, mc_s)
+        p = x.shape[0] * x.shape[2] * x.shape[3]
+    else:
+        result, keys, got = mf.resident_selections(x, he, mc)
+        p = x.shape[2] * x.shape[3]
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    vals = sel.unkey(k)
+    member = k[:, 0] < 0xFF800000
+    cnt = member.sum(-1)
+    ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
+                         nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
+    idx = torch.full((keys.shape[0],), static_nearest_rank_index(99, p), device=x.device)
+    want = torch.cat([kth_smallest(vals[:, 0], ranks, member),
+                      kth_smallest(vals[:, 1], idx)[:, None],
+                      kth_smallest(vals[:, 2], idx)[:, None]], -1)
+    torch.cuda.synchronize()
+    return (torch.equal(_int_bits(got), _int_bits(want)), (int(cnt.min()), int(cnt.max())),
+            result)
 
 
 def run(cmd: list[str]) -> str:
@@ -966,9 +1079,6 @@ def user_programs_phase(dev) -> None:
     from stainx_tpu_torch.kernels import macenko_fused as mf
     from stainx_tpu_torch.kernels import macenko_stream as ms
     from stainx_tpu_torch.kernels import reinhard_fused as rf
-    from stainx_tpu_torch.kernels import selection_stream as ss
-    from stainx_tpu_torch.ops import macenko as mk
-    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
 
     # 7a. The kernels against their plain versions on the same CUDA tensors,
@@ -1000,30 +1110,13 @@ def user_programs_phase(dev) -> None:
     def check_fused(label, x, he, mc, fit, force):
         """The selections fused into B4 or B5, bit for bit against B6's plain
         version on the keys the call selected on; two calls the same bits."""
-        def call():
-            out = None if fit else torch.empty_like(x)
-            return ms._run(x, out, he.contiguous(), mc.contiguous(), fit=fit, force=force)
-
-        params, again = call(), call()
-        angles, conc = ms.kernel_keys(x, params, fit)
-        cnt = (angles < torch.inf).sum(1)
-        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                             nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
-        top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
-        phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
-        idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
-                           device=dev)
-        maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
-        torch.cuda.synchronize()
-        same = (torch.equal(bits(phi), bits(params[:, ms.PHI_COLUMNS])),
-                torch.equal(bits(maxc), bits(params[:, ms.MAXC_COLUMNS])))
+        r = fused_selections(x, he, mc, fit, force)
         print(f"fused selections of {'B5' if fit else 'B4'} {label}, {force} route: "
-              f"{int(cnt.min())}-{int(cnt.max())} of {angles.shape[1]} pixels past beta; phi, "
-              f"maxC bit-exact {same}")
-        require(all(same), f"{label}: a fused selection differs from B6's plain version")
-        stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
-        require(torch.equal(bits(stats(params)), bits(stats(again))),
-                f"{label}: two runs' statistics differ")
+              f"{r['past_beta'][0]}-{r['past_beta'][1]} of {r['angles'][1]} pixels past beta; "
+              f"phi, maxC bit-exact {(r['phi'], r['maxc'])}")
+        require(r["phi"] and r["maxc"],
+                f"{label}: a fused selection differs from B6's plain version")
+        require(r["repeat"], f"{label}: two runs' statistics differ")
 
     def launched(label, call, want):
         result, got = count_launches(call)
@@ -1241,6 +1334,456 @@ def user_programs_phase(dev) -> None:
     print(f"phase 7c: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 8: seeded random shapes on both sides of every kernel's route edge.
+SWEEP_SEEDS = 12  # tests/test_fuzz_parity.py's cases
+EDGE_DRAWS = 2  # random draws a side of an edge, beside the size at the edge
+
+
+def _sweep_case(oracle, seed: int):
+    """``(ref, batch)`` of ``tests/test_fuzz_parity.py::_random_case`` (that
+    file imports the JAX package): odd sizes of 17-96, batches of 1-4, a
+    white patch in half the cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w, n = int(rng.integers(17, 97)), int(rng.integers(17, 97)), int(rng.integers(1, 5))
+    ref = oracle.synthetic_he_tile(h, w, seed=seed * 7 + 1, he_scale=float(rng.uniform(0.9, 1.1)))
+    tiles = [oracle.synthetic_he_tile(h, w, seed=seed * 31 + i,
+                                      he_scale=float(rng.uniform(0.85, 1.2))) for i in range(n)]
+    batch = np.concatenate(tiles, axis=0)
+    if rng.random() < 0.5 and h > 8 and w > 8:
+        batch[0, :, : h // 4, : w // 4] = 255
+    return ref, batch
+
+
+def negative_maxc_tile(seed: int):
+    """(1, 3, 64, 64) uint8: the OD design of ``tests/test_kernels.py::
+    test_negative_max_concentration_tile`` (seed 0 is its tile; numpy only):
+    a bulk cluster, an anchor and a satellite clump more than pi away in
+    the stain plane over a diluted background, so the tile's fit gives a
+    negative maxC."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_bg, n_sat, n_anchor = 2560, 20, 16
+    n_bulk = 64 * 64 - n_bg - n_sat - n_anchor
+    d = np.ones(3) / np.sqrt(3)
+    t1 = np.array([1.0, -1.0, 0.0]) / np.sqrt(2)
+    t2 = np.array([1.0, 1.0, -2.0]) / np.sqrt(6)
+
+    def v(psi):
+        return np.cos(psi)[..., None] * t1 + np.sin(psi)[..., None] * t2
+
+    psis, rs = rng.uniform(0.05, 0.2, n_bulk), rng.uniform(0.06, 0.10, n_bulk)
+    od = np.concatenate([0.5 * d + rs[:, None] * v(psis),
+                         0.5 * d + 0.08 * v(np.full(n_anchor, -0.2)),
+                         0.5 * d + 0.09 * v(-2.8 + rng.uniform(-0.02, 0.02, n_sat)),
+                         np.tile(0.17 * (0.5 * d + 0.08 * v(np.array(0.125))), (n_bg, 1))])
+    tile = np.clip(np.round(240.0 * np.exp(-od) - 1.0), 0, 255).astype(np.uint8)
+    rng.shuffle(tile, axis=0)
+    return np.ascontiguousarray(tile.T.reshape(1, 3, 64, 64))
+
+
+def docs_pages_check() -> None:
+    """The port's API pages (``docs_torch/gen_api.py``) regenerated with this
+    machine's torch must equal the committed ``docs_torch/api/*.md``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "docs_torch_gen_api", os.path.join(ROOT, "docs_torch", "gen_api.py"))
+    gen_api = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_api)
+    pages = gen_api.build_pages()
+    differ = []
+    for name, body in sorted(pages.items()):
+        path = os.path.join(gen_api.OUT_DIR, name)
+        if not os.path.isfile(path) or Path(path).read_text() != body:
+            differ.append(name)
+    orphans = sorted(set(os.listdir(gen_api.OUT_DIR)) - set(pages))
+    print(f"API pages: {len(pages)} regenerated here, differ from the committed: {differ}, "
+          f"orphans: {orphans}")
+    require(not differ and not orphans,
+            f"docs_torch/api differs on this machine: {differ} {orphans}")
+
+
+def random_shapes_phase(seed: int, dev) -> None:
+    """Phase 8: seeded random shapes on both sides of every kernel's route
+    edge (module docstring). Every case is held at phase 3's gates, its
+    launches are those the ladder names for its size, and two runs give
+    the same bits; each prints one line."""
+    import math
+
+    import numpy as np
+    import numpy_reference as oracle
+    import torch
+
+    from benchmarks_torch.utils import count_launches
+    from stainx_tpu_torch import HistogramMatching, Macenko, Reinhard, kernels
+    from stainx_tpu_torch.kernels import histogram as hk
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import macenko_stream as ms
+    from stainx_tpu_torch.kernels import reinhard_fused as rf
+    from stainx_tpu_torch.kernels import selection as sel
+    from stainx_tpu_torch.kernels import selection_stream as ss
+    from stainx_tpu_torch.ops import color
+    from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index
+    from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
+    from stainx_tpu_torch.testing import HE_REF
+
+    t_start = time.perf_counter()
+    docs_pages_check()
+    smem = kernels.device_limits(dev.index)[1]
+    rng = np.random.default_rng(seed + 8000)
+    u8, f32 = torch.uint8, torch.float32
+
+    # The edges, read on this card (the ladder's constants where they are
+    # constants, the shared memory's limits where the card sets them).
+    resident = {dt: largest(lambda p, dt=dt: mf.transform_body(p, dt, smem) == "resident")
+                for dt in (u8, f32)}
+    b2_pool = {dt: largest(lambda p, dt=dt: mk.fit_route(p, dt, smem) == "mega")
+               for dt in (u8, f32)}
+    cluster = {dt: largest(lambda p, dt=dt: ms.fits_cluster(p, 1 if dt == u8 else 4, smem))
+               for dt in (u8, f32)}
+    stream_min = {u8: mk.STREAM_MIN_ELEMS, f32: mk.STREAM_MIN_ELEMS_F32}
+    stream_rows = {u8: mk.STREAM_MAX_ROWS, f32: mk.STREAM_MAX_ROWS_F32}
+    print(f"phase 8 edges on this card ({smem} bytes of shared memory a block): B1 resident up to "
+          f"{resident[u8]} u8 / {resident[f32]} f32 pixels; B1 or B4 from {stream_min[u8]} u8 / "
+          f"{stream_min[f32]} f32 pixels a row, up to {stream_rows[u8]} / {stream_rows[f32]} rows; "
+          f"B2 up to {b2_pool[u8]} u8 / {b2_pool[f32]} f32 pooled pixels; the cluster route up to "
+          f"{cluster[u8]} u8 / {cluster[f32]} f32 pixels a row; B3 or B6 from "
+          f"{mk.SELECT_STREAM_MIN_ELEMS} elements, up to {mk.SELECT_STREAM_MAX_ROWS} rows")
+
+    def tiles(n, h, w, dtype, case_seed):
+        """(n, 3, h, w) Beer-Lambert H&E tiles made on the card."""
+        g = torch.Generator(device=dev).manual_seed(case_seed)
+        scale = 0.9 + 0.3 * torch.rand((), generator=g, device=dev)
+        he = torch.tensor(HE_REF, device=dev) * scale
+        conc = torch.stack([0.3 + 1.8 * torch.rand((n, h * w), generator=g, device=dev),
+                            0.2 + torch.rand((n, h * w), generator=g, device=dev)], 1)
+        x = torch.clamp(240.0 * torch.exp(-torch.einsum("cs,nsp->ncp", he, conc)), 0.0, 255.0)
+        x = x.to(u8).reshape(n, 3, h, w)
+        return x if dtype == u8 else x.to(f32) / 255.0
+
+    def shape_of(size: int, per: int) -> tuple[int, int]:
+        """A random H (from 2/3 to 3/2 of the square's side) and the W that
+        brings H * W * per nearest ``size``."""
+        target = size // per
+        side = math.isqrt(target)
+        h = int(rng.integers(max(1, side * 2 // 3), side * 3 // 2 + 2))
+        return h, max(1, round(target / h))
+
+    def exact_shape(p: int) -> tuple[int, int]:
+        """The most square H x W of exactly p pixels (1 x p for a prime)."""
+        h = math.isqrt(p)
+        while p % h:
+            h -= 1
+        return h, p // h
+
+    def within(edge: int, side: str, per: int = 1):
+        """H and W of a random draw with H * W * per within 1 % of ``edge``
+        (the first size above it) on ``side``."""
+        lo, hi = ((math.ceil(0.99 * edge), edge - 1) if side == "below"
+                  else (edge, math.floor(1.01 * edge)))
+        while True:
+            h, w = shape_of(int(rng.integers(lo, hi + 1)), per)
+            if lo <= h * w * per <= hi:
+                return h, w
+
+    # ----------------------------------------------------------- checks
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def launched(label, call, want):
+        result, got = count_launches(call)
+        require(got == want, f"phase 8, {label}: launched {got}, not {want}")
+        return result, got
+
+    worst = {k: 0.0 for k in ("B1", "B2", "B4", "B5", "B7b", "B7a", "B8a", "B8b", "B3", "B6")}
+    sides: dict[str, dict[str, set]] = {}
+
+    def record(edge, side, route):
+        if edge:
+            sides.setdefault(edge, {"below": set(), "above": set()})[side].add(route)
+
+    def run_case(label, ref, batch, edge=None, side=None, hm_pair=None, oracle_np=None,
+                 ill_posed=False):
+        """Macenko, Reinhard and histogram matching fit -> transform on one
+        case, each against its plain version. ``ill_posed``: a tile whose
+        Macenko percentile picks flip with the last ulp of a key (the
+        negative-maxC design), held as ``tests/test_kernels.py`` holds it:
+        the kernels' selections exact on their own keys, the fit's maxC
+        negative, the transform finite and under half of it saturated."""
+        n, _, h, w = batch.shape
+        dt = batch.dtype
+        grey = 1.0 if dt == u8 else 1.0 / 255.0
+        pool = ref.shape[0] * ref.shape[2] * ref.shape[3]
+        fit_k = "B2" if pool <= b2_pool[dt] else "B5"
+        tr_k = "B4" if h * w >= stream_min[dt] and n <= stream_rows[dt] else "B1"
+        fit_route = "resident" if fit_k == "B2" else ms.route(pool, dt, smem)
+        tr_route = ms.route(h * w, dt, smem) if tr_k == "B4" else mf.transform_body(h * w, dt, smem)
+        ref_c, x_c = ref.contiguous(), batch.contiguous()
+        # Macenko: the fit, then the transform.
+        macenko = Macenko(device=dev)
+        launched(f"{label} Macenko fit", lambda: macenko.fit(ref), {fit_k: 1})
+        he, mc = macenko._stain_matrix, macenko._target_max_conc
+        he_p, mc_p = mf.macenko_fit_mega_plain(ref_c)
+        again = Macenko(device=dev).fit(ref)
+        fit_err = (he - he_p).abs().nan_to_num(0.0).max().item()
+        mc_rel = ((mc - mc_p).abs() / mc_p.abs()).nan_to_num(0.0).max().item()
+        if ill_posed:
+            require(float(mc.min()) < 0.0 and float(mc_p.min()) < 0.0,
+                    f"phase 8, {label}: maxC {mc.tolist()}, plain {mc_p.tolist()}, not negative")
+        else:
+            require(torch.equal(he.isnan(), he_p.isnan()) and torch.equal(mc.isnan(), mc_p.isnan())
+                    and fit_err <= 2e-5 and mc_rel <= 1e-4,
+                    f"phase 8, {label}: {fit_k} HE {fit_err}, maxC relative {mc_rel} from its "
+                    f"plain version (HE atol 2e-5, maxC rtol 1e-4)")
+        require(torch.equal(bits(he), bits(again._stain_matrix))
+                and torch.equal(bits(mc), bits(again._target_max_conc)),
+                f"phase 8, {label}: two fits differ")
+        if fit_k == "B5":
+            r = fused_selections(ref_c, he, mc, True, fit_route)
+            fit_sel = r["phi"] and r["maxc"] and r["repeat"]
+        else:
+            fit_sel = one_block_selections(ref_c, he, mc, True)[0]
+        require(fit_sel, f"phase 8, {label}: {fit_k}'s selections differ from the plain select")
+        out, _ = launched(f"{label} Macenko transform", lambda: macenko.transform(batch), {tr_k: 1})
+        plain = mf.macenko_transform_mega_plain(x_c, he, mc)
+        err = (out.float() - plain.float()).abs().max().item()
+        require(out.dtype == dt and out.shape == batch.shape
+                and bool(torch.isfinite(out.float()).all()),
+                f"phase 8, {label}: Macenko output {out.dtype} {tuple(out.shape)}")
+        if ill_posed:
+            saturated = ((out == 0) | (out == 255)).float().mean().item()
+            require(saturated < 0.5, f"phase 8, {label}: {saturated} of the output saturated")
+        else:
+            require(err <= 1.0,
+                    f"phase 8, {label}: {tr_k} {err} grey levels from its plain version")
+        require(torch.equal(macenko.transform(batch), out),
+                f"phase 8, {label}: two transforms differ")
+        if tr_k == "B4":
+            r = fused_selections(x_c, he, mc, False, tr_route)
+            tr_sel = r["phi"] and r["maxc"] and r["repeat"]
+        else:
+            tr_sel = tr_route != "resident" or one_block_selections(x_c, he, mc, False)[0]
+        require(tr_sel, f"phase 8, {label}: {tr_k}'s selections differ from the plain select")
+        if not ill_posed:
+            worst[fit_k] = max(worst[fit_k], fit_err)
+            worst[tr_k] = max(worst[tr_k], err)
+        # Reinhard: B7b at fit, B7b + B7a at transform.
+        reinhard = Reinhard(device=dev)
+        launched(f"{label} Reinhard fit", lambda: reinhard.fit(ref), {"B7b": 1})
+        out_r, _ = launched(f"{label} Reinhard transform", lambda: reinhard.transform(batch),
+                            {"B7b": 1, "B7a": 1})
+        s_k, s_p = torch.cat(rf.reinhard_moments(x_c)), torch.cat(rf.reinhard_moments_plain(x_c))
+        require(bool(((s_k - s_p).abs() <= 1e-2 + 1e-4 * s_p.abs()).all()),
+                f"phase 8, {label}: B7b's moments {s_k.tolist()} against {s_p.tolist()}")
+        stats = moments_to_mean_std(n * h * w, *rf.reinhard_moments_plain(x_c))
+        plain_r = rf.reinhard_apply_plain(x_c, *stats, reinhard._reference_mean,
+                                          reinhard._reference_std)
+        err_r = (out_r.float() - plain_r.float()).abs().max().item()
+        require(err_r <= grey * (1.0 + 1e-5),
+                f"phase 8, {label}: Reinhard {err_r} from the plain steps")
+        require(torch.equal(reinhard.transform(batch), out_r),
+                f"phase 8, {label}: two Reinhard transforms differ")
+        worst["B7a"] = max(worst["B7a"], err_r / grey)
+        rel_b7b = ((s_k - s_p).abs() / s_p.abs().clamp(min=1e-2)).max().item()
+        worst["B7b"] = max(worst["B7b"], rel_b7b)
+        # Histogram matching, bit for bit.
+        ref_h, x_h = hm_pair if hm_pair is not None else (ref, batch)
+        hist_match = HistogramMatching(device=dev)
+        launched(f"{label} HM fit", lambda: hist_match.fit(ref_h), {"B8a": 1})
+        out_h, _ = launched(f"{label} HM transform", lambda: hist_match.transform(x_h),
+                            {"B8a": 1, "B8b": 1})
+        ref_values = color.images_to_uint8(ref_h.contiguous())[0].reshape(
+            ref_h.shape[0], 3, -1)
+        hist_p = hk.normalized_histogram(hk.histogram_256_plain(ref_values))
+        x_u8, scale_back = color.images_to_uint8(x_h.contiguous())
+        plain_h, _, _ = hk.hm_transfer_plain(x_u8.reshape(x_h.shape[0], 3, -1), hist_p,
+                                             f32 if scale_back else u8)
+        require(torch.equal(hist_match._ref_histograms_256, hist_p)
+                and torch.equal(out_h, plain_h.to(x_h.dtype).reshape(x_h.shape)),
+                f"phase 8, {label}: HM differs from its plain version")
+        require(torch.equal(hist_match.transform(x_h), out_h),
+                f"phase 8, {label}: two HM transforms differ")
+        oracle_line = ""
+        if oracle_np is not None:  # the JAX sweep's gates against the numpy oracle
+            ref_np, x_np, ref_hn, x_hn = oracle_np
+            he_o, mc_o = oracle.macenko_fit(ref_np)
+            mae = np.abs(out.cpu().numpy().astype(np.float32)
+                         - oracle.macenko_transform(x_np, he_o, mc_o).astype(np.float32)).mean()
+            d_r = np.abs(out_r.cpu().numpy().astype(np.float32) - oracle.reinhard_transform(
+                x_np, *oracle.reinhard_fit(ref_np)).astype(np.float32)).max()
+            d_h = np.abs(out_h.cpu().numpy().astype(np.float32) - oracle.hm_transform(
+                x_hn, oracle.hm_fit(ref_hn)).astype(np.float32)).max()
+            require(mae <= 0.35 and d_r <= grey * (1.0 + 1e-5) and d_h <= grey * (1.0 + 1e-5),
+                    f"phase 8, {label}: oracle Macenko MAE {mae}, Reinhard {d_r}, HM {d_h}")
+            oracle_line = f"; oracle MAE {mae:.4f}, Reinhard {d_r:.4g}, HM {d_h:.4g}"
+        if edge and edge.startswith("fit"):
+            record(edge, side, f"{fit_k} {fit_route}")
+        elif edge and edge.startswith("cluster"):
+            record(edge, side, f"{tr_k} {tr_route}, {fit_k} {fit_route}")
+        else:
+            record(edge, side, f"{tr_k} {tr_route}")
+        print(f"phase 8 {label}: ref {tuple(ref.shape)}, batch {tuple(batch.shape)} "
+              f"{str(dt).replace('torch.', '')}; launches: fit {fit_k} x1 ({fit_route}) HE |d| "
+              f"{fit_err:.3g}, transform {tr_k} x1 ({tr_route}) {err:.3g}, Reinhard B7b, B7b + B7a "
+              f"{err_r:.3g}, HM B8a, B8a + B8b 0; selections exact{oracle_line}"
+              + (f"; ill-posed: maxC {mc.tolist()} against plain {mc_p.tolist()}, not gated"
+                 if ill_posed else ""))
+
+    cases = 0
+    # (a) The JAX sweep's band, both dtypes, against the oracle too.
+    for case_seed in range(SWEEP_SEEDS):
+        ref_np, batch_np = _sweep_case(oracle, case_seed)
+        hrng = np.random.default_rng(case_seed * 101 + 13)
+        hh, wh = max(ref_np.shape[2], 64), max(ref_np.shape[3], 64)
+        ref_hn = hrng.integers(0, 256, size=(1, 3, hh, wh), dtype=np.uint8)
+        batch_hn = hrng.integers(0, 256, size=(batch_np.shape[0], 3, hh, wh), dtype=np.uint8)
+        for as_float in (False, True):
+            arrays = [ref_np, batch_np, ref_hn, batch_hn]
+            if as_float:
+                arrays = [a.astype(np.float32) / 255.0 for a in arrays]
+            ref_t, x_t, ref_ht, x_ht = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                        for a in arrays)
+            run_case(f"sweep {case_seed} {'f32' if as_float else 'u8'}", ref_t, x_t,
+                     hm_pair=(ref_ht, x_ht), oracle_np=arrays)
+            cases += 1
+
+    # (b) Both sides of every Macenko edge: the size at the edge and the
+    # first past it, then EDGE_DRAWS random sizes within 1 % on each side.
+    def sizes(edge_at: int):
+        for side, exact in (("below", edge_at - 1), ("above", edge_at)):
+            yield side, exact_shape(exact)
+            for _ in range(EDGE_DRAWS):
+                yield side, within(edge_at, side)
+
+    for dt, name in ((u8, "u8"), (f32, "f32")):
+        for side, (h, w) in sizes(resident[dt] + 1):
+            n = int(rng.integers(1, 5))
+            x = tiles(n, h, w, dt, int(rng.integers(1 << 30)))
+            run_case(f"B1 body {name} {side}", x[:1], x, f"B1 resident/L2 {name}", side)
+            cases += 1
+        for side, (h, w) in sizes(stream_min[dt]):
+            n = int(rng.integers(1, 5))
+            x = tiles(n, h, w, dt, int(rng.integers(1 << 30)))
+            run_case(f"B1/B4 pixels {name} {side}", x[:1], x, f"B1/B4 pixels {name}", side)
+            cases += 1
+        row_h, row_w = exact_shape(stream_min[dt])
+        for side in ("below", "above"):
+            cap = stream_rows[dt]
+            lo, hi = ((math.ceil(0.99 * cap), cap) if side == "below"
+                      else (cap + 1, math.floor(1.01 * cap) + 1))
+            counts = [cap if side == "below" else cap + 1] + [
+                int(rng.integers(lo, hi + 1)) for _ in range(EDGE_DRAWS)]
+            for n in counts:
+                x = tiles(n, row_h, row_w, dt, int(rng.integers(1 << 30)))
+                run_case(f"B1/B4 rows {name} {side}", x[:1], x, f"B1/B4 rows {name}", side)
+                cases += 1
+        for side, (h, w) in sizes(b2_pool[dt] + 1):
+            x = tiles(1, h, w, dt, int(rng.integers(1 << 30)))
+            run_case(f"B2/B5 pool {name} {side}", x, x, f"fit B2/B5 {name}", side)
+            cases += 1
+        for per, what in ((2, "two images"), (3, "three images")):
+            for side in ("below", "above"):
+                h, w = within(b2_pool[dt] + 1, side, per)
+                x = tiles(per, h, w, dt, int(rng.integers(1 << 30)))
+                run_case(f"B2/B5 pool of {what} {name} {side}", x, x, f"fit B2/B5 {name}", side)
+                cases += 1
+        for side, (h, w) in sizes(cluster[dt] + 1):
+            x = tiles(int(rng.integers(1, 3)), h, w, dt, int(rng.integers(1 << 30)))
+            run_case(f"cluster/stream {name} {side}", x[:1], x, f"cluster/stream {name}", side)
+            cases += 1
+
+    # (c) Odd strides and offsets: P % 16 != 0, a batch view at an odd byte
+    # offset (the one-pixel branches of _vec4 and group_pixels), NHWC strides.
+    for dt, name in ((u8, "u8"), (f32, "f32")):
+        h, w = 2 * int(rng.integers(20, 60)) + 1, 2 * int(rng.integers(20, 60)) + 1
+        x = tiles(4, h, w, dt, int(rng.integers(1 << 30)))
+        view = x[1:]
+        require(view.data_ptr() % 16 != 0, f"phase 8: the {name} view is aligned")
+        run_case(f"offset view {name} (data_ptr % 16 = {view.data_ptr() % 16})", x[:1], view)
+        big = tiles(2, 227, 229, dt, int(rng.integers(1 << 30)))
+        run_case(f"offset view {name} past B4's edge", big[:1], big[1:])
+        nhwc = x.contiguous(memory_format=torch.channels_last)
+        require(not nhwc.is_contiguous(), "phase 8: the NHWC-strided batch is contiguous")
+        run_case(f"NHWC strides {name}", nhwc[:1], nhwc)
+        cases += 3
+    # The histogram's split: one block a channel up to MIN_BLOCK_VALUES values.
+    for total in (hk.MIN_BLOCK_VALUES - 1, hk.MIN_BLOCK_VALUES, hk.MIN_BLOCK_VALUES + 1,
+                  hk.MIN_BLOCK_VALUES * 5 + 7):
+        h, w = exact_shape(total)
+        x = tiles(1, h, w, u8, int(rng.integers(1 << 30)))
+        run_case(f"histogram split, {total} values a channel "
+                 f"({hk.hist_split(1, 3, total, kernels.device_limits(dev.index)[0])})", x, x)
+        cases += 1
+    # Degenerate tiles: fewer than 3 pixels past beta (the transform's
+    # fallback) and a tile whose fit gives a negative maxC (the sign guard).
+    two_px = tiles(2, 67, 71, u8, int(rng.integers(1 << 30)))
+    two_px[:, 0] = torch.clamp(two_px[:, 0], min=215)
+    two_px[:, :, 5, 7] = torch.tensor([120, 60, 150], dtype=u8, device=dev)[None, :]
+    two_px[:, :, 40, 3] = torch.tensor([90, 70, 130], dtype=u8, device=dev)[None, :]
+    run_case("two pixels past beta (fallback)", tiles(1, 64, 64, u8, 3), two_px)
+    neg = torch.from_numpy(negative_maxc_tile(0)).to(dev)
+    run_case("negative maxC tile", neg, neg, ill_posed=True)
+    cases += 2
+
+    # (d) B3 or B6, the staged route's selections: rows of 2^22 - 1 and 2^22
+    # elements, 32 and 33 rows, each bit for bit against its plain version.
+    def select_case(rows, p, label, expect):
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+        field = torch.randn((rows, p), generator=g, device=dev)
+        field[torch.rand((rows, p), generator=g, device=dev) < 0.1] = torch.inf
+        cnt = (field < torch.inf).sum(1)
+        ranks = torch.stack([nearest_rank_index(1, cnt), nearest_rank_index(99, cnt)], 1)
+        got, _ = launched(label, lambda: mk._select(field, ranks), {expect: 1})
+        again = mk._select(field, ranks)
+        plain = (ss.kth_smallest_streaming_plain if expect == "B6"
+                 else sel.kth_smallest_pallas_plain)(field, ranks)
+        require(torch.equal(bits(got), bits(plain)) and torch.equal(bits(again), bits(got)),
+                f"phase 8, {label}: {expect} differs from its plain version or its repeat")
+        side = "above" if expect == "B6" else "below"
+        record("B3/B6", side, f"{expect} ({rows}, {p})")
+        print(f"phase 8 {label}: ({rows}, {p}) float32 K=2, {int(cnt.min())}-{int(cnt.max())} "
+              f"finite a row; {expect} x1, bit for bit its plain version, repeat the same bits")
+
+    edge_e, edge_r = mk.SELECT_STREAM_MIN_ELEMS, mk.SELECT_STREAM_MAX_ROWS
+    select_case(edge_r, edge_e, "select at the edge", "B6")
+    select_case(edge_r, edge_e - 1, "select one element short", "B3")
+    select_case(edge_r + 1, edge_e, "select one row past", "B3")
+    for _ in range(EDGE_DRAWS):
+        select_case(int(rng.integers(edge_r - 3, edge_r + 1)),
+                    int(rng.integers(edge_e, math.floor(1.01 * edge_e))), "select inside", "B6")
+        select_case(int(rng.integers(edge_r - 3, edge_r + 1)),
+                    int(rng.integers(math.ceil(0.99 * edge_e), edge_e)), "select short", "B3")
+    cases += 3 + 2 * EDGE_DRAWS
+    # The public staged route on bf16 and f16 on each side of the length.
+    for dtype, (h, w), expect in ((torch.bfloat16, (2048, 2048), "B6"),
+                                  (torch.float16, (2047, 2049), "B3")):
+        x = tiles(2, h, w, f32, int(rng.integers(1 << 30))).to(dtype)
+        macenko = Macenko(device=dev)
+        launched(f"staged fit {dtype} {h}x{w}", lambda: macenko.fit(x[:1]), {expect: 2})
+        out, _ = launched(f"staged transform {dtype} {h}x{w}", lambda: macenko.transform(x),
+                          {expect: 2})
+        require(out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+                and torch.equal(macenko.transform(x), out),
+                f"phase 8: the staged {dtype} transform is not finite or not repeatable")
+        record("B3/B6", "above" if expect == "B6" else "below", f"{expect} staged {dtype}")
+        print(f"phase 8 staged {str(dtype).replace('torch.', '')} 2x3x{h}x{w}: fit and transform "
+              f"{expect} x2 each, repeat the same bits")
+        cases += 1
+
+    for edge, seen in sorted(sides.items()):
+        require(bool(seen["below"]) and bool(seen["above"]), f"phase 8, {edge}: a side has no case")
+        print(f"phase 8 edge {edge}: below {sorted(seen['below'])}; above {sorted(seen['above'])}")
+    print(f"phase 8: {cases} cases; worst error against the plain version: B1 {worst['B1']:.3g}, "
+          f"B4 {worst['B4']:.3g} grey levels; B2 {worst['B2']:.3g}, B5 {worst['B5']:.3g} HE; "
+          f"B7b {worst['B7b']:.3g} relative; B7a {worst['B7a']:.3g} grey levels; B8a, B8b, B3, "
+          f"B6 and the fused selections bit for bit")
+    print(f"phase 8: {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1279,11 +1822,7 @@ def main() -> int:
     from stainx_tpu_torch.kernels import selection_stream as ss
     from stainx_tpu_torch.ops import macenko as mk
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
-    from stainx_tpu_torch.ops.percentile import (
-        kth_smallest,
-        nearest_rank_index,
-        static_nearest_rank_index,
-    )
+    from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std, reinhard_transform
     from stainx_tpu_torch.testing import branch_point_field, colour_cube, synthetic_he_batch
 
@@ -1708,7 +2247,7 @@ def main() -> int:
                                           he_scale=1.1))
     _, b1_err = check_transform(f"{A_BATCH}x3x{P_SIZE}^2 u8 (small patches)", patches_b, he_k, mc_k)
 
-    # B1's resident body (the image in one 256-thread block's shared memory,
+    # B1's resident body (the image in one 512-thread block's shared memory,
     # read once) on the cases its size rule and its fallback decide, each
     # within 1 grey level of the plain version and repeated bit for bit. Its
     # four selections are held bit for bit against kth_smallest on the keys
@@ -1716,23 +2255,10 @@ def main() -> int:
     smem_optin = kernels.device_limits(dev.index)[1]
 
     def check_b1_selections(label, x):
-        out_k, keys, sel_k = mf.resident_selections(x, he_k, mc_k)
-        n_x, p_x = x.shape[0], x.shape[2] * x.shape[3]
-        k = keys.to(torch.int64) & 0xFFFFFFFF
-        vals = sel.unkey(k)
-        member = k[:, 0] < 0xFF800000
-        cnt = member.sum(-1)
-        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                             nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
-        idx = torch.full((n_x,), static_nearest_rank_index(99, p_x), device=dev)
-        want = torch.cat([kth_smallest(vals[:, 0], ranks, member),
-                          kth_smallest(vals[:, 1], idx)[:, None],
-                          kth_smallest(vals[:, 2], idx)[:, None]], -1)
+        exact, (fewest, most), out_k = one_block_selections(x, he_k, mc_k, False)
         same_out = torch.equal(out_k, mf.macenko_transform_mega(x, he_k, mc_k))
-        torch.cuda.synchronize()
-        exact = torch.equal(sel_k, want)
         print(f"B1 resident selections {label}: angles and maxC equal to kth_smallest on the "
-              f"kernel's keys {exact} ({int(cnt.min())}-{int(cnt.max())} of {p_x} pixels in the "
+              f"kernel's keys {exact} ({fewest}-{most} of {x.shape[2] * x.shape[3]} pixels in the "
               f"angle selections); the checked launch's output equal to the wrapper's {same_out}")
         require(exact, f"{label}: B1's selections differ from kth_smallest on its keys")
         require(same_out, f"{label}: the checked launch and the wrapper's differ")
@@ -1746,12 +2272,7 @@ def main() -> int:
         return body, err
 
     def largest_resident(dtype):
-        lo, hi = 1, 1 << 20
-        while lo < hi:
-            mid = (lo + hi + 1) // 2
-            fits = mf.transform_body(mid, dtype, smem_optin) == "resident"
-            lo, hi = (mid, hi) if fits else (lo, mid - 1)
-        return lo
+        return largest(lambda p: mf.transform_body(p, dtype, smem_optin) == "resident")
 
     check_b1(f"{A_BATCH}x3x{P_SIZE}^2 u8 (small patches)", patches_b)
     check_b1(f"{A_BATCH}x3x{P_SIZE}^2 f32 (4096-pixel float32 rows)", patches_b.float() / 255.0)
@@ -1793,23 +2314,11 @@ def main() -> int:
         return t.contiguous().view(torch.int32)
 
     def check_fit_selections(label, x, he_x, mc_x):
-        pool = x.shape[0] * x.shape[2] * x.shape[3]
-        he_s, mc_s, keys, sel_s = mf.fit_selections(x)
-        k = keys.to(torch.int64) & 0xFFFFFFFF
-        vals = sel.unkey(k)
-        member = k[:1] < 0xFF800000
-        cnt = member.sum(-1)
-        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                             nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
-        idx = torch.full((1,), static_nearest_rank_index(99, pool), device=dev)
-        want = torch.cat([kth_smallest(vals[:1], ranks, member)[0], kth_smallest(vals[1:2], idx),
-                          kth_smallest(vals[2:3], idx)])
+        exact, (past, _), (he_s, mc_s) = one_block_selections(x, None, None, True)
         same_fit = torch.equal(bits(he_s), bits(he_x)) and torch.equal(bits(mc_s), bits(mc_x))
-        torch.cuda.synchronize()
-        exact = torch.equal(bits(sel_s), bits(want))
         print(f"B2 selections {label}: angles and maxC equal to kth_smallest on the "
-              f"kernel's keys {exact} ({int(cnt)} of {pool} pixels in the angle selections); the "
-              f"checked launch's fit equal to the wrapper's {same_fit}")
+              f"kernel's keys {exact} ({past} of {x.shape[0] * x.shape[2] * x.shape[3]} pixels in "
+              f"the angle selections); the checked launch's fit equal to the wrapper's {same_fit}")
         require(exact, f"{label}: B2's selections differ from kth_smallest on its keys")
         require(same_fit, f"{label}: the checked launch and the wrapper's differ")
 
@@ -1831,12 +2340,7 @@ def main() -> int:
         return max(he_err, mc_err)
 
     def largest_fit_pool(dtype):
-        lo, hi = 1, 1 << 20
-        while lo < hi:
-            mid = (lo + hi + 1) // 2
-            fits = mk.fit_route(mid, dtype, smem_optin) == "mega"
-            lo, hi = (mid, hi) if fits else (lo, mid - 1)
-        return lo
+        return largest(lambda p: mk.fit_route(p, dtype, smem_optin) == "mega")
 
     patch_f32 = patches_b[:1].float() / 255.0
     fit_err = check_fit_mega(f"1x3x{P_SIZE}^2 u8 (a small patch as reference)", patches_b[:1])
@@ -1883,30 +2387,13 @@ def main() -> int:
     # source writes with the kernels' own device functions; the call run
     # again must give the same bits.
     def check_fused(label, x, fit, force):
-        def call():
-            out = None if fit else torch.empty_like(x)
-            return ms._run(x, out, he_k.contiguous(), mc_k.contiguous(), fit=fit, force=force)
-
-        params, again = call(), call()
-        angles, conc = ms.kernel_keys(x, params, fit)
-        cnt = (angles < torch.inf).sum(1)
-        ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                             nearest_rank_index(100 - mk.ALPHA, cnt)], 1)
-        top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
-        phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
-        idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
-                           device=dev)
-        maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
-        torch.cuda.synchronize()
-        same_phi = torch.equal(bits(phi), bits(params[:, ms.PHI_COLUMNS]))
-        same_maxc = torch.equal(bits(maxc), bits(params[:, ms.MAXC_COLUMNS]))
+        r = fused_selections(x, he_k, mc_k, fit, force)
         print(f"fused selections of {'B5' if fit else 'B4'} {label}, {force} route: angles "
-              f"{tuple(angles.shape)} and concentrations {tuple(conc.shape)}: phi bit-exact "
-              f"{same_phi}, maxC bit-exact {same_maxc}")
-        require(same_phi and same_maxc, f"{label}: a fused selection differs from B6's plain version")
-        stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
-        require(torch.equal(bits(stats(params)), bits(stats(again))),
-                f"{label}: two runs' statistics differ")
+              f"{r['angles']} and concentrations {r['conc']}: phi bit-exact {r['phi']}, maxC "
+              f"bit-exact {r['maxc']}")
+        require(r["phi"] and r["maxc"],
+                f"{label}: a fused selection differs from B6's plain version")
+        require(r["repeat"], f"{label}: two runs' statistics differ")
 
     for label, x, fit in [
         (f"1x3x{SIZE}^2 u8 (the main path's reference)", ref, True),
@@ -2881,6 +3368,9 @@ def main() -> int:
     t0 = time.perf_counter()
     user_programs_phase(dev)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # 8. Seeded random shapes on both sides of every kernel's route edge.
+    random_shapes_phase(args.seed, dev)
     print(json.dumps({"kernels": rows}))
     print(card.splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -49,7 +49,10 @@
 //   of 256 bins as eight sequential windows of 32 and then the eight window
 //   sums (kernels/histogram.py::sum256), the cumulative sums as sequential
 //   blocks of 16, the block totals and each block's prefix added
-//   (::scan256), true divisions, the searchsorted (left) binary search of
+//   (::scan256), true divisions where the JAX package divides by a
+//   computed value and products by a float32 reciprocal where it divides by
+//   a constant of its compiled program, which XLA folds so (::_reciprocal:
+//   the pixel count, 255), the searchsorted (left) binary search of
 //   torch.searchsorted, and float32 constants; built with -fmad=false, so
 //   no product and sum are fused. The LUT is therefore bit for bit that of
 //   hm_build_lut on the same counts, on any device.
@@ -211,11 +214,12 @@ __device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
 // One block of 256 threads a channel (thread b: bin b). partials: (c * bpc,
 // 256) int32 from hist_kernel. kCounts: out = the float32 counts. kFit: out
 // = counts / (sum + 1e-8). kLut: out = hm_build_lut(counts, ref_hist,
-// num_pixels) with src_den = float32(num_pixels + 1e-8), and table = its
-// uint8 or float32 (is_float) form. out, ref_hist, table: (c, 256).
+// num_pixels) with src_scale = float32(1 / float32(num_pixels + 1e-8)), and
+// table = its uint8 or float32 (is_float) form. out, ref_hist, table:
+// (c, 256).
 __global__ void __launch_bounds__(kThreads)
 hist_finalize(const int* __restrict__ partials, int bpc, int mode,
-              const float* __restrict__ ref_hist, float src_den, float* __restrict__ out,
+              const float* __restrict__ ref_hist, float src_scale, float* __restrict__ out,
               void* __restrict__ table, int is_float) {
   __shared__ float src[256], ref[256], part[8], before[16];
   __shared__ int last_occupied;
@@ -241,7 +245,7 @@ hist_finalize(const int* __restrict__ partials, int bpc, int mode,
   ref[b] = ref_hist[ch * 256 + b];
   __syncthreads();
   const float ref_den = sum256(ref, part) + 1e-8f;
-  src[b] = cf / src_den;
+  src[b] = cf * src_scale;
   ref[b] = ref[b] / ref_den;
   __syncthreads();
   scan256(src, before);
@@ -261,7 +265,7 @@ hist_finalize(const int* __restrict__ partials, int bpc, int mode,
   lut = clamp_keep_nan(lut, 0.0f, 255.0f);
   *dst = lut;
   if (is_float) {
-    static_cast<float*>(table)[ch * 256 + b] = clamp_keep_nan(lut / 255.0f, 0.0f, 1.0f);
+    static_cast<float*>(table)[ch * 256 + b] = clamp_keep_nan(lut * (1.0f / 255.0f), 0.0f, 1.0f);
   } else {
     static_cast<uint8_t*>(table)[ch * 256 + b] =
         static_cast<uint8_t>(static_cast<int>(floorf(lut)));
@@ -374,9 +378,9 @@ void launch_hist(const HistArgs& a, cudaStream_t s) {
   hist_kernel<<<a.c * a.bpc, kHistThreads, 0, s>>>(a.x, a.partials, a.n, a.p, a.c, a.bpc, a.chunk);
 }
 
-void launch_finalize(const HistArgs& a, int mode, const float* ref_hist, float src_den, float* out,
-                     void* table, int is_float, cudaStream_t s) {
-  hist_finalize<<<a.c, kThreads, 0, s>>>(a.partials, a.bpc, mode, ref_hist, src_den, out, table,
+void launch_finalize(const HistArgs& a, int mode, const float* ref_hist, float src_scale,
+                     float* out, void* table, int is_float, cudaStream_t s) {
+  hist_finalize<<<a.c, kThreads, 0, s>>>(a.partials, a.bpc, mode, ref_hist, src_scale, out, table,
                                          is_float);
 }
 
@@ -434,15 +438,16 @@ int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long l
 // The histogram-matching transform: the counts, the LUT of hm_build_lut
 // against ref_hist ((c, 256) float32) into lut ((c, 256) float32) and its
 // table ((c, 256) uint8, or float32 when is_float), then out ((n, c, p) of
-// the table's type) = table[c, x]. src_den: float32(n * p + 1e-8). vec: x
+// the table's type) = table[c, x]. src_scale: float32(1 / float32(n * p +
+// 1e-8)). vec: x
 // and out are 16-byte aligned; apply_blocks: the apply's grid.
 int stainx_hm_transform(const void* x, void* out, void* partials, const void* ref_hist, void* lut,
                         void* table, long long n, long long p, int c, int bpc, long long chunk,
-                        float src_den, int is_float, int vec, int apply_blocks, void* stream) {
+                        float src_scale, int is_float, int vec, int apply_blocks, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
   launch_hist(a, s);
-  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_den, static_cast<float*>(lut),
+  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_scale, static_cast<float*>(lut),
                   table, is_float, s);
   launch_apply(a.x, out, table, n * c * p, p, c, is_float, vec, apply_blocks, s);
   return static_cast<int>(cudaGetLastError());
@@ -451,9 +456,9 @@ int stainx_hm_transform(const void* x, void* out, void* partials, const void* re
 // The transform's finalize alone, on given (c, 256) int32 counts: lut and
 // table as stainx_hm_transform writes them for values with those counts.
 int stainx_hm_lut(const void* counts, const void* ref_hist, void* lut, void* table, int c,
-                  float src_den, int is_float, void* stream) {
+                  float src_scale, int is_float, void* stream) {
   const HistArgs a = hist_args(nullptr, const_cast<void*>(counts), 0, 0, c, 1, 0);
-  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_den, static_cast<float*>(lut),
+  launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_scale, static_cast<float*>(lut),
                   table, is_float, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

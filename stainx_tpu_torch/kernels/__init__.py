@@ -45,6 +45,8 @@ _lock = threading.Lock()
 
 
 def nvcc_path() -> str:
+    """The ``nvcc`` on ``PATH``, else ``$CUDA_HOME/bin/nvcc`` (or
+    ``$CUDA_PATH``, or ``/usr/local/cuda``); raises when there is none."""
     found = shutil.which("nvcc")
     if found:
         return found

@@ -22,14 +22,16 @@ finalize), ``apply_lut`` those that launch the LUT apply (B8b).
   form is made here, on the device, and the kernel only looks it up.
 
 The finalize computes in float32 in the order of the plain versions
-(:func:`sum256`, :func:`scan256`, true divisions), so its LUT is the plain
-LUT bit for bit on the same counts.
+(:func:`sum256`, :func:`scan256`, true divisions, and the products by a
+reciprocal of :func:`_reciprocal`), so its LUT is the plain LUT bit for bit
+on the same counts.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from stainx_tpu_torch import kernels
@@ -105,6 +107,16 @@ def scan256(x: torch.Tensor) -> torch.Tensor:
     return (inner + before[..., None]).reshape(x.shape)
 
 
+def _reciprocal(v: float) -> float:
+    """``float32(1 / float32(v))``. The JAX package divides by constants of
+    its compiled programs (the pixel count of a transform, 255 for float
+    output), and XLA folds such a division into a product with the
+    constant's float32 reciprocal, which rounds differently from the
+    division at most counts that are not a power of two. The port takes the
+    same product."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
 def normalized_histogram(counts: torch.Tensor) -> torch.Tensor:
     """``counts / (sum + 1e-8)`` of (C, 256) float32 counts, the 1e-8 added
     in float32: the plain version of the fit's finalize."""
@@ -133,9 +145,9 @@ def hm_build_lut(
     """
     source_counts = source_counts.to(torch.float32)
     ref_hist = ref_hist.to(torch.float32)
-    # A tensor divisor: PyTorch divides by a Python scalar on CUDA as a
-    # multiplication by its reciprocal, which can round differently.
-    source_norm = source_counts / source_counts.new_full((1, 1), num_pixels + 1e-8)
+    # The JAX function divides by num_pixels + 1e-8, a constant of the
+    # compiled transform: a product with its reciprocal (:func:`_reciprocal`).
+    source_norm = source_counts * source_counts.new_full((1, 1), _reciprocal(num_pixels + 1e-8))
     ref_norm = normalized_histogram(ref_hist)
     source_cdf, ref_quantiles = scan256(torch.cat([source_norm, ref_norm])).split(
         source_norm.shape[0]
@@ -163,14 +175,13 @@ def hm_build_lut(
 
 def lut_table(lut: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """The (C, 256) table the apply kernel looks up: ``⌊clip(lut, 0, 255)⌋``
-    as uint8, or ``clip(lut / 255, 0, 1)`` as float32. The divisor is a
-    float32 tensor, so the division is a true division on any device, as
-    the finalize's (a Python scalar would become a product with its
-    reciprocal on CUDA)."""
+    as uint8, or ``clip(lut / 255, 0, 1)`` as float32, the division taken
+    as the JAX package's compiled transform takes it: a product with
+    ``_reciprocal(255)``, as the finalize's."""
     lut = lut.to(torch.float32)
     if out_dtype == torch.uint8:
         return torch.floor(torch.clamp(lut, 0.0, 255.0)).to(torch.uint8).contiguous()
-    return torch.clamp(lut / lut.new_full((), 255.0), 0.0, 1.0).contiguous()
+    return torch.clamp(lut * lut.new_full((), _reciprocal(255.0)), 0.0, 1.0).contiguous()
 
 
 def apply_lut_plain(values_u8, lut, out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
@@ -308,7 +319,7 @@ def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torc
     with kernels.on_device(dev):
         code = lib.stainx_hm_transform(
             values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
-            lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk, float(n * p) + 1e-8,
+            lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk, _reciprocal(float(n * p) + 1e-8),
             int(out_dtype == torch.float32),
             int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
             _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
@@ -343,7 +354,7 @@ def hm_lut(counts: torch.Tensor, ref_hist: torch.Tensor, num_pixels: int, out_dt
     lib = _lib()
     with kernels.on_device(dev):
         code = lib.stainx_hm_lut(counts_i32.data_ptr(), ref.data_ptr(), lut.data_ptr(),
-                                 table.data_ptr(), c, float(num_pixels) + 1e-8,
+                                 table.data_ptr(), c, _reciprocal(float(num_pixels) + 1e-8),
                                  int(out_dtype == torch.float32),
                                  kernels.current_stream(counts.device))
     kernels.check(lib, code, "hm_lut")

@@ -50,6 +50,7 @@ class Macenko(NormalizerTemplate):
 
     @property
     def precision(self) -> str:
+        """``"stable"`` or ``"fast"``, as constructed."""
         return self._precision
 
     def _init_algorithm_attributes(self):

@@ -221,6 +221,10 @@ class StainNormalizerTransform(nn.Module):
         return self
 
     def forward(self, img: Any) -> torch.Tensor:
+        """Normalize one image (C, H, W) or a batch (N, C, H, W): in batch
+        mode after re-fitting on the batch, through the mesh when one was
+        given. Returns the normalized tensor on the normalizer's device, in
+        the input's layout and the value range the module docstring sets."""
         # Convert before the single-image check: a nested list has no .ndim.
         if not torch.is_tensor(img) and not hasattr(img, "ndim"):
             img = np.asarray(img)

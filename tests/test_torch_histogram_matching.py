@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import stainx_tpu
@@ -105,14 +106,17 @@ class TestApplyLutKernel:
 
     @pytest.mark.parametrize("case", ["sorted", "extreme"])
     def test_float_form_matches_jax_xla(self, case):
-        """The float32 output is the JAX XLA route's ``clip(lut[v] / 255, 0, 1)``."""
+        """The float32 output is the JAX XLA route's ``clip(lut[v] / 255, 0, 1)``,
+        compiled as ``hm_transform`` compiles it: XLA folds the division by
+        the constant 255 into a product with its float32 reciprocal."""
         rng = np.random.default_rng(8)
         vals = rng.integers(0, 256, (2, 3, 40, 50), np.uint8)
         lut = np.sort(rng.random((3, 256)).astype(np.float32) * 255.0, axis=1)
         if case == "extreme":
             lut = np.linspace(-5.0, 260.0, 256, dtype=np.float32)[None].repeat(3, 0)
         matched = jax_hm._apply_lut(jnp.asarray(vals), jnp.asarray(lut))
-        want = np.asarray(jnp.clip(matched / 255.0, 0.0, 1.0)).reshape(2, 3, -1)
+        to_float = jax.jit(lambda m: jnp.clip(m / 255.0, 0.0, 1.0))
+        want = np.asarray(to_float(matched)).reshape(2, 3, -1)
         got = hk.apply_lut(_t(vals.reshape(2, 3, -1)), _t(lut), torch.float32)
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), want)
@@ -198,6 +202,14 @@ class TestTransform:
                           GREY["uint8"])
 
 
+def _jax_lut(counts, hist, num_pixels: float):
+    """``hm_build_lut`` as ``hm_transform`` compiles it, the pixel count a
+    constant of the program (XLA folds the division by it into a product
+    with its float32 reciprocal; called eagerly, the function divides)."""
+    build = jax.jit(jax_hm.hm_build_lut, static_argnums=2)
+    return build(jnp.asarray(counts), jnp.asarray(hist), num_pixels)
+
+
 def _quantized(images):
     """The uint8 values the port's HM path counts, (N, C, H·W)."""
     x = torch.as_tensor(np.array(images))
@@ -235,8 +247,7 @@ class TestFusedEntryPoints:
         out_dtype = torch.uint8 if dtype == "uint8" else torch.float32
         out, lut, table = hk.hm_transfer(values, _t(hist), out_dtype)
         counts = _counts(values.numpy().reshape(src.shape[0], c, SRC[1], SRC[2]))
-        lut_j = np.asarray(jax_hm.hm_build_lut(jnp.asarray(counts), jnp.asarray(hist),
-                                               float(SRC[0] * SRC[1] * SRC[2])))
+        lut_j = np.asarray(_jax_lut(counts, hist, float(SRC[0] * SRC[1] * SRC[2])))
         np.testing.assert_allclose(lut.numpy(), lut_j, atol=1e-4, rtol=0)
         for pin in (0.0, 255.0):
             np.testing.assert_array_equal(lut.numpy() == pin, lut_j == pin)
@@ -261,7 +272,7 @@ class TestFusedEntryPoints:
         hist = np.asarray(jax_hm.hm_fit(jnp.asarray(ref)))
         num = SRC[0] * SRC[1] * SRC[2]
         lut, table = hk.hm_lut(_t(counts).to(torch.int32), _t(hist), num, out_dtype)
-        want = np.asarray(jax_hm.hm_build_lut(jnp.asarray(counts), jnp.asarray(hist), float(num)))
+        want = np.asarray(_jax_lut(counts, hist, float(num)))
         np.testing.assert_allclose(lut.numpy(), want, atol=1e-4, rtol=0)
         np.testing.assert_array_equal(lut.numpy() == 0.0, want == 0.0)
         assert (lut[c // 2] == 0.0).all()
@@ -269,10 +280,12 @@ class TestFusedEntryPoints:
         assert torch.equal(table, hk.lut_table(lut, out_dtype))
 
     def test_float_table_is_a_true_division(self):
-        """The float table divides by a float32 tensor: bit for bit the
-        float32 quotient numpy computes, as the finalize's division."""
+        """The float table's division by 255 is taken as the JAX package's
+        compiled transform takes it, and the finalize too: a product with
+        the float32 reciprocal of 255, bit for bit what numpy computes so."""
         lut = np.random.default_rng(9).random((3, 256)).astype(np.float32) * 260.0 - 2.0
-        want = np.clip(lut / np.float32(255.0), np.float32(0.0), np.float32(1.0))
+        inverse = np.float32(1.0) / np.float32(255.0)
+        want = np.clip(lut * inverse, np.float32(0.0), np.float32(1.0))
         np.testing.assert_array_equal(hk.lut_table(_t(lut), torch.float32).numpy(), want)
 
     @pytest.mark.parametrize("n, c, p", [(64, 3, 512 * 512), (1, 12, 5001), (3, 1, 1), (0, 3, 10),

@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-SUITES = {"batch": 2, "pixel": 2, "mesh4": 4, "nn": 4}
+SUITES = {"batch": 2, "pixel": 2, "mesh4": 4, "nn": 4, "knife": 2}
 ALPHA_PAIR = ((1, 99),)
 
 
@@ -126,6 +126,29 @@ def random_composition(seed: int):
     tiles = [oracle.synthetic_he_tile(h, w, seed=seed * 37 + i, he_scale=1.0 + 0.03 * i)
              for i in range(n)]
     batch, ref = np.concatenate(tiles, axis=0), oracle.synthetic_he_tile(h, w, seed=seed * 37 + 99)
+    if as_float:
+        batch, ref = batch.astype(np.float32) / 255.0, ref.astype(np.float32) / 255.0
+    return method, batch, ref
+
+
+KNIFE_SEEDS = tuple(range(4))
+
+
+def knife_case(seed: int):
+    """``(method, batch, reference)`` of a seeded odd-H pixel-sharded case of
+    ``tests/test_torch_fuzz_parity.py``: histogram matching for even seeds,
+    Macenko for odd ones; N of 1-3, an odd H of 19-95 (a 2-rank pixel axis
+    pads it), W of 17-96, uint8 or float32 [0, 1] from the seed."""
+    sys.path.insert(0, str(ROOT))
+    from tests.oracles import numpy_reference as oracle
+
+    rng = np.random.default_rng(seed + 900)
+    method = ("histogram_matching", "macenko")[seed % 2]
+    n, h, w = int(rng.integers(1, 4)), 2 * int(rng.integers(9, 48)) + 1, int(rng.integers(17, 97))
+    as_float = bool(rng.integers(0, 2))
+    tiles = [oracle.synthetic_he_tile(h, w, seed=seed * 41 + i,
+                                      he_scale=float(rng.uniform(0.85, 1.2))) for i in range(n)]
+    batch, ref = np.concatenate(tiles, axis=0), oracle.synthetic_he_tile(h, w, seed=seed * 41 + 99)
     if as_float:
         batch, ref = batch.astype(np.float32) / 255.0, ref.astype(np.float32) / 255.0
     return method, batch, ref
@@ -604,7 +627,26 @@ def check(got: dict, want: dict, fit: str | None = None, error: str | None = Non
         assert re.search(error, msg), f"port error {msg!r} does not match {error!r}"
 
 
-SUITE_CASES = {"batch": batch_cases, "pixel": pixel_cases, "mesh4": mesh4_cases, "nn": nn_cases}
+def knife_cases(meshes) -> dict:
+    """Suite "knife": the seeded odd-H cases of :func:`knife_case`, each a
+    pixel-sharded ``transform_on_mesh`` on the ("batch", "pixel") mesh of
+    shape (1, 2)."""
+    from stainx_tpu_torch import parallel
+
+    mesh = meshes["px"]
+    cases = {}
+    for seed in KNIFE_SEEDS:
+        def case(seed=seed):
+            method, batch, ref = knife_case(seed)
+            return {"out": _np(parallel.transform_on_mesh(
+                method, batch, _params(oracle_params(method, ref)), mesh, pixel_axis="pixel"))}
+
+        cases[f"odd_h_{seed}"] = case
+    return cases
+
+
+SUITE_CASES = {"batch": batch_cases, "pixel": pixel_cases, "mesh4": mesh4_cases, "nn": nn_cases,
+               "knife": knife_cases}
 
 
 def suite_case_names(suite: str) -> list[str]:
@@ -621,7 +663,7 @@ def _meshes(suite: str) -> dict:
 
     if suite == "batch":
         return {"batch": make_mesh(axis_names=("batch",), device_type="cpu")}
-    if suite == "pixel":
+    if suite in ("pixel", "knife"):
         return {"px": make_mesh((1, 2), ("batch", "pixel"), device_type="cpu")}
     axes3 = ("batch", "pixel", "model")
     if suite == "mesh4":
