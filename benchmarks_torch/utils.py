@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stainx_tpu_torch import profiling
 from stainx_tpu_torch.kernels import (
     histogram,
     macenko_fused,
@@ -43,8 +44,8 @@ from stainx_tpu_torch.testing import synthetic_he_batch
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# Each kernel's short name and its wrapper, whose ``launches`` attribute
-# counts the launches it makes.
+# Each kernel's short name, as its launch counter ``launch.<name>[.<route>]``
+# (:mod:`stainx_tpu_torch.profiling`) has it, and its wrapper.
 KERNELS = {
     "B1": macenko_fused.macenko_transform_mega,
     "B2": macenko_fused.macenko_fit_mega,
@@ -200,17 +201,28 @@ def load_oracle():
     return module
 
 
+def launches_since(before: dict) -> dict:
+    """``{kernel: launches}`` counted since ``before``, a snapshot of
+    ``profiling.counters("launch.")``: each kernel's routes summed, in the
+    order of :data:`KERNELS`, kernels that did not launch left out."""
+    found: dict[str, int] = {}
+    for name, n in profiling.counters("launch.").items():
+        if n != before.get(name, 0):
+            kernel = name.split(".")[1]
+            found[kernel] = found.get(kernel, 0) + n - before.get(name, 0)
+    return {k: found[k] for k in KERNELS if k in found}
+
+
 def count_launches(call):
-    """``(call(), {kernel: launches})``: every wrapper's count set to 0 just
-    before the call and read just after it (the card synchronized). Kernels
-    that did not launch are left out; on the CPU, where the wrappers run
-    their plain versions, nothing launches."""
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    """``(call(), {kernel: launches})``: the launch counters read just before
+    the call and just after it (the card synchronized). Kernels that did not
+    launch are left out; on the CPU, where the wrappers run their plain
+    versions, nothing launches."""
+    before = profiling.counters("launch.")
     result = call()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return result, {name: w.launches for name, w in KERNELS.items() if w.launches}
+    return result, launches_since(before)
 
 
 def canonical_method(name: str) -> str:

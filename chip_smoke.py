@@ -117,7 +117,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``fit_on_mesh`` and ``transform_on_mesh`` of every method on the main
    batch against the single-device port on the card (JAX's mesh
    tolerances: HE atol 2e-3, maxC rtol 1e-2, transforms 1 grey level) and,
-   driven with the launch counts zeroed before and read after, against the
+   driven with the launch counters read before and after, against the
    same calls on the CPU through the plain versions (Reinhard mean and std
    rtol 1e-4 atol 1e-3, HM histograms atol 1e-6, Macenko HE atol 2e-5 and
    maxC rtol 1e-4, transforms 1 grey level): the fits launch B7b, B8a and
@@ -136,7 +136,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``RawTileLoader(files, (3, 512, 512), 64, drop_remainder=True)`` on the
    card (the native readers, built under ``build/stainx_tpu_torch/``, and
    the page-locked copy) into ``StainNormalizerTransform("macenko",
-   reference=ref)``, with the launch counts zeroed before and read after
+   reference=ref)``, with the launch counters read before and after
    (B5 once, B4 once a batch, nothing else); its output bit for bit the
    same transform's of the batches read with ``np.fromfile`` and copied to
    the card, and a CPU-device loader's batches byte for byte those; the
@@ -243,7 +243,15 @@ import sys
 import time
 from pathlib import Path
 
-from benchmarks_torch.utils import capture_graphs, event_ms, graph_ms, replay_ms
+from benchmarks_torch.utils import (
+    KERNELS,
+    capture_graphs,
+    event_ms,
+    graph_ms,
+    launches_since,
+    replay_ms,
+)
+from stainx_tpu_torch import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -288,6 +296,14 @@ OPS_PER_PIXEL_FORWARD_GAMMA = 9
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_counts(wrappers, before: dict) -> dict:
+    """``{wrapper name: launches}`` of each of ``wrappers`` since ``before``,
+    a snapshot of ``profiling.counters("launch.")``."""
+    got = launches_since(before)
+    short = {w: k for k, w in KERNELS.items()}
+    return {w.__name__: got.get(short[w], 0) for w in wrappers}
 
 
 def require(ok: bool, what: str) -> None:
@@ -623,13 +639,12 @@ def mesh_phase(seed: int) -> None:
                     ss.kth_smallest_streaming]
 
         def drive(label, fn, want):
-            """Run a mesh path with the counts zeroed just before and read
+            """Run a mesh path with the launch counters read just before and
             just after; exactly the wrappers in ``want`` must launch."""
-            for w in wrappers:
-                w.launches = 0
+            before = profiling.counters("launch.")
             result = fn()
             torch.cuda.synchronize()
-            counts = {w.__name__: w.launches for w in wrappers if w.launches}
+            counts = {k: n for k, n in launch_counts(wrappers, before).items() if n}
             print(f"mesh path {label} launches: {counts}")
             require(set(counts) == set(want), f"mesh path {label}: launches {counts}, "
                     f"the path must launch {sorted(want)}")
@@ -818,7 +833,7 @@ def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_
     import numpy as np
     import torch
 
-    from stainx_tpu_torch import StainNormalizerTransform, kernels, profiling
+    from stainx_tpu_torch import StainNormalizerTransform, kernels
     from stainx_tpu_torch.io import RawTileLoader, tilepipe, tilepipe_available
     from stainx_tpu_torch.kernels import selection as sel
     from stainx_tpu_torch.kernels import selection_stream as ss
@@ -839,17 +854,16 @@ def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_
         print(f"ingest: wrote {INGEST_TILES} tiles of 3x{SIZE}^2 u8 ({store_mb:.1f} MB) in "
               f"{time.perf_counter() - t0:.1f} s")
 
-        # The path, with every kernel's count zeroed before and read after:
+        # The path, with the launch counters read before and after:
         # the fit of the reference is B5, each batch B4, nothing else.
-        for w in wrappers:
-            w.launches = 0
+        before = profiling.counters("launch.")
         transform = StainNormalizerTransform("macenko", reference=ref)
         loaded, outs = [], []
         for b in RawTileLoader(files, shape, BATCH, drop_remainder=True):
             loaded.append(b)
             outs.append(transform(b))
         torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = launch_counts(wrappers, before)
         print(f"ingest path launches: {counts}")
         want = {w.__name__: 0 for w in wrappers}
         want.update(macenko_fit_stream=1, macenko_transform_stream=n_batches)
@@ -893,8 +907,7 @@ def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_
             if rows > 1:
                 mask[3] = False  # an empty row: +inf
             fields.append((torch.from_numpy(x), torch.from_numpy(mask)))
-        for w in (sel.kth_smallest_pallas, ss.kth_smallest_streaming):
-            w.launches = 0
+        before = profiling.counters("launch.")
         checks = []
         for x, mask in fields:
             cnt = mask.sum(-1)
@@ -907,7 +920,8 @@ def ingest_phase(seed: int, dev, ref, batch, normalizer, wrappers, tilepipe_jax_
             checks.append((f"percentile_all q={q} {tuple(x.shape)}",
                            percentile_all(x.to(dev), q), percentile_all(x, q)))
         torch.cuda.synchronize()
-        b3, b6 = sel.kth_smallest_pallas.launches, ss.kth_smallest_streaming.launches
+        b3, b6 = launch_counts([sel.kth_smallest_pallas, ss.kth_smallest_streaming],
+                               before).values()
         for label, got, cpu in checks:
             require(got.is_cuda and torch.equal(got.cpu().view(torch.int32),
                                                 cpu.view(torch.int32)),
@@ -2190,16 +2204,17 @@ def main() -> int:
     # streamed route runs its images in launches of at most 65 535 (its
     # grid's y extent, which was the limit).
     many_imgs = dev_u8(synthetic_he_batch(65536, 16, 16, seed=args.seed + 16))
-    ms.macenko_fit_stream.launches = 0
+    before = profiling.counters("launch.")
     fitted_many = Macenko().fit(many_imgs)
     he_m, mc_m = fitted_many._stain_matrix, fitted_many._target_max_conc
     he_mp, mc_mp = ms.macenko_fit_stream_plain(many_imgs)
     torch.cuda.synchronize()
-    print(f"B5 fit 65536x3x16^2 u8 via Macenko().fit ({ms.macenko_fit_stream.launches} B5 "
+    b5_many = launch_counts([ms.macenko_fit_stream], before)["macenko_fit_stream"]
+    print(f"B5 fit 65536x3x16^2 u8 via Macenko().fit ({b5_many} B5 "
           f"launch, route {ms.route(65536 * 256, torch.uint8, kernels.device_limits(dev.index)[1])}): "
           f"HE max|d| {(he_m - he_mp).abs().max().item():.3g} (atol 2e-5), maxC max rel "
           f"{((mc_m - mc_mp).abs() / mc_mp.abs()).max().item():.3g} (rtol 1e-4)")
-    require(ms.macenko_fit_stream.launches == 1, "the 65 536-image fit did not launch B5 once")
+    require(b5_many == 1, "the 65 536-image fit did not launch B5 once")
     torch.testing.assert_close(he_m, he_mp, atol=2e-5, rtol=0)
     torch.testing.assert_close(mc_m, mc_mp, atol=0, rtol=1e-4)
     del many_imgs
@@ -2546,11 +2561,10 @@ def main() -> int:
                 "kth_smallest_pallas": b3}
 
     def drive_macenko(label, path, want):
-        for w in macenko_wrappers:
-            w.launches = 0
+        before = profiling.counters("launch.")
         result = path()
         torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in macenko_wrappers}
+        counts = launch_counts(macenko_wrappers, before)
         print(f"{label} launches: {counts}")
         require(counts == want, f"{label}: launches {counts}, the path must launch {want}")
         return result, counts
@@ -2569,11 +2583,10 @@ def main() -> int:
     require(mae <= 0.35, f"oracle MAE {mae} above 0.35")
 
     def drive(label, wrappers, path):
-        for w in wrappers:
-            w.launches = 0
+        before = profiling.counters("launch.")
         result = path()
         torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = launch_counts(wrappers, before)
         print(f"{label} path launches: {counts}")
         require(all(n > 0 for n in counts.values()), f"a kernel of the {label} path never launched")
         require(result.is_cuda and result.dtype == torch.uint8 and result.shape == batch.shape,
@@ -2661,11 +2674,10 @@ def main() -> int:
 
     for method, wrappers in [("reinhard", [rf.reinhard_moments, rf.reinhard_apply]),
                              ("histogram_matching", [hk.histogram_256, hk.apply_lut])]:
-        for w in wrappers:
-            w.launches = 0
+        before = profiling.counters("launch.")
         res = StainNormalizerTransform(method, mode="batch", batch_ref_index=None)(pool_a)
         torch.cuda.synchronize()
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = launch_counts(wrappers, before)
         print(f"{method} batch mode {A_BATCH}x3x{A_SIZE}^2 f32 launches: {counts}")
         require(all(n > 0 for n in counts.values()), f"a kernel of {method} batch mode never launched")
         require(res.shape == pool_a.shape and bool(torch.isfinite(res).all()),

@@ -131,12 +131,12 @@ def _render_module(modname: str, names: list[str], title: str | None = None) -> 
 
 
 def _render_kernel_module(modname: str) -> str:
-    """A kernel module: its docstring, each wrapper (a function that counts
-    its launches) beside its plain version, then the other public
-    functions."""
+    """A kernel module: its docstring, each wrapper (a function with a plain
+    version ``<name>_plain``, or one of :data:`PLAIN_OF`) beside its plain
+    version, then the other public functions."""
     mod = importlib.import_module(modname)
     names = _public_functions(mod)
-    wrappers = [n for n in names if hasattr(getattr(mod, n), "launches")]
+    wrappers = [n for n in names if f"{n}_plain" in names and n not in PLAIN_OF]
     wrappers += [n for n in PLAIN_OF if n in names and n not in wrappers]
     shown = set()
     out = [f"## `{modname}`\n", _doc(mod) + "\n"]

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from stainx_tpu_torch import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "stainx_tpu_torch"
 
@@ -67,8 +69,9 @@ def _lib_path(src: Path) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no current build, one ``nvcc``
-    per source, all in parallel. Returns ``{source stem: library path}``.
-    Raises ``RuntimeError`` with the compiler's output when a build fails."""
+    per source, all in parallel, each counted in ``build.nvcc``. Returns
+    ``{source stem: library path}``. Raises ``RuntimeError`` with the
+    compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {src.stem: (src, _lib_path(src)) for src in sorted(CSRC.glob("*.cu"))}
     procs = {}
@@ -90,6 +93,7 @@ def build_all() -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)
+            profiling.count("build.nvcc")
     if failures:
         raise RuntimeError("\n".join(failures))
     return {stem: lib for stem, (_src, lib) in paths.items()}

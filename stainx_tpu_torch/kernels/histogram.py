@@ -3,9 +3,11 @@
 Counterpart of ``stainx_tpu/kernels/histogram.py``. On a CUDA tensor each
 wrapper launches hand-written kernels from ``csrc/histogram.cu`` (built at
 first use) or raises; on a CPU tensor it runs its plain PyTorch version.
-Any channel count C ≥ 1 is accepted. The launch counts: ``histogram_256``
-counts the calls that launch the histogram kernel (B8a/B8c, with its
-finalize), ``apply_lut`` those that launch the LUT apply (B8b).
+Any channel count C ≥ 1 is accepted. Each wrapper is a span,
+``stainx.kernel.B8a``, ``stainx.kernel.B8b`` or, for :func:`hm_transfer`,
+``stainx.kernel.B8``; ``launch.B8a`` counts the C calls that launch the
+histogram kernel (B8a/B8c, with its finalize), ``launch.B8b`` those that
+launch the LUT apply (:mod:`stainx_tpu_torch.profiling`).
 
 - :func:`histogram_256`: per-channel 256-bin counts of (N, C, P) or (C, P)
   uint8 as (C, 256) float32. The kernel counts in int32 (exact, the same on
@@ -34,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 
 _OUT_DTYPES = (torch.uint8, torch.float32)
 MIN_BLOCK_VALUES = 32_768  # values a 512-thread histogram block counts at least
@@ -267,36 +269,39 @@ def histogram_256(values_u8: torch.Tensor) -> torch.Tensor:
     """Per-channel 256-bin counts (B8a, and B8c for a (C, P) input): (N, C,
     P) or (C, P) uint8 → (C, 256) float32. One C call: the histogram kernel
     and its finalize."""
-    values = _as_ncp(values_u8, "histogram_256")
-    if values.device.type == "cpu":
-        return histogram_256_plain(values)
-    partials, n, p, c, bpc, chunk = _hist_args(values, "histogram_256")
-    counts = torch.empty((c, 256), dtype=torch.float32, device=values.device)
-    lib = _lib()
-    with kernels.on_device(values.device):
-        code = lib.stainx_histogram_256(values.data_ptr(), partials.data_ptr(), counts.data_ptr(),
-                                        n, p, c, bpc, chunk, kernels.current_stream(values.device))
-    kernels.check(lib, code, "histogram_256")
-    histogram_256.launches += 1
-    return counts
+    with profiling.annotate("stainx.kernel.B8a"):
+        values = _as_ncp(values_u8, "histogram_256")
+        if values.device.type == "cpu":
+            return histogram_256_plain(values)
+        partials, n, p, c, bpc, chunk = _hist_args(values, "histogram_256")
+        counts = torch.empty((c, 256), dtype=torch.float32, device=values.device)
+        lib = _lib()
+        with kernels.on_device(values.device):
+            code = lib.stainx_histogram_256(values.data_ptr(), partials.data_ptr(),
+                                            counts.data_ptr(), n, p, c, bpc, chunk,
+                                            kernels.current_stream(values.device))
+        kernels.check(lib, code, "histogram_256")
+        profiling.count("launch.B8a")
+        return counts
 
 
 def hm_reference(values_u8: torch.Tensor) -> torch.Tensor:
     """The fit's reference histograms of (N, C, P) uint8: (C, 256) float32
     ``counts / (sum + 1e-8)``. One C call: the histogram kernel and a
     finalize that normalizes."""
-    values = _as_ncp(values_u8, "hm_reference")
-    if values.device.type == "cpu":
-        return normalized_histogram(histogram_256_plain(values))
-    partials, n, p, c, bpc, chunk = _hist_args(values, "hm_reference")
-    hist = torch.empty((c, 256), dtype=torch.float32, device=values.device)
-    lib = _lib()
-    with kernels.on_device(values.device):
-        code = lib.stainx_hm_fit(values.data_ptr(), partials.data_ptr(), hist.data_ptr(),
-                                 n, p, c, bpc, chunk, kernels.current_stream(values.device))
-    kernels.check(lib, code, "hm_reference")
-    histogram_256.launches += 1
-    return hist
+    with profiling.annotate("stainx.kernel.B8a"):
+        values = _as_ncp(values_u8, "hm_reference")
+        if values.device.type == "cpu":
+            return normalized_histogram(histogram_256_plain(values))
+        partials, n, p, c, bpc, chunk = _hist_args(values, "hm_reference")
+        hist = torch.empty((c, 256), dtype=torch.float32, device=values.device)
+        lib = _lib()
+        with kernels.on_device(values.device):
+            code = lib.stainx_hm_fit(values.data_ptr(), partials.data_ptr(), hist.data_ptr(),
+                                     n, p, c, bpc, chunk, kernels.current_stream(values.device))
+        kernels.check(lib, code, "hm_reference")
+        profiling.count("launch.B8a")
+        return hist
 
 
 def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torch.dtype):
@@ -306,28 +311,30 @@ def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torc
     of :func:`hm_build_lut` and the table looked up. One C call: the
     histogram kernel, a finalize that builds the LUT and the table, and the
     apply kernel on that table."""
-    _check_apply(values_u8, ref_hist, out_dtype)
-    if values_u8.device.type == "cpu":
-        return hm_transfer_plain(values_u8, ref_hist, out_dtype)
-    partials, n, p, c, bpc, chunk = _hist_args(values_u8, "hm_transfer")
-    dev = values_u8.device
-    ref = torch.as_tensor(ref_hist).to(device=dev, dtype=torch.float32).contiguous()
-    lut = torch.empty((c, 256), dtype=torch.float32, device=dev)
-    table = torch.empty((c, 256), dtype=out_dtype, device=dev)
-    out = torch.empty(values_u8.shape, dtype=out_dtype, device=dev)
-    lib = _lib()
-    with kernels.on_device(dev):
-        code = lib.stainx_hm_transform(
-            values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
-            lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk, _reciprocal(float(n * p) + 1e-8),
-            int(out_dtype == torch.float32),
-            int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
-            _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
-        )
-    kernels.check(lib, code, "hm_transfer")
-    histogram_256.launches += 1
-    apply_lut.launches += 1
-    return out, lut, table
+    with profiling.annotate("stainx.kernel.B8"):
+        _check_apply(values_u8, ref_hist, out_dtype)
+        if values_u8.device.type == "cpu":
+            return hm_transfer_plain(values_u8, ref_hist, out_dtype)
+        partials, n, p, c, bpc, chunk = _hist_args(values_u8, "hm_transfer")
+        dev = values_u8.device
+        ref = torch.as_tensor(ref_hist).to(device=dev, dtype=torch.float32).contiguous()
+        lut = torch.empty((c, 256), dtype=torch.float32, device=dev)
+        table = torch.empty((c, 256), dtype=out_dtype, device=dev)
+        out = torch.empty(values_u8.shape, dtype=out_dtype, device=dev)
+        lib = _lib()
+        with kernels.on_device(dev):
+            code = lib.stainx_hm_transform(
+                values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
+                lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk,
+                _reciprocal(float(n * p) + 1e-8),
+                int(out_dtype == torch.float32),
+                int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
+                _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
+            )
+        kernels.check(lib, code, "hm_transfer")
+        profiling.count("launch.B8a")
+        profiling.count("launch.B8b")
+        return out, lut, table
 
 
 def hm_lut(counts: torch.Tensor, ref_hist: torch.Tensor, num_pixels: int, out_dtype: torch.dtype):
@@ -365,27 +372,25 @@ def apply_lut(values_u8: torch.Tensor, lut: torch.Tensor, out_dtype: torch.dtype
     """Per-channel LUT apply (B8b): (N, C, P) uint8 and a (C, 256) LUT →
     (N, C, P) ``out_dtype``: uint8 ``⌊clip(lut[c, v], 0, 255)⌋`` or float32
     ``clip(lut[c, v] / 255, 0, 1)``. One launch a call."""
-    _check_apply(values_u8, lut, out_dtype)
-    if values_u8.device.type == "cpu":
-        return apply_lut_plain(values_u8, lut, out_dtype)
-    kernels.check_cuda(values_u8, "apply_lut")
-    table = lut_table(torch.as_tensor(lut).to(values_u8.device), out_dtype)
-    out = torch.empty(values_u8.shape, dtype=out_dtype, device=values_u8.device)
-    if out.numel() == 0:
+    with profiling.annotate("stainx.kernel.B8b"):
+        _check_apply(values_u8, lut, out_dtype)
+        if values_u8.device.type == "cpu":
+            return apply_lut_plain(values_u8, lut, out_dtype)
+        kernels.check_cuda(values_u8, "apply_lut")
+        table = lut_table(torch.as_tensor(lut).to(values_u8.device), out_dtype)
+        out = torch.empty(values_u8.shape, dtype=out_dtype, device=values_u8.device)
+        if out.numel() == 0:
+            return out
+        n, c, p = values_u8.shape
+        lib = _lib()
+        with kernels.on_device(values_u8.device):
+            code = lib.stainx_apply_lut(
+                values_u8.data_ptr(), out.data_ptr(), table.data_ptr(), values_u8.numel(), p, c,
+                int(out_dtype == torch.float32),
+                int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
+                _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
+            )
+        kernels.check(lib, code, "apply_lut")
+        profiling.count("launch.B8b")
         return out
-    n, c, p = values_u8.shape
-    lib = _lib()
-    with kernels.on_device(values_u8.device):
-        code = lib.stainx_apply_lut(
-            values_u8.data_ptr(), out.data_ptr(), table.data_ptr(), values_u8.numel(), p, c,
-            int(out_dtype == torch.float32),
-            int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
-            _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
-        )
-    kernels.check(lib, code, "apply_lut")
-    apply_lut.launches += 1
-    return out
 
-
-histogram_256.launches = 0
-apply_lut.launches = 0

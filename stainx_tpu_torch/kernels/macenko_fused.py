@@ -3,8 +3,9 @@
 Counterpart of ``stainx_tpu/kernels/macenko_fused.py``. Each wrapper takes
 an (N, 3, H, W) uint8 or float32 tensor. On a CUDA tensor it launches its
 hand-written kernel from ``csrc/macenko_fused.cu`` (built at first use) or
-raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper is
+the span ``stainx.kernel.B1`` or ``stainx.kernel.B2`` and counts its
+launches in ``launch.B1`` or ``launch.B2`` (:mod:`stainx_tpu_torch.profiling`).
 
 The plain versions repeat the kernels' arithmetic on batched tensors:
 
@@ -31,7 +32,7 @@ import ctypes
 
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming_plain
 from stainx_tpu_torch.ops.eigh3 import eigh3_top2
 from stainx_tpu_torch.ops.macenko import (
@@ -289,6 +290,7 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool):
         raise ValueError(f"macenko_transform_mega takes images below 2^31 pixels, got {p}")
     smem_limit = kernels.device_limits(dev.index)[1]
     body = "resident" if check else body or transform_body(p, images.dtype, smem_limit)
+    profiling.note(route=body)
     smem = resident_bytes(p, images.dtype) if body == "resident" else 0
     if smem > smem_limit:
         raise ValueError(f"macenko_transform_mega: a {p}-pixel image needs {smem} bytes of shared "
@@ -315,13 +317,14 @@ def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | No
     of the same shape and dtype, values in [0, 255]. One launch per call,
     one thread block per image; ``body`` (``"resident"`` or ``"l2"``)
     overrides :func:`transform_body`, for measurements."""
-    kernels.check_rgb_batch(images, "macenko_transform_mega")
-    if images.device.type == "cpu":
-        return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
-    out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False)
-    if out.numel():
-        macenko_transform_mega.launches += 1
-    return out
+    with profiling.annotate("stainx.kernel.B1"):
+        kernels.check_rgb_batch(images, "macenko_transform_mega")
+        if images.device.type == "cpu":
+            return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
+        out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False)
+        if out.numel():
+            profiling.count("launch.B1")
+        return out
 
 
 def resident_selections(images, stain_matrix, target_max_conc):
@@ -381,12 +384,13 @@ def macenko_fit_mega(images):
     (3, 2) float32, max_concentrations (2,) float32)``. One launch per call:
     one thread block holds the whole pool in its shared memory, so on the
     card the pool must fit it (:func:`fit_resident_bytes`)."""
-    kernels.check_rgb_batch(images, "macenko_fit_mega")
-    if images.device.type == "cpu":
-        return macenko_fit_mega_plain(images)
-    he, maxc, _, _ = _fit(images, check=False)
-    macenko_fit_mega.launches += 1
-    return he, maxc
+    with profiling.annotate("stainx.kernel.B2"):
+        kernels.check_rgb_batch(images, "macenko_fit_mega")
+        if images.device.type == "cpu":
+            return macenko_fit_mega_plain(images)
+        he, maxc, _, _ = _fit(images, check=False)
+        profiling.count("launch.B2")
+        return he, maxc
 
 
 def fit_selections(images):
@@ -399,6 +403,3 @@ def fit_selections(images):
     kernels.check_rgb_batch(images, "macenko_fit_mega")
     return _fit(images, check=True)
 
-
-macenko_transform_mega.launches = 0
-macenko_fit_mega.launches = 0

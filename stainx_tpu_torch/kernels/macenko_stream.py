@@ -21,8 +21,10 @@ Both select inside their own kernels (an exact radix select on the
 monotone key, with B6's conventions): no B6 launch, no key field in device
 memory. A wrapper raises rather than fall back. On a CPU tensor it runs its
 plain version: B1's or B2's plain pipeline with the selections run through
-B6's plain version, which selects the same elements. Each wrapper counts its
-own calls' launches in ``launches``.
+B6's plain version, which selects the same elements. Each wrapper is the
+span ``stainx.kernel.B4`` or ``stainx.kernel.B5`` (its route in the span's
+arguments) and counts its C calls in ``launch.B4.<route>`` or
+``launch.B5.<route>`` (:mod:`stainx_tpu_torch.profiling`).
 
 Nothing is read back to the host: ranks, statistics and selected values stay
 on the device, so a call can be captured in a CUDA graph. ``seed_state`` is
@@ -36,7 +38,7 @@ import functools
 
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels import macenko_fused as mf
 from stainx_tpu_torch.ops.percentile import static_nearest_rank_index
 
@@ -148,13 +150,15 @@ def _lib() -> ctypes.CDLL:
 
 def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.Tensor:
     """One B4 (``out`` given) or B5 call on the card; returns the (rows, 32)
-    RowParams. ``force`` takes a route other than :func:`route` would (the
-    streamed route takes every row; the cluster route only rows that fit)."""
+    RowParams, and counts the launch by its route. ``force`` takes a route
+    other than :func:`route` would (the streamed route takes every row; the
+    cluster route only rows that fit)."""
     n, _, h, w = images.shape
     p = h * w
     per_row = n if fit else 1
     rows, row_len = n // per_row, per_row * p
     what = "macenko_fit_stream" if fit else "macenko_transform_stream"
+    counter = "launch.B5." if fit else "launch.B4."
     if row_len >= 2**31:
         raise ValueError(f"{what} takes rows below 2^31 pixels, got {row_len}")
     dev = images.device
@@ -173,6 +177,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
         if shape is None:
             raise ValueError(f"{what}: rows of {row_len} pixels do not fit a cluster")
         csize, slice_, resident = shape
+        profiling.note(route=take, csize=csize, slice=slice_, resident=resident)
         vec = p % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
         params = torch.empty((rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
         with kernels.on_device(dev):
@@ -183,7 +188,9 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
                 params.data_ptr(), stream,
             )
         kernels.check(lib, code, what)
+        profiling.count(counter + take)
         return params
+    profiling.note(route=take)
     vec = 4 if mf._vec4(p, *aligned) else 1
     blocks = kernels.row_blocks(n, p // vec, dev)
     layout, total = stream_layout(rows, n * blocks, 0 if is_uint8 else row_len)
@@ -199,6 +206,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
             null if is_uint8 else base + layout["keys"][0], stream,
         )
     kernels.check(lib, code, what)
+    profiling.count(counter + take)
     off, nbytes = layout["params"]
     return scratch[off:off + nbytes].view(torch.float32).view(rows, PARAMS_WIDTH)
 
@@ -240,7 +248,9 @@ def cluster_occupancy(dtype: torch.dtype, csize: int, resident: int) -> int:
 
 @functools.cache
 def _active_clusters(index: int, dtype: torch.dtype, csize: int, resident: int) -> int:
-    """:func:`cluster_occupancy` on CUDA device ``index``, asked once a shape."""
+    """:func:`cluster_occupancy` on CUDA device ``index``, asked once a shape
+    (each ask counted in ``occupancy.query``)."""
+    profiling.count("occupancy.query")
     with kernels.on_device(index):
         return cluster_occupancy(dtype, csize, resident)
 
@@ -250,36 +260,32 @@ def macenko_transform_stream(images, stain_matrix, target_max_conc, *, force=Non
     normalized batch of the same shape and dtype, values in [0, 255]. One
     C call, one cluster launch or the streamed route's kernels. ``force``
     (``"cluster"`` or ``"stream"``) overrides :func:`route`, for checks."""
-    kernels.check_rgb_batch(images, "macenko_transform_stream")
-    if images.device.type == "cpu":
-        return macenko_transform_stream_plain(images, stain_matrix, target_max_conc)
-    kernels.check_cuda(images, "macenko_transform_stream")
-    dev = images.device
-    he = mf._params(stain_matrix, dev, 6, "stain_matrix")
-    tmc = mf._params(target_max_conc, dev, 2, "target_max_conc")
-    out = torch.empty_like(images)
-    if out.numel() == 0:
+    with profiling.annotate("stainx.kernel.B4"):
+        kernels.check_rgb_batch(images, "macenko_transform_stream")
+        if images.device.type == "cpu":
+            return macenko_transform_stream_plain(images, stain_matrix, target_max_conc)
+        kernels.check_cuda(images, "macenko_transform_stream")
+        dev = images.device
+        he = mf._params(stain_matrix, dev, 6, "stain_matrix")
+        tmc = mf._params(target_max_conc, dev, 2, "target_max_conc")
+        out = torch.empty_like(images)
+        if out.numel() == 0:
+            return out
+        _run(images, out, he, tmc, fit=False, force=force)
         return out
-    _run(images, out, he, tmc, fit=False, force=force)
-    macenko_transform_stream.launches += 1
-    return out
 
 
 def macenko_fit_stream(images, *, force=None):
     """Pooled multi-block Macenko fit (B5): (N, 3, H, W) uint8/float32 →
     ``(stain_matrix (3, 2) float32, max_concentrations (2,) float32)``.
     One C call, as B4."""
-    kernels.check_rgb_batch(images, "macenko_fit_stream")
-    if images.device.type == "cpu":
-        return macenko_fit_stream_plain(images)
-    kernels.check_cuda(images, "macenko_fit_stream")
-    n, _, h, w = images.shape
-    if n * h * w == 0:
-        raise ValueError("macenko_fit_stream pools at least one pixel")
-    params = _run(images, None, None, None, fit=True, force=force)
-    macenko_fit_stream.launches += 1
-    return params[0, HE_COLUMNS].reshape(3, 2), params[0, MAXC_COLUMNS]
-
-
-macenko_transform_stream.launches = 0
-macenko_fit_stream.launches = 0
+    with profiling.annotate("stainx.kernel.B5"):
+        kernels.check_rgb_batch(images, "macenko_fit_stream")
+        if images.device.type == "cpu":
+            return macenko_fit_stream_plain(images)
+        kernels.check_cuda(images, "macenko_fit_stream")
+        n, _, h, w = images.shape
+        if n * h * w == 0:
+            raise ValueError("macenko_fit_stream pools at least one pixel")
+        params = _run(images, None, None, None, fit=True, force=force)
+        return params[0, HE_COLUMNS].reshape(3, 2), params[0, MAXC_COLUMNS]

@@ -3,8 +3,11 @@
 Counterpart of ``stainx_tpu/kernels/reinhard_fused.py``. Both wrappers take
 an (N, 3, H, W) uint8 or float32 tensor. On a CUDA tensor each launches its
 hand-written kernel from ``csrc/reinhard_fused.cu`` (built at first use) or
-raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper
-counts its launches in its ``launches`` attribute.
+raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper is
+a span, ``stainx.kernel.B7b``, ``stainx.kernel.B7a`` or, for
+:func:`reinhard_transfer`, ``stainx.kernel.B7``, and counts the launches of
+each kernel in ``launch.B7b`` and ``launch.B7a``
+(:mod:`stainx_tpu_torch.profiling`).
 
 - :func:`reinhard_moments`: the batch-global centred LAB sums Σ(LAB−128)
   and Σ(LAB−128)² per channel, read straight from the raw values. The
@@ -32,7 +35,7 @@ import ctypes
 
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.ops.color import lab_planes_to_rgb, normalize_to_float, rgb_planes_to_lab
 from stainx_tpu_torch.ops.reinhard import LAB_MOMENT_CENTER, moments_to_mean_std
 
@@ -147,57 +150,60 @@ def _moments(images: torch.Tensor) -> torch.Tensor:
             images.data_ptr(), partials.data_ptr(), out.data_ptr(), out.data_ptr() + 6 * 4, *args
         )
     kernels.check(lib, code, "reinhard_moments")
-    reinhard_moments.launches += 1
+    profiling.count("launch.B7b")
     return out
 
 
 def reinhard_moments(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch-global centred LAB moments (B7b): (N, 3, H, W) uint8/float32 →
     ``(Σ(LAB−128), Σ(LAB−128)²)``, each (3,) float32. One launch a call."""
-    kernels.check_rgb_batch(images, "reinhard_moments")
-    if images.device.type == "cpu":
-        return reinhard_moments_plain(images)
-    if images.numel() == 0:
-        kernels.check_cuda(images, "reinhard_moments")
-        out = torch.zeros(6, dtype=torch.float32, device=images.device)
-        return out[:3], out[3:]
-    out = _moments(images)
-    return out[:3], out[3:6]
+    with profiling.annotate("stainx.kernel.B7b"):
+        kernels.check_rgb_batch(images, "reinhard_moments")
+        if images.device.type == "cpu":
+            return reinhard_moments_plain(images)
+        if images.numel() == 0:
+            kernels.check_cuda(images, "reinhard_moments")
+            out = torch.zeros(6, dtype=torch.float32, device=images.device)
+            return out[:3], out[3:]
+        out = _moments(images)
+        return out[:3], out[3:6]
 
 
 def reinhard_mean_std(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch-global LAB mean and std of (N, 3, H, W) uint8/float32, each
     (3,) float32: the B7b launch, whose finalize writes them on the device,
     or on the CPU :func:`reinhard_moments_plain` and ``moments_to_mean_std``."""
-    kernels.check_rgb_batch(images, "reinhard_moments")
-    n_px = images.shape[0] * images.shape[2] * images.shape[3]
-    if images.device.type == "cpu" or images.numel() == 0:
-        return moments_to_mean_std(n_px, *reinhard_moments(images))
-    out = _moments(images)
-    return out[6:9], out[9:]
+    with profiling.annotate("stainx.kernel.B7b"):
+        kernels.check_rgb_batch(images, "reinhard_moments")
+        n_px = images.shape[0] * images.shape[2] * images.shape[3]
+        if images.device.type == "cpu" or images.numel() == 0:
+            return moments_to_mean_std(n_px, *reinhard_moments(images))
+        out = _moments(images)
+        return out[6:9], out[9:]
 
 
 def reinhard_apply(images, lab_mean, lab_std, reference_mean, reference_std) -> torch.Tensor:
     """Fused Reinhard apply (B7a): (N, 3, H, W) uint8/float32 and four (3,)
     statistics → the normalized batch in the input's shape and dtype (uint8
     in [0, 255], float32 in [0, 1]). One launch a call."""
-    kernels.check_rgb_batch(images, "reinhard_apply")
-    if images.device.type == "cpu":
-        return reinhard_apply_plain(images, lab_mean, lab_std, reference_mean, reference_std)
-    kernels.check_cuda(images, "reinhard_apply")
-    dev = images.device
-    stats = _stats(dev, lab_mean, lab_std, reference_mean, reference_std)
-    out = torch.empty_like(images)
-    if out.numel() == 0:
+    with profiling.annotate("stainx.kernel.B7a"):
+        kernels.check_rgb_batch(images, "reinhard_apply")
+        if images.device.type == "cpu":
+            return reinhard_apply_plain(images, lab_mean, lab_std, reference_mean,
+                                        reference_std)
+        kernels.check_cuda(images, "reinhard_apply")
+        dev = images.device
+        stats = _stats(dev, lab_mean, lab_std, reference_mean, reference_std)
+        out = torch.empty_like(images)
+        if out.numel() == 0:
+            return out
+        lib = _lib()
+        with kernels.on_device(dev):
+            code = lib.stainx_reinhard_apply(images.data_ptr(), out.data_ptr(),
+                                             *(s.data_ptr() for s in stats), *_launch_args(images))
+        kernels.check(lib, code, "reinhard_apply")
+        profiling.count("launch.B7a")
         return out
-    lib = _lib()
-    with kernels.on_device(dev):
-        code = lib.stainx_reinhard_apply(
-            images.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in stats), *_launch_args(images)
-        )
-    kernels.check(lib, code, "reinhard_apply")
-    reinhard_apply.launches += 1
-    return out
 
 
 def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> torch.Tensor:
@@ -206,28 +212,26 @@ def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> to
     then B7a on them, launched by one C call (one launch of each kernel);
     one host call keeps the host's issue time below the card's. On a CPU
     tensor, the plain versions."""
-    kernels.check_rgb_batch(images, "reinhard_transfer")
-    if images.device.type == "cpu" or images.numel() == 0:
-        mean, std = reinhard_mean_std(images)
-        return reinhard_apply(images, mean, std, reference_mean, reference_std)
-    kernels.check_cuda(images, "reinhard_transfer")
-    dev = images.device
-    ref_mean = _stat(dev, "reference_mean", reference_mean)
-    ref_std = _stat(dev, "reference_std", reference_std)
-    args = _launch_args(images)
-    partials, small = _moments_scratch(dev, args[4])
-    out = torch.empty_like(images)
-    lib = _lib()
-    with kernels.on_device(dev):
-        code = lib.stainx_reinhard_transform(
-            images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
-            small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args
-        )
-    kernels.check(lib, code, "reinhard_transfer")
-    reinhard_moments.launches += 1
-    reinhard_apply.launches += 1
-    return out
+    with profiling.annotate("stainx.kernel.B7"):
+        kernels.check_rgb_batch(images, "reinhard_transfer")
+        if images.device.type == "cpu" or images.numel() == 0:
+            mean, std = reinhard_mean_std(images)
+            return reinhard_apply(images, mean, std, reference_mean, reference_std)
+        kernels.check_cuda(images, "reinhard_transfer")
+        dev = images.device
+        ref_mean = _stat(dev, "reference_mean", reference_mean)
+        ref_std = _stat(dev, "reference_std", reference_std)
+        args = _launch_args(images)
+        partials, small = _moments_scratch(dev, args[4])
+        out = torch.empty_like(images)
+        lib = _lib()
+        with kernels.on_device(dev):
+            code = lib.stainx_reinhard_transform(
+                images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
+                small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args
+            )
+        kernels.check(lib, code, "reinhard_transfer")
+        profiling.count("launch.B7b")
+        profiling.count("launch.B7a")
+        return out
 
-
-reinhard_moments.launches = 0
-reinhard_apply.launches = 0

@@ -16,7 +16,9 @@ A rank past the count takes the row's largest element; a row with no
 element gives +inf. On a CUDA tensor it launches ``csrc/select_rows.cu``
 (one thread-block cluster a row, built at first use) or raises; on a CPU
 tensor it runs :func:`kth_smallest_pallas_plain`, which sorts the monotone
-keys of each row. Both give the JAX kernel's result bit for bit.
+keys of each row. Both give the JAX kernel's result bit for bit. The
+wrapper is the span ``stainx.kernel.B3`` and counts its launches in
+``launch.B3`` (:mod:`stainx_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import functools
 
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
@@ -144,7 +146,9 @@ def _lib() -> ctypes.CDLL:
 def _active_clusters(index: int, k: int, csize: int, resident: int) -> int:
     """Clusters of ``csize`` blocks with ``k`` ranks and ``resident`` keys
     a block that CUDA device ``index`` holds at once
-    (``cudaOccupancyMaxActiveClusters``), asked once a shape."""
+    (``cudaOccupancyMaxActiveClusters``), asked once a shape (each ask
+    counted in ``occupancy.query``)."""
+    profiling.count("occupancy.query")
     lib, found = _lib(), ctypes.c_int(0)
     with kernels.on_device(index):
         code = lib.stainx_kth_smallest_rows_occupancy(csize, k, resident, ctypes.addressof(found))
@@ -157,7 +161,8 @@ def kth_smallest_pallas(x: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     sentinels, ranks (R, K) int32 → (R, K) float32. One launch a call (per
     8 ranks), one thread-block cluster a row (:func:`cluster_shape`); the
     ranks may stay on the card."""
-    return _select(x, ranks, None)
+    with profiling.annotate("stainx.kernel.B3"):
+        return _select(x, ranks, None)
 
 
 def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Tensor:
@@ -195,6 +200,7 @@ def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Te
         else:
             c, (slice_, resident) = csize, cluster_slice(p, csize, resident_budget(k, smem))
         kernels.folded_grid(rows, c, "kth_smallest_pallas")
+        profiling.note(route="cluster", csize=c, slice=slice_, resident=resident)
         out = torch.empty((rows, k), dtype=torch.float32, device=dev)
         with kernels.on_device(dev):
             code = lib.stainx_kth_smallest_rows(
@@ -202,9 +208,7 @@ def _select(x: torch.Tensor, ranks: torch.Tensor, csize: int | None) -> torch.Te
                 resident, stream
             )
         kernels.check(lib, code, "kth_smallest_pallas")
-        kth_smallest_pallas.launches += 1
+        profiling.count("launch.B3")
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
-
-kth_smallest_pallas.launches = 0

@@ -16,7 +16,9 @@ below +inf, the conventions of the JAX ``_init_keys``: a count of 0 gives
 +inf, and the kernel starts its descent below the common leading key bits
 of min and max. It must be exact where it is given; without it the kernel
 finds them in its first read. The ranks and the init may be tensors on
-the card: the wrapper reads nothing back to the host.
+the card: the wrapper reads nothing back to the host. The wrapper is the
+span ``stainx.kernel.B6`` and counts its C calls in ``launch.B6``
+(:mod:`stainx_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import ctypes
 
 import torch
 
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels.selection import kth_smallest_pallas_plain
 
 MAX_RANKS = 8  # ranks one launch serves (csrc/selection.cu kMaxK)
@@ -96,6 +98,11 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
     sentinels, ranks (R, K) int32 → (R, K) float32, any number of rows.
     ``init`` is an optional tuple of (R,) ``(min_vals, max_vals, counts)``.
     One C call a call (per 8 ranks)."""
+    with profiling.annotate("stainx.kernel.B6"):
+        return _streaming(x, ranks, init)
+
+
+def _streaming(x: torch.Tensor, ranks: torch.Tensor, init) -> torch.Tensor:
     if x.dim() != 2 or ranks.dim() != 2 or ranks.shape[0] != x.shape[0]:
         raise ValueError(
             f"kth_smallest_streaming expects x (R, P) and ranks (R, K), got "
@@ -138,9 +145,7 @@ def kth_smallest_streaming(x: torch.Tensor, ranks: torch.Tensor, init=None) -> t
                 out.data_ptr(), vec, blocks_x, stream,
             )
         kernels.check(lib, code, "kth_smallest_streaming")
-        kth_smallest_streaming.launches += 1
+        profiling.count("launch.B6")
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
-
-kth_smallest_streaming.launches = 0

@@ -2,7 +2,10 @@
 
 Counterpart of ``stainx_tpu/normalizers/_template.py``. There is no backend
 knob: the device decides the route (CUDA runs the hand-written kernels, the
-CPU runs their plain PyTorch versions).
+CPU runs their plain PyTorch versions). ``fit``, ``transform`` and the
+÷255 are the spans ``stainx.fit``, ``stainx.transform`` and
+``stainx.finalize``, each with its device interval
+(:mod:`stainx_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from stainx_tpu_torch import profiling
 from stainx_tpu_torch.base import StainNormalizerBase
 from stainx_tpu_torch.utils import get_device
 
@@ -37,21 +41,24 @@ class NormalizerTemplate(StainNormalizerBase):
     # ------------------------------------------------------------- fit state
     def fit(self, images: Any) -> "NormalizerTemplate":
         """Fit on reference images; returns self."""
-        self._compute_reference_params(self._as_device_tensor(images))
+        with profiling.annotate("stainx.fit", device=self.device):
+            self._compute_reference_params(self._as_device_tensor(images))
         self._is_fitted = True
         return self
 
     def transform(self, images: Any) -> torch.Tensor:
         """Transform images with the fitted parameters."""
-        if not self._is_fitted:
-            raise ValueError("Must call fit() before transform()")
-        images = self._as_device_tensor(images)
-        return self._finalize_range(self._transform_impl(images))
+        with profiling.annotate("stainx.transform", device=self.device):
+            if not self._is_fitted:
+                raise ValueError("Must call fit() before transform()")
+            result = self._transform_impl(self._as_device_tensor(images))
+        return self._finalize_range(result)
 
     def _finalize_range(self, result: torch.Tensor) -> torch.Tensor:
         """The output value-range contract: ``normalize_to_0_1`` divides by 255."""
         if getattr(self, "normalize_to_0_1", False):
-            result = result / 255.0
+            with profiling.annotate("stainx.finalize", device=result.device):
+                result = result / 255.0
         return result
 
     # ----------------------------------------------------------- state dict

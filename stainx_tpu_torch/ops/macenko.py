@@ -25,7 +25,8 @@ Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
   exact, so the route never changes an output.
 
 A CUDA tensor launches the hand-written kernels, a CPU tensor runs their
-plain PyTorch versions.
+plain PyTorch versions. Each staged fit or transform is counted in
+``route.staged`` (:mod:`stainx_tpu_torch.profiling`).
 
 ``seed_state`` is the (7,) int32 cross-call state of the JAX kernels. The
 CUDA kernels run the images of a batch in parallel and need no probe seeds,
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from stainx_tpu_torch import profiling
 from stainx_tpu_torch.ops import color
 from stainx_tpu_torch.ops.eigh3 import eigh3_top2
 from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
@@ -299,6 +301,7 @@ def _max_concentrations(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
 
 
 def _staged_transform(images, stain_matrix, target_max_conc, precision: str) -> torch.Tensor:
+    profiling.count("route.staged")
     images_float = color.normalize_to_float(images)
     n, c, h, w = images_float.shape
     p = h * w
@@ -319,6 +322,7 @@ def _staged_transform(images, stain_matrix, target_max_conc, precision: str) -> 
 
 
 def _staged_fit(images):
+    profiling.count("route.staged")
     images_float = color.normalize_to_float(images)
     n, _, h, w = images_float.shape
     ptot = n * h * w

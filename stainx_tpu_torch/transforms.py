@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from stainx_tpu_torch import profiling
 from stainx_tpu_torch.normalizers import HistogramMatching, Macenko, Reinhard
 from stainx_tpu_torch.utils import get_device
 
@@ -224,7 +225,13 @@ class StainNormalizerTransform(nn.Module):
         """Normalize one image (C, H, W) or a batch (N, C, H, W): in batch
         mode after re-fitting on the batch, through the mesh when one was
         given. Returns the normalized tensor on the normalizer's device, in
-        the input's layout and the value range the module docstring sets."""
+        the input's layout and the value range the module docstring sets.
+        The call is the span ``stainx.forward``
+        (:mod:`stainx_tpu_torch.profiling`)."""
+        with profiling.annotate("stainx.forward"):
+            return self._forward(img)
+
+    def _forward(self, img: Any) -> torch.Tensor:
         # Convert before the single-image check: a nested list has no .ndim.
         if not torch.is_tensor(img) and not hasattr(img, "ndim"):
             img = np.asarray(img)

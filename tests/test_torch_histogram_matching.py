@@ -28,7 +28,7 @@ from stainx_tpu.kernels.histogram import (
     histogram_256_pallas,
 )
 from stainx_tpu.ops import histogram_matching as jax_hm
-from stainx_tpu_torch import HistogramMatching, kernels
+from stainx_tpu_torch import HistogramMatching, kernels, profiling
 from stainx_tpu_torch.convert import state_from_jax
 from stainx_tpu_torch.kernels import histogram as hk
 from stainx_tpu_torch.ops import histogram_matching as hm
@@ -403,6 +403,6 @@ class TestErrors:
             raise AssertionError("the CPU path must not build the CUDA kernels")
 
         monkeypatch.setattr(kernels, "build_all", no_build)
-        before = (hk.histogram_256.launches, hk.apply_lut.launches)
+        before = profiling.counters("launch.")
         HistogramMatching(device="cpu").fit(ref_u8).transform(src_u8)
-        assert (hk.histogram_256.launches, hk.apply_lut.launches) == before
+        assert profiling.counters("launch.") == before

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from stainx_tpu.kernels.macenko_stream import macenko_fit_stream as jax_fit_stream
 from stainx_tpu.kernels.macenko_stream import macenko_transform_stream as jax_transform_stream
 from stainx_tpu.ops import macenko as jax_mk
-from stainx_tpu_torch import kernels
+from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels import macenko_fused as mf
 from stainx_tpu_torch.kernels import macenko_stream as ms
 
@@ -214,8 +214,8 @@ class TestPlainVersions:
         monkeypatch.setattr(kernels, "build_all", no_build)
         he, mc = fitted
         x = torch.as_tensor(_tiles(1, 32, 32, seed=2))
-        counts = (ms.macenko_fit_stream.launches, ms.macenko_transform_stream.launches)
+        counts = profiling.counters("launch.")
         for force in ("cluster", "stream"):
             ms.macenko_fit_stream(x, force=force)
             ms.macenko_transform_stream(x, he, mc, force=force)
-        assert (ms.macenko_fit_stream.launches, ms.macenko_transform_stream.launches) == counts
+        assert profiling.counters("launch.") == counts
