@@ -69,7 +69,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the call selected on (written by a check-only entry with the kernels'
    own device functions) for the main path's fit and transform, path (a)'s
    pool and batch, path (b), a float32 2048² image and WSI tiles, on each
-   route; the exact row select (B3) bit for bit on the staged fit's
+   route; B4 and B5 on float32 rows, which take each pixel's OD once a
+   call (resident planes as OD, a key field for the rest), bit for bit
+   against the same source built with OD taken on every pass
+   (``per_pass_build``) at the batch-mode training shapes (128×3×256² and
+   1×3×256²), ragged rows past the resident part on clusters of 2 and 4,
+   forced cluster shapes with few pixels resident (a pooled fit, a white
+   batch that takes the fallback) and the tile store's uint8 rows, with
+   each call's ``keyfield.*`` count and the batch-mode forward's launches;
+   the exact row select (B3) bit for bit on the staged fit's
    (1, 512²) K=2 and (2, 512²) K=1, (64, 512²) K=2, (128, 512²) K=1,
    (256, 224²) K=2, (512, 224²) K=1, ragged (3, 1 000 003) and (5, 50 001)
    fields with sentinels, ties, ranks past the count and an empty row, a
@@ -236,6 +244,7 @@ Imports no JAX and nothing of ``stainx_tpu``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -363,6 +372,139 @@ def fused_selections(x, he, mc, fit: bool, force: str) -> dict:
             "repeat": torch.equal(_int_bits(stats(params)), _int_bits(stats(again))),
             "angles": tuple(angles.shape), "conc": tuple(conc.shape),
             "past_beta": (int(cnt.min()), int(cnt.max()))}
+
+
+PER_PASS_DIR = os.path.join(ROOT, "build", "per_pass")  # phase 3's per-pass build of B4/B5
+OD_ONCE = "constexpr bool kOdOnce = sizeof(T) == 4;"
+
+
+def per_pass_build():
+    """Start ``nvcc`` on ``csrc/macenko_stream.cu`` with its float32 rows'
+    OD taken on every pass, as B4 and B5 did before they took it once a call
+    (``kOdOnce`` false: raw float32 planes, no key field), into
+    ``build/per_pass/``. Returns ``(process, library path)``."""
+    from stainx_tpu_torch import kernels
+
+    source = (kernels.CSRC / "macenko_stream.cu").read_text()
+    require(source.count(OD_ONCE) == 1, f"macenko_stream.cu no longer has {OD_ONCE!r}")
+    os.makedirs(PER_PASS_DIR, exist_ok=True)
+    for header in kernels.CSRC.glob("*.cuh"):
+        Path(PER_PASS_DIR, header.name).write_text(header.read_text())
+    src = Path(PER_PASS_DIR, "macenko_stream.cu")
+    src.write_text(source.replace(OD_ONCE, OD_ONCE.replace("sizeof(T) == 4", "false")))
+    lib = os.path.join(PER_PASS_DIR, "libmacenko_stream_per_pass.so")
+    proc = subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib, str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def od_once_checks(dev, seed: int, build) -> None:
+    """B4 and B5 on float32 rows take each pixel's OD once a call: resident
+    planes as OD, the other pixels' keys in a key field. Each call here is
+    held bit for bit (its RowParams' statistics and its output) against the
+    per-pass build (:func:`per_pass_build`) on the same cluster shape: the
+    batch-mode training transform and fit (128x3x256^2 and 1x3x256^2
+    float32), ragged float32 rows past the resident part on clusters of 2
+    and 4 (also a pooled fit, and a white batch that takes the <3-pixel
+    fallback), and the tile store's uint8 rows, which the change leaves as
+    they were. Each float32 call with pixels past the resident part counts
+    one ``keyfield.B4`` or ``keyfield.B5``; the others none."""
+    import torch
+
+    from stainx_tpu_torch import StainNormalizerTransform, kernels
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels import macenko_stream as ms
+    from stainx_tpu_torch.testing import synthetic_he_batch
+
+    proc, path = build
+    log, _ = proc.communicate()
+    require(proc.returncode == 0, f"nvcc failed on the per-pass build:\n{log}")
+    per_pass = ctypes.CDLL(path)
+    per_pass.stainx_error_string.argtypes = [ctypes.c_int]
+    per_pass.stainx_error_string.restype = ctypes.c_char_p
+
+    def u8(n, h, w, s, scale=1.0):
+        return torch.as_tensor(synthetic_he_batch(n, h, w, seed=seed + s, he_scale=scale)).to(dev)
+
+    ref = u8(1, 256, 256, 520)
+    he, mc = (t.contiguous() for t in mf.macenko_fit_mega_plain(ref))
+    smem = kernels.device_limits(dev.index)[1]
+
+    def call(x, fit, shape, lib=None):
+        saved = kernels.library("macenko_stream")
+        if lib is not None:
+            kernels._libs["macenko_stream"] = lib
+        try:
+            out = None if fit else torch.empty_like(x)
+            params = ms._run(x, out, he, mc, fit=fit, force="cluster", shape=shape)
+        finally:
+            kernels._libs["macenko_stream"] = saved
+        torch.cuda.synchronize()
+        stats = torch.cat([params[:, :7], params[:, 8:24]], 1)  # no padding
+        return stats, out
+
+    def bits(t):
+        return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.uint8)
+
+    train = u8(128, 256, 256, 521, 1.1).float() / 255.0
+    cases = [
+        ("the training transform 128x3x256^2 f32", train, False, None),
+        ("the training fit 1x3x256^2 f32", train[:1], True, None),
+        ("40x3x331^2 f32 (ragged, scalar loads)", u8(40, 331, 331, 522).float() / 255.0, False,
+         None),
+        ("20x3x253x257 f32 (ragged)", u8(20, 253, 257, 523).float() / 255.0, False, None),
+        ("pool 3x3x71x73 f32, clusters of 2, 2 048 resident", u8(3, 71, 73, 524).float() / 255.0,
+         True, (2, 7_776, 2_048)),
+        ("2x3x71x73 f32, clusters of 4, 256 resident", u8(2, 71, 73, 525).float() / 255.0, False,
+         (4, 1_296, 256)),
+        ("white 2x3x256^2 f32 (fallback), 4 096 resident",
+         torch.ones((2, 3, 256, 256), device=dev), False, (1, 65_536, 4_096)),
+        ("the tile store 128x3x256^2 u8", u8(128, 256, 256, 526), False, None),
+    ]
+    for label, x, fit, shape in cases:
+        n, _, h, w = x.shape
+        rows, row_len = (1, n * h * w) if fit else (n, h * w)
+        itemsize = x.element_size()
+        if shape is None:
+            active = lambda c, r, t=x.dtype: ms._active_clusters(dev.index, t, c, r)  # noqa: E731
+            shape = ms.cluster_shape(rows, row_len, itemsize, smem, active)
+        csize, slice_, resident = shape
+        keyfield = ms.cluster_scratch(rows, *shape, itemsize)[1]
+        before = profiling.counters("keyfield.")
+        stats, out = call(x, fit, shape)
+        counted = {k: v - before.get(k, 0) for k, v in profiling.counters("keyfield.").items()
+                   if v != before.get(k, 0)}
+        want_stats, want_out = call(x, fit, shape, per_pass)
+        again_stats, again_out = call(x, fit, shape)
+        same = torch.equal(bits(stats), bits(want_stats)) and (
+            fit or torch.equal(bits(out), bits(want_out)))
+        print(f"{'B5' if fit else 'B4'} {label}: clusters of {csize}, slice {slice_}, {resident} "
+              f"resident, key field {keyfield} bytes, counted {counted}; RowParams"
+              f"{'' if fit else ' and output'} bit-identical to the per-pass build: {same}")
+        require(same, f"{label}: differs from the per-pass build")
+        require(torch.equal(bits(stats), bits(again_stats))
+                 and (fit or torch.equal(bits(out), bits(again_out))), f"{label}: two runs differ")
+        want = {f"keyfield.{'B5' if fit else 'B4'}": 1} if keyfield else {}
+        require(counted == want, f"{label}: key fields counted {counted}, not {want}")
+        require(bool(keyfield) == (itemsize == 4 and resident < slice_),
+                f"{label}: key field {keyfield} bytes")
+        if label.startswith("the training transform") or label.startswith("40x"):
+            require(keyfield > 0, f"{label}: no key field")
+        if label.startswith("40x") or label.startswith("20x"):
+            require(csize > 1, f"{label}: clusters of {csize}")
+    # The batch-mode forward at the training shape: one B5 fit on the first
+    # tile, all resident, and one B4 transform with its key field.
+    forward = StainNormalizerTransform("macenko", mode="batch")
+    forward(train)
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    forward(train)
+    torch.cuda.synchronize()
+    counted = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
+               if v != before.get(k, 0) and k.startswith(("launch.", "keyfield."))}
+    print(f"batch-mode forward 128x3x256^2 f32: {counted}")
+    require(counted == {"launch.B5.cluster": 1, "launch.B4.cluster": 1, "keyfield.B4": 1},
+            f"the batch-mode forward counted {counted}")
 
 
 def one_block_selections(x, he, mc, fit: bool):
@@ -1848,8 +1990,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc {run([kernels.nvcc_path(), '--version']).splitlines()[-1]}")
 
-    # 2. Build.
+    # 2. Build (and, beside it, phase 3's per-pass build of B4/B5).
     t0 = time.perf_counter()
+    per_pass = per_pass_build()
     libs = kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
 
@@ -2422,6 +2565,8 @@ def main() -> int:
     ]:
         for force in routes(x, fit):
             check_fused(label, x, fit, force)
+    torch.cuda.empty_cache()
+    od_once_checks(dev, args.seed, per_pass)
     torch.cuda.empty_cache()
 
     # B3, the exact row select, bit for bit against its plain version.

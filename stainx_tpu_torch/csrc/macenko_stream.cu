@@ -40,7 +40,20 @@
 //    many match the prefixes; once a block's matching keys fit kCand, the
 //    next pass also stores them in shared memory and the passes after it
 //    read only those (on H&E tiles: passes 0-2 over the pixels, pass 3 over
-//    about 2 000 stored keys a block). No key reaches device memory.
+//    about 2 000 stored keys a block). No uint8 key reaches device memory.
+//    float32 rows take each pixel's OD once a call, not once a pass (the
+//    three logarithms were 39 % of B4 on 128x3x256^2 float32, paid on all 8
+//    passes): the resident planes are stored as OD, converted as they are
+//    loaded, and where a slice has pixels past the resident ones (R < S),
+//    the first pass of each selection writes their keys to a key field in
+//    device memory (8 bytes a pixel: the angle key, then the two
+//    concentration keys over it) and the later passes and the
+//    reconstruction read them, which needs only the concentrations (unkey
+//    of a concentration key is the concentration, bit for bit). Those
+//    pixels' logarithms are then taken in 3 passes (moments, and the first
+//    of each selection), and a transform reads 68 bytes of them and writes
+//    12 where it read 96. uint8 rows keep raw bytes and the 256-entry OD
+//    table, which beats 4-byte OD and keys there.
 //    Histograms are double-buffered, so one cluster.sync a pass is enough.
 //    Every block runs the same passes and sweep iterations (S and R are the
 //    same for all, the last slice's tail is masked), so no cluster.sync can
@@ -606,6 +619,12 @@ constexpr int kClusterFixed = 42944;
 static_assert(sizeof(ClusterShared) == kClusterFixed, "ClusterShared layout");
 static_assert(kClusterFixed % 16 == 0, "the planes start 16-byte aligned");
 
+// float32 rows take each pixel's OD once a call: the resident planes hold
+// OD from the load on, and the pixels past them go through a key field
+// (count_pixels). uint8 rows keep raw bytes and the OD table.
+template <typename T>
+constexpr bool kOdOnce = sizeof(T) == 4;
+
 // A block's share of its row: pooled pixels [begin, begin + n_loc), of
 // which the first R live in shared memory (planes, R apart) and the rest,
 // up to the slice length S, are read from device memory (L2) each pass.
@@ -616,6 +635,10 @@ struct Slice {
   int64_t p, begin, n_loc, S, R;
   int ipr;
   bool vec;  // 16-byte loads: p a multiple of 16 / sizeof(T), buffers aligned
+  // float32 with R < S: the block's 2 * (S - R) keys in device memory, the
+  // angle keys of the pixels past R, then over them the two concentration
+  // keys, plane after plane (store_keys); else null.
+  uint32_t* keys;
 };
 
 // Image and offset of pooled pixel qg of a row (ipr images of p pixels).
@@ -630,7 +653,8 @@ __device__ __forceinline__ const T* pixel_image(const Slice<T>& sl, int64_t qg, 
   return sl.x + i * 3 * sl.p;
 }
 
-// Copies the resident pixels into shared memory, zero past n_loc.
+// Copies the resident pixels into shared memory, zero past n_loc; float32
+// values as their OD, each logarithm taken once a call.
 template <typename T>
 __device__ void load_slice(const Slice<T>& sl, T* planes) {
   const int64_t R = sl.R;
@@ -646,6 +670,12 @@ __device__ void load_slice(const Slice<T>& sl, T* planes) {
         const T* img = pixel_image(sl, sl.begin + k, j);
         q = *reinterpret_cast<const uint4*>(img + c * sl.p + j);
       }
+      if constexpr (kOdOnce<T>) {
+        q = make_uint4(__float_as_uint(od_f32(__uint_as_float(q.x))),
+                       __float_as_uint(od_f32(__uint_as_float(q.y))),
+                       __float_as_uint(od_f32(__uint_as_float(q.z))),
+                       __float_as_uint(od_f32(__uint_as_float(q.w))));
+      }
       *reinterpret_cast<uint4*>(planes + c * R + k) = q;
     }
   } else {
@@ -657,54 +687,118 @@ __device__ void load_slice(const Slice<T>& sl, T* planes) {
         const T* img = pixel_image(sl, sl.begin + k, j);
         v = img[c * sl.p + j];
       }
+      if constexpr (kOdOnce<T>) v = od_f32(v);
       planes[c * R + k] = v;
     }
   }
 }
 
+// OD of resident pixels [4g, 4g + 4): float32 planes hold it already.
+template <typename T>
+__device__ __forceinline__ void resident_od(const T* planes, int64_t R, int64_t g, const float* lut,
+                                            float (&od)[3][4]) {
+  if constexpr (kOdOnce<T>) {
+    for (int c = 0; c < 3; ++c) {
+      const float4 q = reinterpret_cast<const float4*>(planes + c * R)[g];
+      od[c][0] = q.x;
+      od[c][1] = q.y;
+      od[c][2] = q.z;
+      od[c][3] = q.w;
+    }
+  } else {
+    load_od<T, 4>(planes, R, g, lut, od);
+  }
+}
+
+// The parts of a block's slice a sweep covers: the resident pixels, the
+// others, or both.
+enum SweepPart { kResident = 1, kRest = 2, kWhole = 3 };
+
 // Calls f(ok, od, q) for every group of 4 pixels [q, q + 4) of the block's
-// slice: the resident ones from shared memory, then the rest from device
-// memory. Every block of the cluster runs the same R / 4 and (S - R) / 4
-// groups and every thread the same iterations (ok marks the real pixels).
-template <typename T, typename F>
+// slice (of Part of it): the resident ones from shared memory, then the
+// others from device memory. Every block of the cluster runs the same R / 4
+// and (S - R) / 4 groups and every thread the same iterations (ok marks the
+// real pixels; a thread past the last group of a part gets q past it).
+template <typename T, int Part = kWhole, typename F>
 __device__ __forceinline__ void csweep(const Slice<T>& sl, const float* lut, F&& f) {
   const int64_t res = sl.R / 4, all = sl.S / 4;
-  for (int64_t g0 = 0; g0 < res; g0 += kCThreads) {
-    const int64_t g = g0 + threadIdx.x;
-    float od[3][4];
-    bool ok[4];
-    if (g < res) {
-      load_od<T, 4>(sl.planes, sl.R, g, lut, od);
-    } else {
-      for (int c = 0; c < 3; ++c)
-        for (int j = 0; j < 4; ++j) od[c][j] = 0.0f;
+  if constexpr ((Part & kResident) != 0) {
+    for (int64_t g0 = 0; g0 < res; g0 += kCThreads) {
+      const int64_t g = g0 + threadIdx.x;
+      float od[3][4];
+      bool ok[4];
+      if (g < res) {
+        resident_od<T>(sl.planes, sl.R, g, lut, od);
+      } else {
+        for (int c = 0; c < 3; ++c)
+          for (int j = 0; j < 4; ++j) od[c][j] = 0.0f;
+      }
+      for (int j = 0; j < 4; ++j) ok[j] = g < res && 4 * g + j < sl.n_loc;
+      f(ok, od, 4 * g);
     }
-    for (int j = 0; j < 4; ++j) ok[j] = g < res && 4 * g + j < sl.n_loc;
-    f(ok, od, 4 * g);
   }
+  if constexpr ((Part & kRest) != 0) {
+    for (int64_t g0 = res; g0 < all; g0 += kCThreads) {
+      const int64_t g = g0 + threadIdx.x, q = 4 * g;
+      float od[3][4];
+      bool ok[4];
+      for (int j = 0; j < 4; ++j) {
+        ok[j] = g < all && q + j < sl.n_loc;
+        for (int c = 0; c < 3; ++c) od[c][j] = 0.0f;
+      }
+      if (sl.vec) {  // a group is all in or all out: n_loc is a multiple of 4
+        if (ok[0]) {
+          int64_t j;
+          const T* img = pixel_image(sl, sl.begin + q, j);
+          load_od<T, 4>(img, sl.p, j / 4, lut, od);
+        }
+      } else {
+        for (int jj = 0; jj < 4; ++jj) {
+          if (!ok[jj]) continue;
+          int64_t j;
+          const T* img = pixel_image(sl, sl.begin + q + jj, j);
+          for (int c = 0; c < 3; ++c) od[c][jj] = od_of(img[c * sl.p + j], lut);
+        }
+      }
+      f(ok, od, q);
+    }
+  }
+}
+
+// The key field of a float32 block (Slice::keys): the keys of its pixels
+// past the resident ones, 4 pixels a 16-byte word, in two planes of
+// (S - R) / 4 words. A selection's first pass writes them (the angle key in
+// plane 0; later the concentration keys in planes 0 and 1, over the angle
+// keys, which nothing reads any more) and its later passes and the
+// reconstruction read them, each thread the words it wrote itself.
+template <int Mode>
+__device__ __forceinline__ void store_keys(uint32_t* keys, int64_t words, int64_t i,
+                                           const uint32_t (&k0)[4], const uint32_t (&k1)[4]) {
+  reinterpret_cast<uint4*>(keys)[i] = make_uint4(k0[0], k0[1], k0[2], k0[3]);
+  if constexpr (Mode == kConc) {
+    reinterpret_cast<uint4*>(keys)[words + i] = make_uint4(k1[0], k1[1], k1[2], k1[3]);
+  }
+}
+
+// Calls f(ok, k0, k1, q) for every group of 4 pixels [q, q + 4) of the
+// block's slice past the resident ones, with their keys from the key field
+// (the angle key twice, or the two concentration keys), in csweep's order.
+template <typename T, int Mode, typename F>
+__device__ __forceinline__ void ksweep(const Slice<T>& sl, F&& f) {
+  const int64_t res = sl.R / 4, all = sl.S / 4, words = all - res;
+  const uint4* key0 = reinterpret_cast<const uint4*>(sl.keys);
+  const uint4* key1 = Mode == kAngle ? key0 : key0 + words;
   for (int64_t g0 = res; g0 < all; g0 += kCThreads) {
     const int64_t g = g0 + threadIdx.x, q = 4 * g;
-    float od[3][4];
     bool ok[4];
-    for (int j = 0; j < 4; ++j) {
-      ok[j] = g < all && q + j < sl.n_loc;
-      for (int c = 0; c < 3; ++c) od[c][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) ok[j] = g < all && q + j < sl.n_loc;
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+    if (g < all) {
+      a = key0[g - res];
+      b = Mode == kAngle ? a : key1[g - res];
     }
-    if (sl.vec) {  // a group is all in or all out: n_loc is a multiple of 4
-      if (ok[0]) {
-        int64_t j;
-        const T* img = pixel_image(sl, sl.begin + q, j);
-        load_od<T, 4>(img, sl.p, j / 4, lut, od);
-      }
-    } else {
-      for (int jj = 0; jj < 4; ++jj) {
-        if (!ok[jj]) continue;
-        int64_t j;
-        const T* img = pixel_image(sl, sl.begin + q + jj, j);
-        for (int c = 0; c < 3; ++c) od[c][jj] = od_of(img[c * sl.p + j], lut);
-      }
-    }
-    f(ok, od, q);
+    const uint32_t k0[4] = {a.x, a.y, a.z, a.w}, k1[4] = {b.x, b.y, b.z, b.w};
+    f(ok, k0, k1, q);
   }
 }
 
@@ -759,6 +853,9 @@ __device__ __forceinline__ void cand_push(ClusterShared& sh, int s, uint32_t k) 
 
 // Pass d's digits of every pixel of the block's slice; with Collect, the
 // keys that match their selection's prefix are also stored as candidates.
+// With a key field (float32), pass 0 computes the keys of the pixels past
+// the resident ones from the input and writes them, and passes 1-3 read
+// them: their logarithms are taken in one pass of the selection, not four.
 template <typename T, int Mode, bool Collect>
 __device__ __forceinline__ void count_pixels(const Slice<T>& sl, const float* w, bool use_all,
                                              ClusterShared& sh, int d) {
@@ -766,20 +863,46 @@ __device__ __forceinline__ void count_pixels(const Slice<T>& sl, const float* w,
   const bool shared_first = Mode == kAngle && d == 0;  // both angle ranks start alike
   const uint32_t pre0 = sh.st.prefix[0], pre1 = sh.st.prefix[1];
   const bool live0 = !sh.st.empty[0], live1 = !sh.st.empty[1];
-  csweep<T>(sl, sh.lut, [&](const bool (&ok)[4], const float (&od)[3][4], int64_t) {
+  auto tally = [&](bool ok, uint32_t k0, uint32_t k1) {
+    const unsigned b0 = digit(ok, k0, pre0, d, shift);
+    const unsigned b1 = shared_first ? kBins : digit(ok, k1, pre1, d, shift);
+    rep_add<kClusterCopies>(sh.rep, 0, b0);
+    if (!shared_first) rep_add<kClusterCopies>(sh.rep, 1, b1);
+    if constexpr (Collect) {
+      if (live0 && b0 < kBins) cand_push(sh, 0, k0);
+      if (live1 && b1 < kBins) cand_push(sh, 1, k1);
+    }
+  };
+  auto from_od = [&](const bool (&ok)[4], const float (&od)[3][4], int64_t) {
     for (int j = 0; j < 4; ++j) {
       uint32_t k0, k1;
       keys2<Mode>(od[0][j], od[1][j], od[2][j], w, use_all, k0, k1);
-      const unsigned b0 = digit(ok[j], k0, pre0, d, shift);
-      const unsigned b1 = shared_first ? kBins : digit(ok[j], k1, pre1, d, shift);
-      rep_add<kClusterCopies>(sh.rep, 0, b0);
-      if (!shared_first) rep_add<kClusterCopies>(sh.rep, 1, b1);
-      if constexpr (Collect) {
-        if (live0 && b0 < kBins) cand_push(sh, 0, k0);
-        if (live1 && b1 < kBins) cand_push(sh, 1, k1);
-      }
+      tally(ok[j], k0, k1);
     }
-  });
+  };
+  if constexpr (kOdOnce<T>) {
+    if (sl.keys != nullptr) {  // block-uniform
+      csweep<T, kResident>(sl, sh.lut, from_od);
+      if (d == 0) {
+        const int64_t words = (sl.S - sl.R) / 4;
+        csweep<T, kRest>(sl, sh.lut, [&](const bool (&ok)[4], const float (&od)[3][4], int64_t q) {
+          uint32_t k0[4], k1[4];
+          for (int j = 0; j < 4; ++j) {
+            keys2<Mode>(od[0][j], od[1][j], od[2][j], w, use_all, k0[j], k1[j]);
+            tally(ok[j], k0[j], k1[j]);
+          }
+          if (q < sl.S) store_keys<Mode>(sl.keys, words, (q - sl.R) / 4, k0, k1);
+        });
+      } else {
+        ksweep<T, Mode>(sl, [&](const bool (&ok)[4], const uint32_t (&k0)[4],
+                                const uint32_t (&k1)[4], int64_t) {
+          for (int j = 0; j < 4; ++j) tally(ok[j], k0[j], k1[j]);
+        });
+      }
+      return;
+    }
+  }
+  csweep<T>(sl, sh.lut, from_od);
 }
 
 // The row's two selections (angles or concentrations; w: v_mid and v_max,
@@ -855,12 +978,14 @@ __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all
 // One cluster per row: the whole fit (out == nullptr) or transform of the
 // row blockIdx.x / cluster size, its statistics into prm[row]. Block r of
 // the cluster takes pixels [r*S, (r+1)*S) of the row, the first R of them
-// resident.
+// resident. keys: for float32 rows with R < S, 2 * (S - R) uint32 a block
+// (block b's from keys + b * 2 * (S - R)), else null.
 template <typename T>
 __global__ void __launch_bounds__(kCThreads, 1)
 cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr, int64_t S,
                int64_t R, int vec, int fallback, long long idx99, const float* __restrict__ stain,
-               const float* __restrict__ tmc, RowParams* __restrict__ prm) {
+               const float* __restrict__ tmc, RowParams* __restrict__ prm,
+               uint32_t* __restrict__ keys) {
   extern __shared__ __align__(16) unsigned char smem[];
   ClusterShared& sh = *reinterpret_cast<ClusterShared*>(smem);
   T* planes = reinterpret_cast<T*>(smem + kClusterFixed);
@@ -869,7 +994,12 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
   const int64_t row = blockIdx.x / cluster.num_blocks();
   const int64_t len = static_cast<int64_t>(ipr) * p, begin = rank * S;
   const int64_t n_loc = begin < len ? (len - begin < S ? len - begin : S) : 0;
-  const Slice<T> sl{x + row * ipr * 3 * p, planes, p, begin, n_loc, S, R, ipr, vec != 0};
+  uint32_t* block_keys = nullptr;
+  if constexpr (kOdOnce<T>) {
+    if (keys != nullptr) block_keys = keys + static_cast<int64_t>(blockIdx.x) * 2 * (S - R);
+  }
+  const Slice<T> sl{x + row * ipr * 3 * p, planes, p, begin, n_loc, S, R, ipr, vec != 0,
+                    block_keys};
   build_lut<T>(sh.lut);
   for (int i = threadIdx.x; i < kClusterCopies * kCopyStride; i += kCThreads) sh.rep[i] = 0u;
   load_slice<T>(sl, planes);
@@ -907,13 +1037,7 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
   const float sc0 = maxc_scale(tmc[0], sh.row.maxc[0]);
   const float sc1 = maxc_scale(tmc[1], sh.row.maxc[1]);
   T* dst = out + row * 3 * p;  // one image a row
-  csweep<T>(sl, sh.lut, [&](const bool (&ok)[4], const float (&od)[3][4], int64_t q) {
-    float rgb[3][4];
-    for (int j = 0; j < 4; ++j) {
-      const float cn0 = (od[0][j] * w[0] + od[1][j] * w[1] + od[2][j] * w[2]) * sc0;
-      const float cn1 = (od[0][j] * w[3] + od[1][j] * w[4] + od[2][j] * w[5]) * sc1;
-      for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
-    }
+  auto put = [&](const bool (&ok)[4], const float (&rgb)[3][4], int64_t q) {
     if (vec) {  // a group is all in or all out
       if (ok[0]) store_rgb<T, 4>(dst, p, (begin + q) / 4, rgb);
     } else {
@@ -922,12 +1046,39 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
         for (int c = 0; c < 3; ++c) dst[c * p + begin + q + j] = to_store(rgb[c][j], T());
       }
     }
-  });
+  };
+  auto from_od = [&](const bool (&ok)[4], const float (&od)[3][4], int64_t q) {
+    float rgb[3][4];
+    for (int j = 0; j < 4; ++j) {
+      const float cn0 = (od[0][j] * w[0] + od[1][j] * w[1] + od[2][j] * w[2]) * sc0;
+      const float cn1 = (od[0][j] * w[3] + od[1][j] * w[4] + od[2][j] * w[5]) * sc1;
+      for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
+    }
+    put(ok, rgb, q);
+  };
+  if constexpr (kOdOnce<T>) {
+    if (sl.keys != nullptr) {
+      // Past the resident pixels the concentrations are the keys' values:
+      // unkey of a concentration key is the concentration, bit for bit.
+      csweep<T, kResident>(sl, sh.lut, from_od);
+      ksweep<T, kConc>(sl, [&](const bool (&ok)[4], const uint32_t (&k0)[4],
+                               const uint32_t (&k1)[4], int64_t q) {
+        float rgb[3][4];
+        for (int j = 0; j < 4; ++j) {
+          const float cn0 = unkey(k0[j]) * sc0, cn1 = unkey(k1[j]) * sc1;
+          for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
+        }
+        put(ok, rgb, q);
+      });
+      return;
+    }
+  }
+  csweep<T>(sl, sh.lut, from_od);
 }
 
 template <typename T>
 using ClusterKernel = void (*)(const T*, T*, int64_t, int, int64_t, int64_t, int, int, long long,
-                               const float*, const float*, RowParams*);
+                               const float*, const float*, RowParams*, uint32_t*);
 
 // Sets the cluster kernel's shared memory for R resident pixels a block and
 // allows clusters of 16 (past the portable 8), and fills cfg for `rows`
@@ -960,7 +1111,7 @@ template <typename T>
 cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p, int ipr,
                            int csize, long long S, long long R, int vec, int fallback,
                            long long idx99, const float* stain, const float* tmc, RowParams* prm,
-                           cudaStream_t s) {
+                           uint32_t* keys, cudaStream_t s) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const cudaError_t e = cluster_config<T>(rows, csize, R, s, cfg, attr);
@@ -968,7 +1119,7 @@ cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p
   return cudaLaunchKernelEx(&cfg, ClusterKernel<T>(cluster_kernel<T>), static_cast<const T*>(x),
                             static_cast<T*>(out), static_cast<int64_t>(p), ipr,
                             static_cast<int64_t>(S), static_cast<int64_t>(R), vec, fallback, idx99,
-                            stain, tmc, prm);
+                            stain, tmc, prm, keys);
 }
 
 template <typename T>
@@ -1083,20 +1234,22 @@ const char* stainx_error_string(int code) {
 // The cluster route: one cluster of csize blocks a row, slice S pixels a
 // block (a multiple of 16; csize * S >= ipr * p), the first R (a multiple
 // of 16, at most S) resident in shared memory. vec: p a multiple of 16 /
-// sizeof(T) and x, out 16-byte aligned.
+// sizeof(T) and x, out 16-byte aligned. keys: for float32 with R < S, a
+// 16-byte aligned key field of rows * csize * 2 * (S - R) uint32, else null.
 int stainx_cluster_run(const void* x, void* out, long long n, long long p, int ipr, int is_uint8,
                        int vec, int csize, long long S, long long R, int fallback, long long idx99,
-                       const void* stain, const void* tmc, void* prm, void* stream) {
+                       const void* stain, const void* tmc, void* prm, void* keys, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const float*>(stain);
   const auto* tm = static_cast<const float*>(tmc);
   auto* rp = static_cast<RowParams*>(prm);
+  auto* kf = static_cast<uint32_t*>(keys);
   const long long rows = n / ipr;
   const cudaError_t e =
       is_uint8 ? launch_cluster<uint8_t>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99,
-                                         st, tm, rp, s)
+                                         st, tm, rp, nullptr, s)
                : launch_cluster<float>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99, st,
-                                       tm, rp, s);
+                                       tm, rp, kf, s);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);

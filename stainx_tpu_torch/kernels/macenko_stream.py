@@ -10,7 +10,12 @@ blocks. On a CUDA tensor a wrapper launches ``csrc/macenko_stream.cu``
 - ``"cluster"``: one thread-block cluster a row holds the row's pixels in
   shared memory for every pass, for rows whose raw bytes fit 8 blocks
   (:func:`fits_cluster`; the cluster's size, up to 16, is
-  :func:`cluster_shape`'s); one kernel launch a call;
+  :func:`cluster_shape`'s); one kernel launch a call. A float32 row holds
+  its resident pixels as OD, and where a block's slice has pixels past
+  them, their keys go to a key field in device memory (8 bytes a pixel,
+  :func:`cluster_scratch`), so each pixel's logarithm is taken once a
+  call (the resident ones) or in 3 passes of 8 (the others), not on every
+  pass;
 - ``"stream"``: longer rows over many blocks, every selection pass
   recomputing its keys from the raw input (a float32 row writes its keys
   once and re-reads them); one memset and 10 kernels at transform, 9 at
@@ -18,13 +23,15 @@ blocks. On a CUDA tensor a wrapper launches ``csrc/macenko_stream.cu``
   fits), all issued by one C call.
 
 Both select inside their own kernels (an exact radix select on the
-monotone key, with B6's conventions): no B6 launch, no key field in device
-memory. A wrapper raises rather than fall back. On a CPU tensor it runs its
+monotone key, with B6's conventions): no B6 launch; uint8 keys never reach
+device memory. A wrapper raises rather than fall back. On a CPU tensor it runs its
 plain version: B1's or B2's plain pipeline with the selections run through
 B6's plain version, which selects the same elements. Each wrapper is the
 span ``stainx.kernel.B4`` or ``stainx.kernel.B5`` (its route in the span's
 arguments) and counts its C calls in ``launch.B4.<route>`` or
-``launch.B5.<route>`` (:mod:`stainx_tpu_torch.profiling`).
+``launch.B5.<route>``, and a cluster call that writes a key field in
+``keyfield.B4`` or ``keyfield.B5``, its bytes in the span's ``keyfield``
+argument (:mod:`stainx_tpu_torch.profiling`).
 
 Nothing is read back to the host: ranks, statistics and selected values stay
 on the device, so a call can be captured in a CUDA graph. ``seed_state`` is
@@ -53,6 +60,7 @@ CLUSTER_FIXED_BYTES = 42_944  # csrc/macenko_stream.cu ClusterShared
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is past the portable 8, allowed by the kernel
 FIT_BLOCKS = 8  # a row takes the cluster route when its planes fit 8 blocks
 SLICE_QUANTUM = 16  # pixels: a slice is a whole number of 16-byte loads
+KEY_BYTES = 8  # a key-field pixel: its angle key, then its two concentration keys over it
 ALIGN = 256  # bytes between the streamed route's scratch regions
 
 
@@ -103,6 +111,20 @@ def cluster_shape(rows: int, row_len: int, itemsize: int, smem_per_block: int,
             return c, slice_, resident
 
 
+def cluster_scratch(rows: int, csize: int, slice_: int, resident: int,
+                    itemsize: int) -> tuple[int, int]:
+    """``(buffer rows, key-field bytes)`` of the cluster route's scratch: one
+    float32 ``(buffer rows, PARAMS_WIDTH)`` tensor whose first ``rows`` rows
+    are the RowParams and whose rest, from byte ``rows * PARAMS_WIDTH * 4``
+    (16-byte aligned), holds the key field of float32 rows whose slices have
+    pixels past the resident ones: :data:`KEY_BYTES` for each such pixel of
+    each block, ``2 * (slice_ - resident)`` uint32 a block in block order.
+    uint8 rows and wholly resident float32 rows have none (0 bytes, no extra
+    rows)."""
+    keyfield = 0 if itemsize == 1 else rows * csize * (slice_ - resident) * KEY_BYTES
+    return rows + -(-keyfield // (PARAMS_WIDTH * 4)), keyfield
+
+
 def stream_layout(rows: int, blocks: int, key_len: int = 0):
     """The streamed route's scratch in one byte buffer: ``{name: (offset,
     nbytes)}`` and the total. ``params`` (rows, 32) float32, ``sel`` (rows,)
@@ -133,7 +155,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.stainx_cluster_run.argtypes = [
-            ptr, ptr, i64, i64, i32, i32, i32, i32, i64, i64, i32, i64, ptr, ptr, ptr, ptr
+            ptr, ptr, i64, i64, i32, i32, i32, i32, i64, i64, i32, i64, ptr, ptr, ptr, ptr, ptr
         ]
         lib.stainx_stream_run.argtypes = [
             ptr, ptr, i64, i64, i32, i32, i32, i32, i32, i32, i64, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -148,11 +170,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.Tensor:
+def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
+         shape: tuple[int, int, int] | None = None) -> torch.Tensor:
     """One B4 (``out`` given) or B5 call on the card; returns the (rows, 32)
     RowParams, and counts the launch by its route. ``force`` takes a route
     other than :func:`route` would (the streamed route takes every row; the
-    cluster route only rows that fit)."""
+    cluster route only rows that fit); ``shape``, for checks, a cluster
+    ``(size, slice, resident)`` other than :func:`cluster_shape`'s (slice
+    and resident multiples of :data:`SLICE_QUANTUM`, the slices covering the
+    row, resident within the slice and the block's shared memory)."""
     n, _, h, w = images.shape
     p = h * w
     per_row = n if fit else 1
@@ -172,24 +198,30 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None) -> torch.
     stream = kernels.current_stream(dev)
     null = None
     if take == "cluster":
-        active = functools.partial(_active_clusters, dev.index, images.dtype)
-        shape = cluster_shape(rows, row_len, itemsize, smem, active)
+        if shape is None:
+            active = functools.partial(_active_clusters, dev.index, images.dtype)
+            shape = cluster_shape(rows, row_len, itemsize, smem, active)
         if shape is None:
             raise ValueError(f"{what}: rows of {row_len} pixels do not fit a cluster")
         csize, slice_, resident = shape
-        profiling.note(route=take, csize=csize, slice=slice_, resident=resident)
+        buf_rows, keyfield = cluster_scratch(rows, csize, slice_, resident, itemsize)
+        profiling.note(route=take, csize=csize, slice=slice_, resident=resident, keyfield=keyfield)
         vec = p % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
-        params = torch.empty((rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
+        buf = torch.empty((buf_rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
+        keys = buf.data_ptr() + rows * PARAMS_WIDTH * 4 if keyfield else null
         with kernels.on_device(dev):
             code = lib.stainx_cluster_run(
                 images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
                 int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
                 null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(),
-                params.data_ptr(), stream,
+                buf.data_ptr(), keys, stream,
             )
         kernels.check(lib, code, what)
         profiling.count(counter + take)
-        return params
+        if keyfield:
+            profiling.count("keyfield.B5" if fit else "keyfield.B4")
+            return buf[:rows]
+        return buf
     profiling.note(route=take)
     vec = 4 if mf._vec4(p, *aligned) else 1
     blocks = kernels.row_blocks(n, p // vec, dev)

@@ -48,8 +48,10 @@ Span                          Where                                         Devi
 ============================  ============================================  ===============
 
 A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``;
-B4, B5: ``cluster``, with ``csize``, ``slice`` and ``resident``, or
-``stream``; B3: the cluster shape of its last launch).
+B4, B5: ``cluster``, with ``csize``, ``slice``, ``resident`` and
+``keyfield``, the bytes of its key field (0 for uint8 rows and float32
+rows held whole in shared memory), or ``stream``; B3: the cluster shape of
+its last launch).
 
 Counters:
 
@@ -61,6 +63,9 @@ Counter                 Counts
                         ``launch.B4.stream``, ``launch.B5.cluster`` and
                         ``launch.B5.stream`` by route. A CPU tensor runs the
                         plain versions and counts none.
+``keyfield.<K>``        B4's or B5's cluster-route C calls on float32 rows that
+                        wrote a key field (pixels past the resident part of a
+                        block's slice): ``keyfield.B4``, ``keyfield.B5``
 ``route.staged``        Macenko fits and transforms that took the staged route
                         (every dtype but uint8 and float32)
 ``build.nvcc``          sources ``kernels.build_all`` compiled

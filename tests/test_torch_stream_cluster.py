@@ -13,6 +13,7 @@ are held against B1's and B2's plain versions and the JAX package's
 streaming kernels in interpret mode on seeded tiles.
 """
 
+import contextlib
 import re
 
 import numpy as np
@@ -165,6 +166,169 @@ class TestStreamLayout:
         view = buf[off:off + nbytes].view(torch.float32).view(3, ms.PARAMS_WIDTH)
         view[2, ms.MAXC_COLUMNS] = torch.tensor([1.5, 2.5])
         assert buf.view(torch.float32)[2 * ms.PARAMS_WIDTH + 22].item() == 1.5
+
+
+# ------------------------------------------------ cluster scratch, key field
+TRAIN_ROWS, TRAIN_LEN = 128, 256 * 256  # the batch-mode training transform: 128x3x256^2 float32
+
+
+def _cluster_call(monkeypatch, images, fit):
+    """``ms._run`` on the cluster route with the card's parts replaced by
+    H100 stand-ins (no card, no build): returns ``(RowParams, the C call's
+    arguments by name)``. The stand-in C call only records its arguments."""
+    calls = []
+    names = ("x", "out", "n", "p", "ipr", "is_uint8", "vec", "csize", "slice", "resident",
+             "fallback", "idx99", "stain", "tmc", "prm", "keys", "stream")
+
+    class Lib:
+        _stainx_declared = True
+
+        @staticmethod
+        def stainx_cluster_run(*args):
+            calls.append(dict(zip(names, args, strict=True)))
+            return 0
+
+    monkeypatch.setattr(kernels, "device_limits", lambda index: (132, H100_SMEM))
+    monkeypatch.setattr(kernels, "current_stream", lambda dev: None)
+    monkeypatch.setattr(kernels, "on_device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(ms, "_lib", lambda: Lib)
+    monkeypatch.setattr(ms, "_active_clusters", lambda index, dtype, c, r: H100_ACTIVE[c])
+    out = None if fit else torch.empty_like(images)
+    stain, tmc = torch.zeros(3, 2), torch.ones(2)
+    params = ms._run(images, out, stain, tmc, fit=fit, force="cluster")
+    (call,) = calls
+    return params, call
+
+
+class TestClusterKeyField:
+    def test_train_transform_key_field(self):
+        """128 float32 rows of 256^2 take a block a row, 15 792 of its 65 536
+        pixels resident: the other 49 744 of each row get 8 bytes of keys."""
+        shape = ms.cluster_shape(TRAIN_ROWS, TRAIN_LEN, 4, H100_SMEM, h100_active)
+        assert shape == (1, 65_536, 15_792)
+        buf_rows, keyfield = ms.cluster_scratch(TRAIN_ROWS, *shape, 4)
+        assert keyfield == 128 * 49_744 * 8 == 50_937_856
+        assert buf_rows == TRAIN_ROWS + keyfield // (ms.PARAMS_WIDTH * 4)
+
+    @pytest.mark.parametrize(
+        "rows,row_len,itemsize",
+        [
+            (TRAIN_ROWS, TRAIN_LEN, 1),  # the tile store's uint8 rows, 63 168 resident
+            (1, TRAIN_LEN, 4),  # the batch-mode fit of one 256^2 tile: a cluster of 16
+            (1, TRAIN_LEN, 1),
+            (4, 224 * 224, 4),
+            (1, 126_336, 4),  # the largest float32 row: 16 slices of 7 904, all resident
+        ],
+    )
+    def test_no_key_field_for_uint8_or_resident_rows(self, rows, row_len, itemsize):
+        shape = ms.cluster_shape(rows, row_len, itemsize, H100_SMEM, h100_active)
+        assert ms.cluster_scratch(rows, *shape, itemsize) == (rows, 0)
+
+    @pytest.mark.parametrize("rows", [1, 3, 17, 40, 128, 300])
+    def test_key_field_layout_is_aligned(self, rows):
+        """Every float32 shape the route picks: the key field starts 16-byte
+        aligned right after the RowParams, each block's two planes of 16-byte
+        words start 16-byte aligned, and the buffer holds them all with less
+        than a row of RowParams to spare."""
+        row_bytes = ms.PARAMS_WIDTH * 4
+        for row_len in range(16, 126_337, 3_001):
+            c, s, r = ms.cluster_shape(rows, row_len, 4, H100_SMEM, h100_active)
+            buf_rows, keyfield = ms.cluster_scratch(rows, c, s, r, 4)
+            start = rows * row_bytes
+            assert start % 16 == 0
+            assert keyfield == rows * c * 2 * (s - r) * 4
+            for b in (0, 1, rows * c - 1):
+                block = start + b * 2 * (s - r) * 4
+                assert block % 16 == 0 and (block + (s - r) * 4) % 16 == 0
+            assert 0 <= buf_rows * row_bytes - (start + keyfield) < row_bytes
+
+    def test_wrapper_allocates_and_counts_the_key_field(self, monkeypatch):
+        images = torch.empty((TRAIN_ROWS, 3, 256, 256), dtype=torch.float32)
+        before = profiling.counters("keyfield.")
+        params, call = _cluster_call(monkeypatch, images, fit=False)
+        assert (call["csize"], call["slice"], call["resident"]) == (1, 65_536, 15_792)
+        assert params.shape == (TRAIN_ROWS, ms.PARAMS_WIDTH) and params.is_contiguous()
+        assert call["prm"] == params.data_ptr()
+        assert call["keys"] == params.data_ptr() + TRAIN_ROWS * ms.PARAMS_WIDTH * 4
+        keyfield = TRAIN_ROWS * 49_744 * ms.KEY_BYTES
+        assert params.untyped_storage().nbytes() == TRAIN_ROWS * ms.PARAMS_WIDTH * 4 + keyfield
+        after = profiling.counters("keyfield.")
+        assert after.get("keyfield.B4", 0) - before.get("keyfield.B4", 0) == 1
+        assert after.get("keyfield.B5", 0) == before.get("keyfield.B5", 0)
+
+    @pytest.mark.parametrize(
+        "shape,dtype,fit",
+        [((TRAIN_ROWS, 3, 256, 256), torch.uint8, False), ((1, 3, 256, 256), torch.float32, True),
+         ((1, 3, 256, 256), torch.uint8, True)],
+        ids=["store-transform", "train-fit", "store-fit"],
+    )
+    def test_wrapper_passes_no_key_field(self, monkeypatch, shape, dtype, fit):
+        before = profiling.counters("keyfield.")
+        params, call = _cluster_call(monkeypatch, torch.empty(shape, dtype=dtype), fit)
+        assert call["keys"] is None
+        assert params.shape == (shape[0] if not fit else 1, ms.PARAMS_WIDTH)
+        assert params.untyped_storage().nbytes() == params.numel() * 4
+        assert profiling.counters("keyfield.") == before
+
+    def test_key_field_bytes_in_the_span(self, monkeypatch):
+        images = torch.empty((TRAIN_ROWS, 3, 256, 256), dtype=torch.float32)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with profiling.annotate("stainx.kernel.B4"):
+                _cluster_call(monkeypatch, images, fit=False)
+        sess = profiling.session()
+        (span,) = [s for s in sess.spans if s.name == "stainx.kernel.B4"]
+        assert span.args == {"route": "cluster", "csize": 1, "slice": 65_536,
+                             "resident": 15_792, "keyfield": 128 * 49_744 * 8}
+        assert sess.counts["keyfield.B4"] == 1
+
+    def test_c_interface_takes_every_argument(self, monkeypatch):
+        """The wrapper's ctypes declaration has one type a parameter of the
+        C entry point, the key field's pointer among them."""
+
+        class Fn:
+            pass
+
+        class Lib:
+            pass
+
+        for name in ("stainx_cluster_run", "stainx_stream_run", "stainx_stream_fields",
+                     "stainx_cluster_occupancy"):
+            setattr(Lib, name, Fn())
+        monkeypatch.setattr(kernels, "library", lambda stem: Lib)
+        lib = ms._lib()
+        params = re.search(r"int stainx_cluster_run\((.*?)\) \{", SOURCE, re.S).group(1)
+        assert len(lib.stainx_cluster_run.argtypes) == len(params.split(","))
+        assert "void* keys, void* stream" in params
+
+    def test_float32_resident_planes_hold_od(self):
+        """The float32 cluster kernel turns its resident planes into OD once,
+        as load_slice copies them in, and every pass reads that OD back with
+        no logarithm; uint8 planes keep raw bytes and the table."""
+        assert re.search(r"constexpr bool kOdOnce = sizeof\(T\) == 4;", SOURCE)
+        load = re.search(r"__device__ void load_slice\(.*?\n\}\n", SOURCE, re.S).group(0)
+        assert load.count("if constexpr (kOdOnce<T>)") == 2  # the 16-byte and the scalar copy
+        assert load.count("od_f32(") == 5
+        resident = re.search(r"void resident_od\(.*?\n\}\n", SOURCE, re.S).group(0)
+        od_once, raw = resident.split("} else {")
+        assert "od_f32" not in od_once and "od_of" not in od_once and "float4" in od_once
+        assert "load_od<T, 4>(planes" in raw
+        kernel = re.search(r"cluster_kernel\(const T\* __restrict__ x.*?\n\}\n", SOURCE,
+                           re.S).group(0)
+        assert kernel.count("load_slice<T>(sl, planes);") == 1
+        csweep = re.search(r"void csweep\(.*?\n\}\n", SOURCE, re.S).group(0)
+        assert csweep.count("resident_od<T>(sl.planes") == 1
+
+    def test_float32_keys_written_past_the_resident_pixels_only(self):
+        """A selection's first pass writes the key field from the sweep over
+        the pixels past the resident ones alone: the resident sweep calls its
+        function for threads past its last group too, with q at or past R,
+        where a write would land on another pixel's keys."""
+        count = re.search(r"void count_pixels\(.*?\n\}\n", SOURCE, re.S).group(0)
+        assert SOURCE.count("store_keys<Mode>(") == 1 and count.count("store_keys<Mode>(") == 1
+        rest = count[count.index("csweep<T, kRest>"):]
+        assert rest.index("store_keys<Mode>(") < rest.index("});")
+        assert "if (d == 0) {" in count[:count.index("csweep<T, kRest>")]
+        assert count.count("csweep<T, kResident>(sl, sh.lut, from_od);") == 1
 
 
 # ----------------------------------------------------------- plain versions

@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 Builds ``stainx_tpu_torch/csrc/macenko_stream.cu`` as it is and in variants
 with one part of the cluster kernel taken out (the angle selections, the
 concentration selections, the reconstruction, digit passes 2 and 3 of both
-selections, the histogram atomics, the uint8 OD table), then times each on
-the main path's shapes from CUDA-graph replays: B4 on 64x3x512^2 and
-256x3x224^2 uint8 and B5 on the 1x3x512^2 reference. A variant's time
+selections, the histogram atomics, the uint8 OD table, the float32 OD's
+division and accurate logarithm), then times each from CUDA-graph replays
+on the main path's shapes, B4 on 64x3x512^2 and 256x3x224^2 uint8 and B5 on
+the 1x3x512^2 reference, and on the batch-mode training shapes, B4 on
+128x3x256^2 float32 and B5 on its first 1x3x256^2 tile. A variant's time
 against the full kernel's is what that part costs. The variants compute
 wrong results on purpose; only the full kernel's are checked, against the
 streamed route. Builds go to ``build/probe_cluster/`` (git-ignored).
@@ -28,6 +30,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+F32_OD = "__device__ __forceinline__ float od_f32(float v) { return -logf((v * 255.0f + 1.0f) / kIo); }"
+
 # (what is taken out, the source text, its replacement)
 VARIANTS = {
     "full kernel": [],
@@ -42,6 +46,13 @@ VARIANTS = {
     "no OD table (uint8)": [("__device__ __forceinline__ float od_of(uint8_t v, const float* lut) { return lut[v]; }",
                              "__device__ __forceinline__ float od_of(uint8_t v, const float* lut) "
                              "{ return 2.5f - static_cast<float>(v) * 0.0095f; }")],
+    # float32 OD with the division and the accurate logf replaced: by the
+    # special-function unit's approximate logarithm (nearly the same values,
+    # so the selections take the same paths), or by no logarithm at all.
+    "float32 OD by __logf": [(F32_OD, "__device__ __forceinline__ float od_f32(float v) "
+                                      "{ return -__logf((v * 255.0f + 1.0f) * (1.0f / kIo)); }")],
+    "float32 OD linear (no log)": [(F32_OD, "__device__ __forceinline__ float od_f32(float v) "
+                                            "{ return 5.48f - v * 5.54f; }")],
 }
 
 
@@ -74,7 +85,7 @@ def main() -> int:
         for header in kernels.CSRC.glob("*.cuh"):
             texts[header.name] = header.read_text()
         for old, new in edits:
-            where = common if "od_of" in old else "macenko_stream.cu"
+            where = common if "od_of" in old or "od_f32" in old else "macenko_stream.cu"
             if texts[where].count(old) != 1:
                 raise RuntimeError(f"variant {name!r}: the source no longer has {old.strip()!r}")
             texts[where] = texts[where].replace(old, new)
@@ -104,6 +115,7 @@ def main() -> int:
     he, mc = mf.macenko_fit_mega_plain(ref[0])
     batch = [u8(64, 512, 123), u8(64, 512, 124, 1.1)]
     tiles = [u8(256, 224, 227), u8(256, 224, 228, 1.1)]
+    train = [u8(128, 256, 125).float() / 255.0, u8(128, 256, 126, 1.1).float() / 255.0]
 
     def transform(x):
         return ms.macenko_transform_stream(x, he, mc, force="cluster")
@@ -112,7 +124,8 @@ def main() -> int:
         return ms.macenko_fit_stream(x, force="cluster")
 
     cases = [("B4 64x3x512^2 u8", transform, batch), ("B4 256x3x224^2 u8", transform, tiles),
-             ("B5 1x3x512^2 u8", fit, ref)]
+             ("B5 1x3x512^2 u8", fit, ref), ("B4 128x3x256^2 f32", transform, train),
+             ("B5 1x3x256^2 f32", fit, [t[:1] for t in train])]
 
     def replay_ms(fn, xs, iters=30):
         graphs = []
