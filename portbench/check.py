@@ -5,6 +5,13 @@ on that fit, at the timed sizes. The reference works the fit out again
 from the same input and transforms the same rows; the numbers are the
 largest gaps over all items, and each is held to its limit from the
 configuration (``limits``). A number that is not finite fails.
+
+The reference module's ``STATISTICS`` says how its transform reads a call:
+``"image"``, each output row depends on its own input row and the fit
+alone (Macenko), so the checked rows are transformed by themselves;
+``"call"``, the transform takes statistics over the call's whole input
+(Reinhard, histogram matching), so the reference transforms the whole call
+and its checked rows are compared.
 """
 
 from __future__ import annotations
@@ -14,8 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# Rows the reference transforms at a time, so that its float32 temporaries
-# stay a few hundred MB at the largest tiles.
+# Rows an ``"image"`` reference transforms at a time, so that its float32
+# temporaries stay a few hundred MB at the largest tiles.
 BLOCK_ROWS = 16
 
 
@@ -23,8 +30,24 @@ BLOCK_ROWS = 16
 class Item:
     fit_input: np.ndarray  # the images the fit read, (N, 3, H, W)
     program_state: dict  # the program's fitted state, as numpy arrays
-    rows_input: np.ndarray  # the checked rows' inputs
+    call_input: np.ndarray  # the whole input of the checked call, (B, 3, H, W)
+    rows: np.ndarray  # the indices of the checked rows in it, sorted
     program_rows: np.ndarray  # the program's outputs for them
+
+
+def reference_rows(item: Item, reference, state: dict, **kwargs):
+    """The reference's outputs of ``item``'s checked rows on ``state``, as
+    ``(where, outputs)`` pairs, ``where`` the slice of the checked rows they
+    are: an ``"image"`` reference transforms blocks of ``BLOCK_ROWS`` rows by
+    themselves, a ``"call"`` reference the call's whole input at once.
+    ``kwargs`` go to its ``transform``."""
+    if reference.STATISTICS == "call":
+        if len(item.rows):
+            yield slice(None), reference.transform(item.call_input, state, **kwargs)[item.rows]
+        return
+    for lo in range(0, len(item.rows), BLOCK_ROWS):
+        where = slice(lo, lo + BLOCK_ROWS)
+        yield where, reference.transform(item.call_input[item.rows[where]], state, **kwargs)
 
 
 def gaps(items: list[Item], reference, full_scale: float) -> dict[str, float]:
@@ -37,9 +60,8 @@ def gaps(items: list[Item], reference, full_scale: float) -> dict[str, float]:
         ref_state = reference.fit(item.fit_input)
         for name, value in reference.state_gaps(item.program_state, ref_state).items():
             found[name] = max(found.get(name, 0.0), value) if math.isfinite(value) else math.nan
-        for lo in range(0, len(item.rows_input), BLOCK_ROWS):
-            ref = reference.transform(item.rows_input[lo:lo + BLOCK_ROWS], ref_state)
-            prog = item.program_rows[lo:lo + BLOCK_ROWS].astype(np.float64) * (255.0 / full_scale)
+        for where, ref in reference_rows(item, reference, ref_state):
+            prog = item.program_rows[where].astype(np.float64) * (255.0 / full_scale)
             diff = np.abs(prog - ref.astype(np.float64))
             total += float(diff.sum())
             count += diff.size

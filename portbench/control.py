@@ -22,10 +22,13 @@ from portbench import check, harness, spec
 
 
 def control_items(items: list, reference, full_scale: float) -> list:
-    """``items`` with the program's parts made by the bfloat16 reference."""
+    """``items`` with the program's parts made by the bfloat16 reference,
+    its checked rows transformed as the check transforms them."""
     for item in items:
         state = reference.fit(item.fit_input, rounding=reference.bf16)
-        rows = reference.transform(item.rows_input, state, rounding=reference.bf16)
+        blocks = [out for _, out in check.reference_rows(item, reference, state,
+                                                         rounding=reference.bf16)]
+        rows = np.concatenate(blocks) if blocks else item.call_input[:0]
         item.program_state = state
         item.program_rows = rows.astype(np.float32) * (full_scale / 255.0)
     return items

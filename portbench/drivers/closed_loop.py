@@ -96,7 +96,9 @@ def check_items(job, st: State, stream, program: bool = True) -> list:
     """The sample the reference checks, drawn from ``stream``: the last
     calls in the window of ``check_batches`` pool batches, each with the fit
     it used, and ``check_rows`` rows of the first of them (every row where
-    that is the batch, so a fault in any one answer of a call shows). With
+    that is the batch, so a fault in any one answer of a call shows). Each
+    item carries its call's whole input and the indices of its checked rows
+    in it (none for the other batches, which are checked by their fits). With
     ``program`` False, the inputs alone, for the control."""
     slots = [s for s in range(len(st.pool)) if st.last_call[s] >= 0 or not program]
     pick_slots, pick_rows = stream.spawn(2)
@@ -111,6 +113,6 @@ def check_items(job, st: State, stream, program: bool = True) -> list:
             state = {k: to_np(v) for k, v in st.states[s].items()} if program else None
         else:
             fit_input, state = job.fit_input, job.fit_state if program else None
-        items.append(check.Item(fit_input, state, to_np(st.pool[s][take]),
+        items.append(check.Item(fit_input, state, to_np(st.pool[s]), take,
                                 to_np(st.last[s][take]) if program else None))
     return items

@@ -19,6 +19,7 @@ import numpy as np
 IO = 240.0
 BETA = 0.15
 ALPHA = 1.0
+STATISTICS = "image"
 
 # Floating-point operations a pixel needs, a transcendental (log, exp,
 # atan2) counted as one and comparisons, selections and casts as none:

@@ -8,7 +8,8 @@ new entries and edits nothing that is there.
 - ``traffic/<traffic>.json``: one traffic mix's parameters, with the name
   of the driver (``drivers/<driver>.py``) that runs them;
 - ``metrics/<metric>.py``: one metric's reader, ``read(run)``;
-- ``reference/<reference>.py``: a method's plain reference.
+- ``reference/<reference>.py``: a method's plain reference, which states
+  in ``STATISTICS`` how its transform reads a call (``check.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+# What a reference's ``STATISTICS`` may state: each output row depends on its
+# own input row and the fit alone, or on the call's whole input.
+STATISTICS = ("image", "call")
 
 
 @dataclass
@@ -65,6 +70,12 @@ def cell(name: str, bench: dict | None = None, root: Path = ROOT, here: Path = H
         raise KeyError(f"no workload named {name!r} in BENCHMARK.json")
     conf_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
     config = json.loads((root / conf_entry["file"]).read_text())
+    reference = load_module("reference", config["reference"], here)
+    stated = getattr(reference, "STATISTICS", None)
+    if stated not in STATISTICS:
+        raise ValueError(f"reference {config['reference']!r} of {name!r} states STATISTICS "
+                         f"{stated!r}: it has to state one of {STATISTICS}, how its transform "
+                         "reads a call, for the check to compare the right rows")
     traffic = json.loads((here / "traffic" / f"{entry['traffic']}.json").read_text())
     e2e = [m for m in bench["end_to_end"] if _reports(m, name, set())]
     names = {m["name"] for m in e2e}

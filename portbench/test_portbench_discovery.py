@@ -83,9 +83,41 @@ def test_each_cell_finds_its_parts(name):
     assert all(hasattr(driver, f) for f in ("prepare", "warm", "run", "check_items"))
     reference = spec.load_module("reference", cell.config["reference"])
     assert hasattr(reference, "fit") and hasattr(reference, "transform")
+    assert reference.STATISTICS in ("image", "call")
     for m in cell.end_to_end + cell.per_layer:
         assert callable(spec.load_module("metrics", m["name"]).read)
     assert set(cell.config["limits"]) <= {"he_gap", "maxc_gap", "out_mae", "out_max"}
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "portbench/reference").glob("*.py")),
+                         ids=lambda p: p.stem)
+def test_every_reference_states_how_its_transform_reads_a_call(path):
+    assert spec.load_module("reference", path.stem).STATISTICS in ("image", "call")
+
+
+@pytest.mark.parametrize("stated", [None, "batch"])
+def test_a_reference_that_states_no_statistics_is_refused(tmp_path, stated):
+    """``spec.cell`` refuses a cell whose reference does not say whether its
+    transform reads each image alone or the whole call."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    source = (ROOT / "portbench/reference/macenko.py").read_text()
+    source = source.replace('STATISTICS = "image"\n', "" if stated is None else
+                            f"STATISTICS = {stated!r}\n")
+    assert 'STATISTICS = "image"' not in source
+    (tmp_path / "portbench/reference/dummy.py").write_text(source)
+    config = json.loads((ROOT / "portbench/configs/macenko-u8-256.json").read_text())
+    config.update(name="dummy-u8-256", reference="dummy")
+    (tmp_path / "portbench/configs/dummy-u8-256.json").write_text(json.dumps(config))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "dummy-u8-256", "source": "https://example.org/dummy",
+                             "file": "portbench/configs/dummy-u8-256.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "dummy-u8-256.store", "config": "dummy-u8-256",
+                               "traffic": "store", "chips": 1, "why": "a test"})
+    with pytest.raises(ValueError, match="STATISTICS"):
+        spec.cell("dummy-u8-256.store", bench, tmp_path, tmp_path / "portbench")
+    assert spec.cell("macenko-u8-256.store", bench, tmp_path, tmp_path / "portbench").chips == 1
 
 
 def test_a_dummy_config_cell_and_metric_are_found_as_new_files(tmp_path):
