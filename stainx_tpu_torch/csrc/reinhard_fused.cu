@@ -452,16 +452,39 @@ int stainx_reinhard_apply(const void* x, void* out, const void* lab_mean, const 
 // statistics and ref_mean, ref_std ((3,) float32), all on `stream`. One
 // call from the host in place of two keeps the host's issue time below the
 // card's run time on the main path. Scratch and shapes as above.
+// stats_start and stats_end, where not null, are CUDA events of the stream's
+// device, made with timing: stats_start is recorded before the moments
+// launch and stats_end after their finalize, so the interval between them
+// holds the call-wide statistics and nothing the host or the apply does.
+// The launches, their order and the outputs are the same with or without.
+int stainx_reinhard_transform_timed(const void* x, void* out, void* partials, void* out6,
+                                    void* stats6, const void* ref_mean, const void* ref_std,
+                                    long long n, long long p, int is_uint8, int vec, int blocks,
+                                    void* stream, void* stats_start, void* stats_end) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  int code = 0;
+  if (stats_start != nullptr) {
+    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_start), s));
+    if (code != 0) return code;
+  }
+  code = stainx_reinhard_moments(x, partials, out6, stats6, n, p, is_uint8, vec, blocks, stream);
+  if (code != 0) return code;
+  if (stats_end != nullptr) {
+    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_end), s));
+    if (code != 0) return code;
+  }
+  const auto* st = static_cast<const float*>(stats6);
+  return stainx_reinhard_apply(x, out, st, st + 3, ref_mean, ref_std, n, p, is_uint8, vec,
+                               blocks, stream);
+}
+
+// stainx_reinhard_transform_timed with no events: the transform untimed.
 int stainx_reinhard_transform(const void* x, void* out, void* partials, void* out6,
                               void* stats6, const void* ref_mean, const void* ref_std,
                               long long n, long long p, int is_uint8, int vec, int blocks,
                               void* stream) {
-  const int code = stainx_reinhard_moments(x, partials, out6, stats6, n, p, is_uint8, vec,
-                                           blocks, stream);
-  if (code != 0) return code;
-  const auto* st = static_cast<const float*>(stats6);
-  return stainx_reinhard_apply(x, out, st, st + 3, ref_mean, ref_std, n, p, is_uint8, vec,
-                               blocks, stream);
+  return stainx_reinhard_transform_timed(x, out, partials, out6, stats6, ref_mean, ref_std, n, p,
+                                         is_uint8, vec, blocks, stream, nullptr, nullptr);
 }
 
 }  // extern "C"

@@ -22,6 +22,17 @@ each kernel in ``launch.B7b`` and ``launch.B7a``
 - :func:`reinhard_transfer`: the transform, B7b then B7a on the statistics
   its finalize wrote, in one C call: nothing is issued between them.
 
+Inside a profiler session, :func:`reinhard_transfer` on a CUDA tensor also
+opens the span ``stainx.stats``, the call-wide statistics pass, as a child
+of ``stainx.kernel.B7``. No Python runs between the C call's launches, so
+the C call records the span's device interval itself: the wrapper takes
+two CUDA timing events from :func:`~stainx_tpu_torch.profiling.caller_timed`
+and calls ``stainx_reinhard_transform_timed``, which records one on the
+stream before the moments launch and one after their finalize, then
+launches the apply. With no session running the wrapper makes the untimed C
+call with the same arguments as ever; the launches, their order and the
+outputs are the same either way.
+
 The plain versions are built on :mod:`stainx_tpu_torch.ops.color`, the JAX
 package's formulas term by term. The kernels fold constants, fuse
 multiply-adds and take powers on the special-function unit, so they differ
@@ -99,6 +110,9 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_reinhard_apply.restype = i32
         lib.stainx_reinhard_transform.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32, ptr]
         lib.stainx_reinhard_transform.restype = i32
+        lib.stainx_reinhard_transform_timed.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32,
+                                                                    ptr, ptr, ptr]
+        lib.stainx_reinhard_transform_timed.restype = i32
         lib._stainx_declared = True
     return lib
 
@@ -225,11 +239,13 @@ def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> to
         partials, small = _moments_scratch(dev, args[4])
         out = torch.empty_like(images)
         lib = _lib()
-        with kernels.on_device(dev):
-            code = lib.stainx_reinhard_transform(
-                images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
-                small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args
-            )
+        call = (images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
+                small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args)
+        with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
+            if events is None:
+                code = lib.stainx_reinhard_transform(*call)
+            else:
+                code = lib.stainx_reinhard_transform_timed(*call, *events)
         kernels.check(lib, code, "reinhard_transfer")
         profiling.count("launch.B7b")
         profiling.count("launch.B7a")

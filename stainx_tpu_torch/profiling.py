@@ -11,6 +11,8 @@ events:
   or any ``torch.profiler.profile``) it is a ``record_function`` on the
   profiler's clock, and it is also kept in memory (:func:`session`), with
   its parent, its call and, given a CUDA ``device``, its device interval;
+- :func:`caller_timed`: a span whose device interval the caller's C code
+  records, for an interval inside one C call;
 - :func:`note`: adds arguments to the innermost open span, for what a span
   learns after it opened (a kernel's route);
 - :func:`count`: adds to a process-wide counter (:func:`counters`), always
@@ -45,6 +47,11 @@ Span                          Where                                         Devi
                               (``reinhard_transfer``: B7b, B7a) and ``B8``
                               (``hm_transfer``: B8a, B8b) for one C call
                               that launches both
+``stainx.stats``              the call-wide statistics a transform takes    yes, recorded
+                              before it writes any output: Reinhard's B7b   inside the C
+                              and its finalize, in ``reinhard_transfer``'s  call
+                              C call on a CUDA tensor (a child of
+                              ``stainx.kernel.B7``; :func:`caller_timed`)
 ============================  ============================================  ===============
 
 A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``;
@@ -193,6 +200,19 @@ class _Off:
 _OFF = _Off()
 
 
+class _OffTimed(_Off):
+    """The span of :func:`caller_timed` with no profiler running: enters as
+    ``None``, so the caller makes its call untimed."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+
+_OFF_TIMED = _OffTimed()
+
+
 def _current() -> Session:
     """The session a span or count seen with a profiler running lands in."""
     global _session, _session_on
@@ -211,10 +231,11 @@ def _stack() -> list:
 class _On:
     """A span inside a profiler session."""
 
-    __slots__ = ("name", "args", "device", "record", "session", "index", "events")
+    __slots__ = ("name", "args", "device", "caller", "record", "session", "index", "events")
 
-    def __init__(self, name: str, args: dict | None, device):
+    def __init__(self, name: str, args: dict | None, device, caller: bool = False):
         self.name, self.args, self.device = name, args, device
+        self.caller = caller  # the caller records the device interval's events
 
     def __enter__(self):
         sess = _current()
@@ -234,7 +255,12 @@ class _On:
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True), stream)
             self.events[0].record(stream)
+            if self.caller:
+                self.events[1].record(stream)
         span.start_ns = time.perf_counter_ns()
+        if self.caller:
+            return None if self.events is None else (self.events[0].cuda_event,
+                                                     self.events[1].cuda_event)
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -242,7 +268,8 @@ class _On:
         span.end_ns = time.perf_counter_ns()
         if self.events is not None:
             start, end, stream = self.events
-            end.record(stream)
+            if not self.caller:
+                end.record(stream)
             self.session.events.append((self.index, start, end))
         self.record.__exit__(*exc)
         stack = _stack()
@@ -266,6 +293,25 @@ def annotate(name: str, *, args: dict | None = None, device=None):
         _session_on = False
         return _OFF
     return _On(name, args, device)
+
+
+def caller_timed(name: str, device):
+    """A span whose device interval the caller's own code records, for an
+    interval that lies inside one C call, where no Python runs between the
+    launches it holds. With no profiler session running it reads one flag
+    and returns a shared no-op that enters as ``None``: the caller makes its
+    call untimed. Inside one it opens the span ``name`` as :func:`annotate`
+    does and, on a CUDA ``device``, enters as ``(start, end)``: the raw
+    handles of two CUDA timing events of that device, made by recording each
+    once on its current stream. The caller records both again on that stream,
+    where the interval starts and where it ends, before the span closes; the
+    span's device interval is read between them. On a CPU device it enters
+    as ``None``."""
+    global _session_on
+    if not _autograd_profiler._is_profiler_enabled:
+        _session_on = False
+        return _OFF_TIMED
+    return _On(name, None, device, caller=True)
 
 
 def note(**args) -> None:
