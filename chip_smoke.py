@@ -77,7 +77,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    forced cluster shapes with few pixels resident (a pooled fit, a white
    batch that takes the fallback) and the tile store's uint8 rows, with
    each call's ``keyfield.*`` count and the batch-mode forward's launches;
-   the exact row select (B3) bit for bit on the staged fit's
+   ``normalize_to_0_1``'s ÷255 folded into the float32 transform kernels'
+   store (the card tests of ``tests/test_torch_fold_range.py``, in a pytest
+   process: every float32 route of B1 and B4 against its unscaled output
+   divided by 255 bit for bit, the batch-mode training forward against the
+   two-step form with one ``finalize.folded`` a forward, the uint8 kernels'
+   SASS instruction counts); the exact row select (B3) bit for bit on the staged fit's
    (1, 512²) K=2 and (2, 512²) K=1, (64, 512²) K=2, (128, 512²) K=1,
    (256, 224²) K=2, (512, 224²) K=1, ragged (3, 1 000 003) and (5, 50 001)
    fields with sentinels, ties, ranks past the count and an empty row, a
@@ -505,6 +510,19 @@ def od_once_checks(dev, seed: int, build) -> None:
     print(f"batch-mode forward 128x3x256^2 f32: {counted}")
     require(counted == {"launch.B5.cluster": 1, "launch.B4.cluster": 1, "keyfield.B4": 1},
             f"the batch-mode forward counted {counted}")
+
+
+def fold_checks() -> None:
+    """The card tests of ``tests/test_torch_fold_range.py`` (the ÷255 of
+    ``normalize_to_0_1`` in the float32 transform kernels' store), run by
+    pytest in a process of its own on the libraries this run built."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-rs",
+         "-m", "cuda", os.path.join("tests", "test_torch_fold_range.py")],
+        capture_output=True, text=True, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    print(f"folded ÷255: {lines[-1] if lines else proc.stderr.strip()[-300:]}")
+    require(proc.returncode == 0, f"the fold card tests failed:\n{proc.stdout[-4000:]}")
 
 
 def one_block_selections(x, he, mc, fit: bool):
@@ -2568,6 +2586,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     od_once_checks(dev, args.seed, per_pass)
     torch.cuda.empty_cache()
+    fold_checks()
 
     # B3, the exact row select, bit for bit against its plain version.
     def check_b3(label, x, ranks, cluster=None):

@@ -2,7 +2,8 @@
 // and macenko_stream.cu (B4, B5): OD and its uint8 table, the covariance of
 // the 10 moments about OD-1, the closed-form 3x3 eigh, the diamond
 // pseudo-angle and its inverse, H/E ordering with the 2x2 normal rows, the
-// maxC scale, and 1- or 4-pixel loads and stores of the channel planes.
+// maxC scale, and 1- or 4-pixel loads and stores of the channel planes (a
+// float32 store times the kernel's out_scale).
 // Plain PyTorch twins: stainx_tpu_torch/kernels/macenko_fused.py and
 // stainx_tpu_torch/ops/eigh3.py. Built with -fmad=false, so products and
 // sums round as in those twins.
@@ -215,24 +216,29 @@ __device__ __forceinline__ void load_od(const T* img, int64_t p, int64_t g, cons
   }
 }
 
-__device__ __forceinline__ uint8_t to_store(float v, uint8_t) {
+// A clipped value as stored: uint8 truncates and takes no scale; float32 is
+// multiplied by `scale` in a rounded product of its own (1 keeps the value;
+// float32 1/255 gives the bits of PyTorch's CUDA `x / 255.0`, which
+// multiplies by that reciprocal).
+__device__ __forceinline__ uint8_t to_store(float v, uint8_t, float) {
   return static_cast<uint8_t>(static_cast<int>(v));  // truncate after the clip
 }
-__device__ __forceinline__ float to_store(float v, float) { return v; }
+__device__ __forceinline__ float to_store(float v, float, float scale) { return v * scale; }
 
 template <typename T, int V>
-__device__ __forceinline__ void store_rgb(T* img, int64_t p, int64_t g, const float (&rgb)[3][V]) {
+__device__ __forceinline__ void store_rgb(T* img, int64_t p, int64_t g, const float (&rgb)[3][V],
+                                          float scale) {
   for (int c = 0; c < 3; ++c) {
     T* plane = img + c * p;
     if constexpr (V == 4) {
       typename Vec4<T>::type q;
-      q.x = to_store(rgb[c][0], T());
-      q.y = to_store(rgb[c][1], T());
-      q.z = to_store(rgb[c][2], T());
-      q.w = to_store(rgb[c][3], T());
+      q.x = to_store(rgb[c][0], T(), scale);
+      q.y = to_store(rgb[c][1], T(), scale);
+      q.z = to_store(rgb[c][2], T(), scale);
+      q.w = to_store(rgb[c][3], T(), scale);
       reinterpret_cast<typename Vec4<T>::type*>(plane)[g] = q;
     } else {
-      plane[g] = to_store(rgb[c][0], T());
+      plane[g] = to_store(rgb[c][0], T(), scale);
     }
   }
 }

@@ -298,7 +298,7 @@ __device__ void stain_params(const T* img, int64_t p, long long idx99, Shared& s
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 1)
 transform_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ stain,
-                 const float* __restrict__ tmc, int64_t p, long long idx99) {
+                 const float* __restrict__ tmc, int64_t p, long long idx99, float out_scale) {
   __shared__ Shared sh;
   const int64_t offset = static_cast<int64_t>(blockIdx.x) * 3 * p;
   const T* img = x + offset;
@@ -326,7 +326,7 @@ transform_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __re
       const float cn1 = (od[0][j] * m[3] + od[1][j] * m[4] + od[2][j] * m[5]) * sc1;
       for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
     }
-    store_rgb<T, V>(dst, p, g, rgb);
+    store_rgb<T, V>(dst, p, g, rgb, out_scale);
   });
 }
 
@@ -760,7 +760,8 @@ __device__ void copy_keys(const uint32_t* resident, uint32_t* dst, int count) {
 template <typename T, int V, bool kCheck>
 __global__ void __launch_bounds__(kRThreads, 2)
 resident_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ stain,
-                const float* __restrict__ tmc, int p, long long idx99, uint32_t* keys, float* sel) {
+                const float* __restrict__ tmc, int p, long long idx99, uint32_t* keys, float* sel,
+                float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   TransformShared& sh = *reinterpret_cast<TransformShared*>(smem);
   uint32_t* keys0 = reinterpret_cast<uint32_t*>(smem + kResidentFixed);
@@ -803,7 +804,7 @@ resident_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __res
       const float cn1 = unkey(b[j]) * sc1;
       for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
     }
-    store_rgb<T, V>(dst, p, g, rgb);
+    store_rgb<T, V>(dst, p, g, rgb, out_scale);
   }
 }
 
@@ -849,35 +850,42 @@ fit_resident_kernel(const T* __restrict__ x, float* __restrict__ out8, int n, in
 }
 
 template <typename T, int V, bool kCheck>
-cudaError_t launch_resident(const T* x, T* out, const float* stain, const float* tmc, long long n,
-                            long long p, long long idx99, size_t smem, uint32_t* keys, float* sel,
-                            cudaStream_t s) {
+cudaError_t launch_resident(const T* x, T* out, const float* stain, const float* tmc,
+                            float out_scale, long long n, long long p, long long idx99,
+                            size_t smem, uint32_t* keys, float* sel, cudaStream_t s) {
   const cudaError_t e = cudaFuncSetAttribute(resident_kernel<T, V, kCheck>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   resident_kernel<T, V, kCheck><<<static_cast<unsigned>(n), kRThreads, smem, s>>>(
-      x, out, stain, tmc, static_cast<int>(p), idx99, keys, sel);
+      x, out, stain, tmc, static_cast<int>(p), idx99, keys, sel, out_scale);
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch_transform(const void* x, void* out, const float* stain, const float* tmc,
-                             long long n, long long p, int vec4, long long idx99, long long smem,
-                             uint32_t* keys, float* sel, cudaStream_t s) {
+                             float out_scale, long long n, long long p, int vec4, long long idx99,
+                             long long smem, uint32_t* keys, float* sel, cudaStream_t s) {
   const auto* xi = static_cast<const T*>(x);
   auto* xo = static_cast<T*>(out);
   const dim3 grid(static_cast<unsigned>(n));
   if (keys != nullptr) {
-    return vec4 ? launch_resident<T, 4, true>(xi, xo, stain, tmc, n, p, idx99, smem, keys, sel, s)
-                : launch_resident<T, 1, true>(xi, xo, stain, tmc, n, p, idx99, smem, keys, sel, s);
+    return vec4 ? launch_resident<T, 4, true>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
+                                              keys, sel, s)
+                : launch_resident<T, 1, true>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
+                                              keys, sel, s);
   }
   if (smem > 0) {
-    return vec4 ? launch_resident<T, 4, false>(xi, xo, stain, tmc, n, p, idx99, smem, keys, sel, s)
-                : launch_resident<T, 1, false>(xi, xo, stain, tmc, n, p, idx99, smem, keys, sel, s);
+    return vec4 ? launch_resident<T, 4, false>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
+                                               keys, sel, s)
+                : launch_resident<T, 1, false>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
+                                               keys, sel, s);
   }
-  if (vec4) transform_kernel<T, 4><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99);
-  else transform_kernel<T, 1><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99);
+  if (vec4) {
+    transform_kernel<T, 4><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99, out_scale);
+  } else {
+    transform_kernel<T, 1><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99, out_scale);
+  }
   return cudaSuccess;
 }
 
@@ -917,14 +925,16 @@ const char* stainx_error_string(int code) {
 }
 
 // x, out: (n, 3, p) contiguous uint8 or float32; stain: (3, 2) float32;
-// tmc: (2,) float32; all on the current device. smem: the resident body's
+// tmc: (2,) float32; all on the current device. out_scale: each float32
+// output value is the clipped reconstruction times out_scale (1 for
+// [0, 255]); uint8 output takes none (pass 1). smem: the resident body's
 // dynamic shared memory (kResidentFixed, then 8p and 3p * sizeof(T) bytes,
 // each rounded up to 16), or 0 for the body that re-reads the image from L2. keys and sel are
 // null, or (check only, resident body) (n, 3, p) uint32 and (n, 4) float32
 // for the keys each image selected on and the selected values. Returns the
 // CUDA error of the launch.
 int stainx_macenko_transform_mega(const void* x, void* out, const void* stain, const void* tmc,
-                                  long long n, long long p, int is_uint8, int vec4,
+                                  float out_scale, long long n, long long p, int is_uint8, int vec4,
                                   long long idx99, long long smem, void* keys, void* sel,
                                   void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
@@ -933,8 +943,9 @@ int stainx_macenko_transform_mega(const void* x, void* out, const void* stain, c
   auto* k = static_cast<uint32_t*>(keys);
   auto* sl = static_cast<float*>(sel);
   const cudaError_t e =
-      is_uint8 ? launch_transform<uint8_t>(x, out, st, tm, n, p, vec4, idx99, smem, k, sl, s)
-               : launch_transform<float>(x, out, st, tm, n, p, vec4, idx99, smem, k, sl, s);
+      is_uint8
+          ? launch_transform<uint8_t>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k, sl, s)
+          : launch_transform<float>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k, sl, s);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);

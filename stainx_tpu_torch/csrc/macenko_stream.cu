@@ -525,7 +525,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p, unsigned y0,
                    const RowParams* __restrict__ prm, const float* __restrict__ stain,
-                   const float* __restrict__ tmc) {
+                   const float* __restrict__ tmc, float out_scale) {
   __shared__ float lut[256];
   build_lut<T>(lut);
   __syncthreads();
@@ -548,7 +548,7 @@ stream_reconstruct(const T* __restrict__ x, T* __restrict__ out, int64_t p, unsi
       const float cn1 = (od[0][j] * m[3] + od[1][j] * m[4] + od[2][j] * m[5]) * sc1;
       for (int c = 0; c < 3; ++c) rgb[c][j] = reconstruct(st, c, cn0, cn1);
     }
-    store_rgb<T, V>(dst, p, g, rgb);
+    store_rgb<T, V>(dst, p, g, rgb, out_scale);
   });
 }
 
@@ -979,13 +979,14 @@ __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all
 // row blockIdx.x / cluster size, its statistics into prm[row]. Block r of
 // the cluster takes pixels [r*S, (r+1)*S) of the row, the first R of them
 // resident. keys: for float32 rows with R < S, 2 * (S - R) uint32 a block
-// (block b's from keys + b * 2 * (S - R)), else null.
+// (block b's from keys + b * 2 * (S - R)), else null. out_scale multiplies
+// each float32 output value (store_rgb).
 template <typename T>
 __global__ void __launch_bounds__(kCThreads, 1)
 cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr, int64_t S,
                int64_t R, int vec, int fallback, long long idx99, const float* __restrict__ stain,
                const float* __restrict__ tmc, RowParams* __restrict__ prm,
-               uint32_t* __restrict__ keys) {
+               uint32_t* __restrict__ keys, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   ClusterShared& sh = *reinterpret_cast<ClusterShared*>(smem);
   T* planes = reinterpret_cast<T*>(smem + kClusterFixed);
@@ -1039,11 +1040,13 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
   T* dst = out + row * 3 * p;  // one image a row
   auto put = [&](const bool (&ok)[4], const float (&rgb)[3][4], int64_t q) {
     if (vec) {  // a group is all in or all out
-      if (ok[0]) store_rgb<T, 4>(dst, p, (begin + q) / 4, rgb);
+      if (ok[0]) store_rgb<T, 4>(dst, p, (begin + q) / 4, rgb, out_scale);
     } else {
       for (int j = 0; j < 4; ++j) {
         if (!ok[j]) continue;
-        for (int c = 0; c < 3; ++c) dst[c * p + begin + q + j] = to_store(rgb[c][j], T());
+        for (int c = 0; c < 3; ++c) {
+          dst[c * p + begin + q + j] = to_store(rgb[c][j], T(), out_scale);
+        }
       }
     }
   };
@@ -1078,7 +1081,7 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
 
 template <typename T>
 using ClusterKernel = void (*)(const T*, T*, int64_t, int, int64_t, int64_t, int, int, long long,
-                               const float*, const float*, RowParams*, uint32_t*);
+                               const float*, const float*, RowParams*, uint32_t*, float);
 
 // Sets the cluster kernel's shared memory for R resident pixels a block and
 // allows clusters of 16 (past the portable 8), and fills cfg for `rows`
@@ -1110,8 +1113,8 @@ cudaError_t cluster_config(long long rows, int csize, long long R, cudaStream_t 
 template <typename T>
 cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p, int ipr,
                            int csize, long long S, long long R, int vec, int fallback,
-                           long long idx99, const float* stain, const float* tmc, RowParams* prm,
-                           uint32_t* keys, cudaStream_t s) {
+                           long long idx99, const float* stain, const float* tmc, float out_scale,
+                           RowParams* prm, uint32_t* keys, cudaStream_t s) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const cudaError_t e = cluster_config<T>(rows, csize, R, s, cfg, attr);
@@ -1119,7 +1122,7 @@ cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p
   return cudaLaunchKernelEx(&cfg, ClusterKernel<T>(cluster_kernel<T>), static_cast<const T*>(x),
                             static_cast<T*>(out), static_cast<int64_t>(p), ipr,
                             static_cast<int64_t>(S), static_cast<int64_t>(R), vec, fallback, idx99,
-                            stain, tmc, prm, keys);
+                            stain, tmc, prm, keys, out_scale);
 }
 
 template <typename T>
@@ -1147,8 +1150,8 @@ void over_items(long long items, int bx, F&& launch) {
 template <typename T, int V>
 void launch_stream(const void* xv, void* outv, long long n, long long p, int ipr, int bx,
                    int bx_keys, int fallback, long long idx99, const float* stain,
-                   const float* tmc, RowParams* prm, Sel2* sel, unsigned* hist, double* partials,
-                   uint32_t* keys, cudaStream_t s) {
+                   const float* tmc, float out_scale, RowParams* prm, Sel2* sel, unsigned* hist,
+                   double* partials, uint32_t* keys, cudaStream_t s) {
   const auto* x = static_cast<const T*>(xv);
   const int64_t rows = n / ipr, len = static_cast<int64_t>(ipr) * p;
   unsigned* tickets = hist + rows * 2 * kBins;
@@ -1190,7 +1193,7 @@ void launch_stream(const void* xv, void* outv, long long n, long long p, int ipr
   if (outv != nullptr) {
     over_items(n, bx, [&](dim3 g, unsigned y0) {
       stream_reconstruct<T, V><<<g, kThreads, 0, s>>>(x, static_cast<T*>(outv), p, y0, prm,
-                                                      stain, tmc);
+                                                      stain, tmc, out_scale);
     });
   }
 }
@@ -1222,7 +1225,9 @@ void launch_fields(const void* x, long long n, long long p, int ipr, int bx, con
 // x: (n, 3, p) contiguous uint8 or float32 on the current device, in rows
 // of ipr images (1 at transform; n at fit, the pool); out: the transform's
 // (n, 3, p) output, or null for a fit; stain (3, 2) and tmc (2,) float32
-// (ignored at fit); prm: (rows, 32) float32 RowParams. fallback is 1 at
+// (ignored at fit); out_scale: each float32 output value is the clipped
+// reconstruction times out_scale (1 for [0, 255]; uint8 output takes none,
+// pass 1); prm: (rows, 32) float32 RowParams. fallback is 1 at
 // transform (the <3-pixel fallback), idx99 the 99th-percentile rank of a
 // row. Each function returns the launch's CUDA error (cudaGetLastError()).
 extern "C" {
@@ -1238,7 +1243,8 @@ const char* stainx_error_string(int code) {
 // 16-byte aligned key field of rows * csize * 2 * (S - R) uint32, else null.
 int stainx_cluster_run(const void* x, void* out, long long n, long long p, int ipr, int is_uint8,
                        int vec, int csize, long long S, long long R, int fallback, long long idx99,
-                       const void* stain, const void* tmc, void* prm, void* keys, void* stream) {
+                       const void* stain, const void* tmc, float out_scale, void* prm,
+                       void* keys, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const float*>(stain);
   const auto* tm = static_cast<const float*>(tmc);
@@ -1247,9 +1253,9 @@ int stainx_cluster_run(const void* x, void* out, long long n, long long p, int i
   const long long rows = n / ipr;
   const cudaError_t e =
       is_uint8 ? launch_cluster<uint8_t>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99,
-                                         st, tm, rp, nullptr, s)
+                                         st, tm, out_scale, rp, nullptr, s)
                : launch_cluster<float>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99, st,
-                                       tm, rp, kf, s);
+                                       tm, out_scale, rp, kf, s);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);
@@ -1274,10 +1280,10 @@ int stainx_cluster_occupancy(int is_uint8, int csize, long long R, void* cluster
 // (2 * rows, ipr * p) uint32 key field read by bx_keys blocks a row.
 int stainx_stream_run(const void* x, void* out, long long n, long long p, int ipr, int is_uint8,
                       int vec, int bx, int bx_keys, int fallback, long long idx99,
-                      const void* stain, const void* tmc, void* prm, void* sel, void* hist,
-                      void* partials, void* keys, void* stream) {
+                      const void* stain, const void* tmc, float out_scale, void* prm, void* sel,
+                      void* hist, void* partials, void* keys, void* stream) {
   STAINX_DISPATCH(launch_stream, x, out, n, p, ipr, bx, bx_keys, fallback, idx99,
-                  static_cast<const float*>(stain), static_cast<const float*>(tmc),
+                  static_cast<const float*>(stain), static_cast<const float*>(tmc), out_scale,
                   static_cast<RowParams*>(prm), static_cast<Sel2*>(sel),
                   static_cast<unsigned*>(hist), static_cast<double*>(partials),
                   static_cast<uint32_t*>(keys), static_cast<cudaStream_t>(stream));

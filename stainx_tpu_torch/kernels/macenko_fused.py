@@ -210,10 +210,27 @@ def fit_plain(images, stream: bool = False):
     return he[0], maxc[0]
 
 
-def macenko_transform_mega_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
-    """Plain PyTorch version of the transform kernel (B1)."""
+def _check_scale(images: torch.Tensor, scale: float, what: str) -> None:
+    """A transform kernel multiplies float32 output by ``scale`` in its
+    store; uint8 output, truncated, takes only 1."""
+    if scale != 1.0 and images.dtype != torch.float32:
+        raise ValueError(f"{what}: scale applies to float32 output only, got {images.dtype} "
+                         f"and scale {scale}")
+
+
+def _scaled(out: torch.Tensor, scale: float) -> torch.Tensor:
+    """The plain versions' form of the kernels' scaled store: each value
+    times ``scale`` in float32, a rounded product of its own."""
+    return out if scale == 1.0 else out * scale
+
+
+def macenko_transform_mega_plain(images, stain_matrix, target_max_conc,
+                                 scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the transform kernel (B1); a float32
+    output is multiplied by ``scale`` as the kernel's store does."""
     kernels.check_rgb_batch(images, "macenko_transform_mega")
-    return transform_plain(images, stain_matrix, target_max_conc)
+    _check_scale(images, scale, "macenko_transform_mega")
+    return _scaled(transform_plain(images, stain_matrix, target_max_conc), scale)
 
 
 def macenko_fit_mega_plain(images):
@@ -228,7 +245,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.stainx_macenko_transform_mega.argtypes = [
-            ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
+            ptr, ptr, ptr, ptr, ctypes.c_float, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
         ]
         lib.stainx_macenko_transform_mega.restype = i32
         lib.stainx_macenko_fit_mega.argtypes = [
@@ -276,9 +293,10 @@ def transform_body(p: int, dtype: torch.dtype, smem_limit: int) -> str:
     return "resident" if resident_bytes(p, dtype) <= smem_limit else "l2"
 
 
-def _transform(images, stain_matrix, target_max_conc, body, check: bool):
-    """One B1 launch: the output, and with ``check`` the keys and selections
-    of :func:`resident_selections`."""
+def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: float = 1.0):
+    """One B1 launch: the output (float32 values times ``scale``), and with
+    ``check`` the keys and selections of :func:`resident_selections`."""
+    _check_scale(images, scale, "macenko_transform_mega")
     kernels.check_cuda(images, "macenko_transform_mega")
     dev = images.device
     he = _params(stain_matrix, dev, 6, "stain_matrix")
@@ -302,7 +320,7 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool):
     lib = _lib()
     with kernels.on_device(dev):
         code = lib.stainx_macenko_transform_mega(
-            images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(),
+            images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(), scale,
             n, p, int(images.dtype == torch.uint8), int(_vec4(p, images, out)),
             static_nearest_rank_index(99, p), smem,
             keys.data_ptr() if check else None, sel.data_ptr() if check else None,
@@ -312,16 +330,20 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool):
     return out, keys, sel
 
 
-def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | None = None):
+def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | None = None, *,
+                           scale: float = 1.0):
     """Macenko transform (B1): (N, 3, H, W) uint8/float32 → normalized batch
-    of the same shape and dtype, values in [0, 255]. One launch per call,
-    one thread block per image; ``body`` (``"resident"`` or ``"l2"``)
-    overrides :func:`transform_body`, for measurements."""
+    of the same shape and dtype, values in [0, 255]; a float32 batch's
+    values times ``scale``, which the kernel's store multiplies in
+    (``ops.macenko.UNIT_SCALE`` writes [0, 1]; uint8 takes only 1). One
+    launch per call, one thread block per image; ``body`` (``"resident"``
+    or ``"l2"``) overrides :func:`transform_body`, for measurements."""
     with profiling.annotate("stainx.kernel.B1"):
         kernels.check_rgb_batch(images, "macenko_transform_mega")
         if images.device.type == "cpu":
-            return macenko_transform_mega_plain(images, stain_matrix, target_max_conc)
-        out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False)
+            return macenko_transform_mega_plain(images, stain_matrix, target_max_conc, scale)
+        out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False,
+                               scale=scale)
         if out.numel():
             profiling.count("launch.B1")
         return out

@@ -64,10 +64,14 @@ KEY_BYTES = 8  # a key-field pixel: its angle key, then its two concentration ke
 ALIGN = 256  # bytes between the streamed route's scratch regions
 
 
-def macenko_transform_stream_plain(images, stain_matrix, target_max_conc) -> torch.Tensor:
-    """Plain PyTorch version of the multi-block transform (B4)."""
+def macenko_transform_stream_plain(images, stain_matrix, target_max_conc,
+                                   scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the multi-block transform (B4); a float32
+    output is multiplied by ``scale`` as the kernel's store does."""
     kernels.check_rgb_batch(images, "macenko_transform_stream")
-    return mf.transform_plain(images, stain_matrix, target_max_conc, stream=True)
+    mf._check_scale(images, scale, "macenko_transform_stream")
+    out = mf.transform_plain(images, stain_matrix, target_max_conc, stream=True)
+    return mf._scaled(out, scale)
 
 
 def macenko_fit_stream_plain(images):
@@ -154,12 +158,14 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.library("macenko_stream")
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        f32 = ctypes.c_float
         lib.stainx_cluster_run.argtypes = [
-            ptr, ptr, i64, i64, i32, i32, i32, i32, i64, i64, i32, i64, ptr, ptr, ptr, ptr, ptr
+            ptr, ptr, i64, i64, i32, i32, i32, i32, i64, i64, i32, i64, ptr, ptr, f32, ptr, ptr,
+            ptr
         ]
         lib.stainx_stream_run.argtypes = [
-            ptr, ptr, i64, i64, i32, i32, i32, i32, i32, i32, i64, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr, ptr
+            ptr, ptr, i64, i64, i32, i32, i32, i32, i32, i32, i64, ptr, ptr, f32, ptr, ptr, ptr,
+            ptr, ptr, ptr
         ]
         lib.stainx_stream_fields.argtypes = [ptr, i64, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
         lib.stainx_cluster_occupancy.argtypes = [i32, i32, i64, ptr]
@@ -171,14 +177,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
-         shape: tuple[int, int, int] | None = None) -> torch.Tensor:
+         shape: tuple[int, int, int] | None = None, scale: float = 1.0) -> torch.Tensor:
     """One B4 (``out`` given) or B5 call on the card; returns the (rows, 32)
     RowParams, and counts the launch by its route. ``force`` takes a route
     other than :func:`route` would (the streamed route takes every row; the
     cluster route only rows that fit); ``shape``, for checks, a cluster
     ``(size, slice, resident)`` other than :func:`cluster_shape`'s (slice
     and resident multiples of :data:`SLICE_QUANTUM`, the slices covering the
-    row, resident within the slice and the block's shared memory)."""
+    row, resident within the slice and the block's shared memory). ``scale``
+    multiplies a float32 transform's output values in the kernel's store."""
     n, _, h, w = images.shape
     p = h * w
     per_row = n if fit else 1
@@ -213,7 +220,7 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
             code = lib.stainx_cluster_run(
                 images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
                 int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
-                null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(),
+                null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(), scale,
                 buf.data_ptr(), keys, stream,
             )
         kernels.check(lib, code, what)
@@ -233,7 +240,8 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
             images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
             int(is_uint8), vec, blocks, kernels.row_blocks(rows, row_len // vec, dev),
             int(not fit), idx99, null if fit else stain.data_ptr(),
-            null if fit else tmc.data_ptr(), base + layout["params"][0], base + layout["sel"][0],
+            null if fit else tmc.data_ptr(), scale, base + layout["params"][0],
+            base + layout["sel"][0],
             base + layout["hist"][0], base + layout["partials"][0],
             null if is_uint8 else base + layout["keys"][0], stream,
         )
@@ -287,15 +295,20 @@ def _active_clusters(index: int, dtype: torch.dtype, csize: int, resident: int) 
         return cluster_occupancy(dtype, csize, resident)
 
 
-def macenko_transform_stream(images, stain_matrix, target_max_conc, *, force=None) -> torch.Tensor:
+def macenko_transform_stream(images, stain_matrix, target_max_conc, *, force=None,
+                             scale: float = 1.0) -> torch.Tensor:
     """Multi-block Macenko transform (B4): (N, 3, H, W) uint8/float32 →
-    normalized batch of the same shape and dtype, values in [0, 255]. One
-    C call, one cluster launch or the streamed route's kernels. ``force``
-    (``"cluster"`` or ``"stream"``) overrides :func:`route`, for checks."""
+    normalized batch of the same shape and dtype, values in [0, 255]; a
+    float32 batch's values times ``scale``, which the kernel's store
+    multiplies in (``ops.macenko.UNIT_SCALE`` writes [0, 1]; uint8 takes
+    only 1). One C call, one cluster launch or the streamed route's
+    kernels. ``force`` (``"cluster"`` or ``"stream"``) overrides
+    :func:`route`, for checks."""
     with profiling.annotate("stainx.kernel.B4"):
         kernels.check_rgb_batch(images, "macenko_transform_stream")
         if images.device.type == "cpu":
-            return macenko_transform_stream_plain(images, stain_matrix, target_max_conc)
+            return macenko_transform_stream_plain(images, stain_matrix, target_max_conc, scale)
+        mf._check_scale(images, scale, "macenko_transform_stream")
         kernels.check_cuda(images, "macenko_transform_stream")
         dev = images.device
         he = mf._params(stain_matrix, dev, 6, "stain_matrix")
@@ -303,7 +316,7 @@ def macenko_transform_stream(images, stain_matrix, target_max_conc, *, force=Non
         out = torch.empty_like(images)
         if out.numel() == 0:
             return out
-        _run(images, out, he, tmc, fit=False, force=force)
+        _run(images, out, he, tmc, fit=False, force=force, scale=scale)
         return out
 
 

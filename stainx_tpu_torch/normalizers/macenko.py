@@ -23,7 +23,11 @@ class Macenko(NormalizerTemplate):
         ``"cpu"``. On CUDA, fit and transform run the hand-written kernels;
         on the CPU, their plain PyTorch versions.
     normalize_to_0_1 : bool
-        Divide output by 255 so results land in [0, 1]. Default False.
+        Divide output by 255 so results land in [0, 1]. Default False. On
+        float32 input on CUDA the transform kernels' store does the
+        division (a product with the float32 reciprocal, as PyTorch's
+        ``/ 255.0`` on the card: the same bits); elsewhere it is an eager
+        division after the transform.
     precision : {"stable", "fast"}
         Validated at construction. As on the JAX package's ``pallas``
         backend: for uint8 and float32 input both run the same exact
@@ -79,9 +83,18 @@ class Macenko(NormalizerTemplate):
     def _transform_impl(self, images: torch.Tensor) -> torch.Tensor:
         self._validate_layout(images, "transform")
         self._validate_fitted_params()
+        scale = macenko_ops.UNIT_SCALE if self._folds_range(images) else 1.0
         return macenko_ops.macenko_transform(
-            images, self._stain_matrix, self._target_max_conc, precision=self._precision
+            images, self._stain_matrix, self._target_max_conc, precision=self._precision,
+            scale=scale,
         )
+
+    def _folds_range(self, images: torch.Tensor) -> bool:
+        """The ÷255 goes into the kernels' store for float32 input on CUDA:
+        there a kernel writes the output, in the input's dtype. uint8 output
+        takes no scale, the staged dtypes run no transform kernel, and the
+        CPU keeps the eager division's bits."""
+        return bool(self.normalize_to_0_1) and images.dtype == torch.float32 and images.is_cuda
 
     @staticmethod
     def _validate_layout(images: torch.Tensor, stage: str) -> None:

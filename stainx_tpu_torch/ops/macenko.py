@@ -115,6 +115,12 @@ CPU_ROUTE_SMEM = 232_448
 SELECT_STREAM_MIN_ELEMS = 4_194_304
 SELECT_STREAM_MAX_ROWS = 32
 
+# normalize_to_0_1's ÷255 as PyTorch runs ``x / 255.0`` on a float32 CUDA
+# tensor: a product with the float32 reciprocal 1.0f / 255.0f. The
+# transform kernels' store multiplies by it, so a folded ÷255 gives the
+# bits of the division that follows an unscaled transform.
+UNIT_SCALE = float(torch.tensor(1.0, dtype=torch.float32) / 255.0)
+
 
 def transform_route(n: int, p: int, dtype: torch.dtype) -> str:
     """``"stream"`` (B4) or ``"mega"`` (B1) for N rows of P pixels of the
@@ -341,9 +347,12 @@ def macenko_transform(
     target_max_conc: torch.Tensor,
     seed_state: torch.Tensor | None = None,
     precision: str = "stable",
+    scale: float = 1.0,
 ):
     """Normalize an (N, 3, H, W) batch to the fitted stain matrix (3, 2) and
-    max concentrations (2,). Output range [0, 255] in the input dtype.
+    max concentrations (2,). Output range [0, 255] in the input dtype; a
+    float32 batch's values times ``scale``, multiplied in by the kernels'
+    store (:data:`UNIT_SCALE` gives [0, 1]; other dtypes take only 1).
     ``precision="fast"`` reconstructs in bfloat16 on the staged route (every
     dtype but uint8 and float32). With ``seed_state`` the return is
     ``(out, seed_state)``."""
@@ -355,8 +364,10 @@ def macenko_transform(
             kernel = macenko_stream.macenko_transform_stream
         else:
             kernel = macenko_fused.macenko_transform_mega
-        out = kernel(x, stain_matrix, target_max_conc)
+        out = kernel(x, stain_matrix, target_max_conc, scale=scale)
     else:
+        if scale != 1.0:
+            raise ValueError(f"scale applies to float32 output only, got {images.dtype}")
         out = _staged_transform(images, stain_matrix, target_max_conc, precision)
     return (out, seed_state) if seed_state is not None else out
 

@@ -40,8 +40,10 @@ Span                          Where                                         Devi
 ``stainx.fit``                ``fit`` of every normalizer                   yes
 ``stainx.transform``          ``transform`` of every normalizer, before     yes
                               the ÷255 of ``normalize_to_0_1``
-``stainx.finalize``           the ÷255, where it divides; a sibling of       yes
-                              ``stainx.transform``
+``stainx.finalize``           the eager ÷255 of ``normalize_to_0_1``, a     yes
+                              sibling of ``stainx.transform``; absent
+                              where the kernels' store does it
+                              (``finalize.folded``)
 ``stainx.kernel.<K>``         each kernel wrapper, ``<K>`` one of B1, B2,   no
                               B3, B4, B5, B6, B7a, B7b, B8a, B8b; ``B7``
                               (``reinhard_transfer``: B7b, B7a) and ``B8``
@@ -75,6 +77,9 @@ Counter                 Counts
                         block's slice): ``keyfield.B4``, ``keyfield.B5``
 ``route.staged``        Macenko fits and transforms that took the staged route
                         (every dtype but uint8 and float32)
+``finalize.folded``     transforms whose ÷255 of ``normalize_to_0_1`` the
+                        kernels' store did (Macenko on float32 input on CUDA),
+                        with no ``stainx.finalize`` span
 ``build.nvcc``          sources ``kernels.build_all`` compiled
 ``occupancy.query``     cluster occupancies asked of the card (once a shape)
 ======================  ========================================================

@@ -246,9 +246,9 @@ class TestRouteLadder:
         calls = []
 
         def spy(fn):
-            def wrapped(*args):
+            def wrapped(*args, **kwargs):
                 calls.append(fn.__name__)
-                return fn(*args)
+                return fn(*args, **kwargs)
             return wrapped
 
         ref = oracle.synthetic_he_tile(40, 48, seed=42)

@@ -15,13 +15,16 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   interval per call (means, and the device intervals' quartiles with the
   first call left out), the device intervals' sum against
   ``busy_ms_per_call``, the session's counts and the kernel spans' route
-  arguments.
+  arguments, the ``finalize.folded`` count per call (the ÷255 of
+  ``normalize_to_0_1`` done in the kernels' store) and the device spans the
+  session lacks (``stainx.finalize`` wherever the division was folded).
 - ``split``: no profiler. The host's time a call in each layer of the two
   cells' calls (the API call, ``fit``, ``transform``, ``_finalize_range``,
   the B4 and B5 wrappers), each timed by ``perf_counter_ns`` around the
   layer's function, in a closed loop over the cells' batches with their
   calls in flight (16 and 4); medians in ms. A layer's time holds its
-  children's: ``transform`` holds the B4 wrapper and the ÷255.
+  children's: ``transform`` holds the B4 wrapper and the ÷255 where it
+  divides (``_finalize_range``; none where the kernels' store does it).
 - ``cost``: the host's cost, in µs, of a span (with and without a device
   interval), a count, a ``record_function``, a CUDA event pair and
   ``torch.cuda.current_stream``, with no profiler running and inside a
@@ -77,6 +80,8 @@ def session(cell_name: str, seed: int, seconds: float) -> dict:
     return {"cell": cell_name, "seed": seed, "correct": res["correct"], "roots": calls,
             "traced_calls": res["notes"].get("traced_calls"), "busy_ms_per_call": busy,
             "device_ms_sum": dev_sum, "device_ms_sum_over_busy": dev_sum / busy if busy else None,
+            "finalize_folded_per_call": sess.counts.get("finalize.folded", 0) / calls,
+            "absent_device_spans": [n for n in DEVICE_SPANS if n not in per_call],
             "per_call": per_call, "device_ms_quartiles": quartiles, "counts": sess.counts,
             "kernel_args": sorted({json.dumps(s.args, sort_keys=True) for s in sess.spans
                                    if s.name.startswith("stainx.kernel.") and s.args}),
