@@ -232,7 +232,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at an odd byte offset and an NHWC-strided batch (uint8 and float32),
    the histogram's split at 32 768 values a channel, a tile with two
    pixels past β and the negative-maxC tile; B3 or B6 through
-   ``ops/macenko._select`` at 32 and 33 rows of 2²² − 1 and 2²² elements,
+   ``ops/percentile._select`` at 32 and 33 rows of 2²² − 1 and 2²² elements,
    and the public staged route on bfloat16 2048² and float16 2047×2049.
    Every case runs Macenko, Reinhard and histogram matching fit ->
    transform through the public API with the launches the route ladder
@@ -287,7 +287,7 @@ TPU_REINHARD = "stainx_tpu/kernels/reinhard_fused.py"
 TPU_HISTOGRAM = "stainx_tpu/kernels/histogram.py"
 TPU_ROWS = "stainx_tpu/kernels/selection.py"
 # The selections paths (c) and (d) make, in order, under the threshold
-# SELECT_STREAM_MIN_ELEMS of stainx_tpu_torch/ops/macenko.py: (c) fits a
+# SELECT_STREAM_MIN_ELEMS of stainx_tpu_torch/ops/percentile.py: (c) fits a
 # 512^2 reference (angles (1, 512^2) K=2, concentrations (2, 512^2) K=1)
 # and transforms 64 images ((64, 512^2) K=2, (128, 512^2) K=1); (d) fits
 # the 256x224^2 pool (1, 12 845 056) and transforms its 256 images
@@ -1601,6 +1601,7 @@ def random_shapes_phase(seed: int, dev) -> None:
     from stainx_tpu_torch.kernels import selection_stream as ss
     from stainx_tpu_torch.ops import color
     from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops import percentile as pct
     from stainx_tpu_torch.ops.percentile import nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
     from stainx_tpu_torch.testing import HE_REF
@@ -1626,7 +1627,7 @@ def random_shapes_phase(seed: int, dev) -> None:
           f"{stream_min[f32]} f32 pixels a row, up to {stream_rows[u8]} / {stream_rows[f32]} rows; "
           f"B2 up to {b2_pool[u8]} u8 / {b2_pool[f32]} f32 pooled pixels; the cluster route up to "
           f"{cluster[u8]} u8 / {cluster[f32]} f32 pixels a row; B3 or B6 from "
-          f"{mk.SELECT_STREAM_MIN_ELEMS} elements, up to {mk.SELECT_STREAM_MAX_ROWS} rows")
+          f"{pct.SELECT_STREAM_MIN_ELEMS} elements, up to {pct.SELECT_STREAM_MAX_ROWS} rows")
 
     def tiles(n, h, w, dtype, case_seed):
         """(n, 3, h, w) Beer-Lambert H&E tiles made on the card."""
@@ -1911,8 +1912,8 @@ def random_shapes_phase(seed: int, dev) -> None:
         field[torch.rand((rows, p), generator=g, device=dev) < 0.1] = torch.inf
         cnt = (field < torch.inf).sum(1)
         ranks = torch.stack([nearest_rank_index(1, cnt), nearest_rank_index(99, cnt)], 1)
-        got, _ = launched(label, lambda: mk._select(field, ranks), {expect: 1})
-        again = mk._select(field, ranks)
+        got, _ = launched(label, lambda: pct._select(field, ranks), {expect: 1})
+        again = pct._select(field, ranks)
         plain = (ss.kth_smallest_streaming_plain if expect == "B6"
                  else sel.kth_smallest_pallas_plain)(field, ranks)
         require(torch.equal(bits(got), bits(plain)) and torch.equal(bits(again), bits(got)),
@@ -1922,7 +1923,7 @@ def random_shapes_phase(seed: int, dev) -> None:
         print(f"phase 8 {label}: ({rows}, {p}) float32 K=2, {int(cnt.min())}-{int(cnt.max())} "
               f"finite a row; {expect} x1, bit for bit its plain version, repeat the same bits")
 
-    edge_e, edge_r = mk.SELECT_STREAM_MIN_ELEMS, mk.SELECT_STREAM_MAX_ROWS
+    edge_e, edge_r = pct.SELECT_STREAM_MIN_ELEMS, pct.SELECT_STREAM_MAX_ROWS
     select_case(edge_r, edge_e, "select at the edge", "B6")
     select_case(edge_r, edge_e - 1, "select one element short", "B3")
     select_case(edge_r + 1, edge_e, "select one row past", "B3")
@@ -1995,6 +1996,7 @@ def main() -> int:
     from stainx_tpu_torch.kernels import selection as sel
     from stainx_tpu_torch.kernels import selection_stream as ss
     from stainx_tpu_torch.ops import macenko as mk
+    from stainx_tpu_torch.ops import percentile as pct
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
     from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std, reinhard_transform
@@ -2659,11 +2661,11 @@ def main() -> int:
         """Run ``call`` with the staged route's selection recorded; returns
         its result and, per selection in order, (kernel, field, ranks,
         output)."""
-        select, seen = mk._select, []
+        select, seen = mk._select, []  # the staged route's name for pct._select
 
         def record(x, ranks):
             out = select(x, ranks)
-            seen.append(("B6" if mk.select_route(*x.shape) == "stream" else "B3", x, ranks, out))
+            seen.append(("B6" if pct.select_route(*x.shape) == "stream" else "B3", x, ranks, out))
             return out
 
         mk._select = record
@@ -3420,8 +3422,8 @@ def main() -> int:
     # as the route calls it (no init: B6 finds the rows' extremes), on angle-like
     # fields (30 % sentinels, the alpha and 100-alpha ranks) and
     # concentration-like ones (no sentinel, the 99th percentile).
-    print(f"select threshold: SELECT_STREAM_MIN_ELEMS {mk.SELECT_STREAM_MIN_ELEMS}, "
-          f"SELECT_STREAM_MAX_ROWS {mk.SELECT_STREAM_MAX_ROWS}")
+    print(f"select threshold: SELECT_STREAM_MIN_ELEMS {pct.SELECT_STREAM_MIN_ELEMS}, "
+          f"SELECT_STREAM_MAX_ROWS {pct.SELECT_STREAM_MAX_ROWS}")
     unearned.clear()
     kept.clear()
 
@@ -3433,7 +3435,7 @@ def main() -> int:
                 race(f"select ({rows}, {p}) K={k}",
                      [("B3", lambda t: sel.kth_smallest_pallas(t[0], t[1])),
                       ("B6", lambda t: ss.kth_smallest_streaming(t[0], t[1]))],
-                     select_inputs(rows, p, k, args.seed + 500), mk.select_route(rows, p))
+                     select_inputs(rows, p, k, args.seed + 500), pct.select_route(rows, p))
     print(f"select sweep: the threshold gives B6 a size it did not win in every round at "
           f"{unearned or 'no size'}; it keeps B3 where B6 won at {kept or 'no size'}")
 

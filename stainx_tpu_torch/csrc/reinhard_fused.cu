@@ -457,10 +457,10 @@ int stainx_reinhard_apply(const void* x, void* out, const void* lab_mean, const 
 // launch and stats_end after their finalize, so the interval between them
 // holds the call-wide statistics and nothing the host or the apply does.
 // The launches, their order and the outputs are the same with or without.
-int stainx_reinhard_transform_timed(const void* x, void* out, void* partials, void* out6,
-                                    void* stats6, const void* ref_mean, const void* ref_std,
-                                    long long n, long long p, int is_uint8, int vec, int blocks,
-                                    void* stream, void* stats_start, void* stats_end) {
+int stainx_reinhard_transform(const void* x, void* out, void* partials, void* out6,
+                              void* stats6, const void* ref_mean, const void* ref_std,
+                              long long n, long long p, int is_uint8, int vec, int blocks,
+                              void* stream, void* stats_start, void* stats_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   int code = 0;
   if (stats_start != nullptr) {
@@ -476,15 +476,6 @@ int stainx_reinhard_transform_timed(const void* x, void* out, void* partials, vo
   const auto* st = static_cast<const float*>(stats6);
   return stainx_reinhard_apply(x, out, st, st + 3, ref_mean, ref_std, n, p, is_uint8, vec,
                                blocks, stream);
-}
-
-// stainx_reinhard_transform_timed with no events: the transform untimed.
-int stainx_reinhard_transform(const void* x, void* out, void* partials, void* out6,
-                              void* stats6, const void* ref_mean, const void* ref_std,
-                              long long n, long long p, int is_uint8, int vec, int blocks,
-                              void* stream) {
-  return stainx_reinhard_transform_timed(x, out, partials, out6, stats6, ref_mean, ref_std, n, p,
-                                         is_uint8, vec, blocks, stream, nullptr, nullptr);
 }
 
 }  // extern "C"

@@ -24,6 +24,9 @@ The plain versions repeat the kernels' arithmetic on batched tensors:
 
 Selections are exact: the element at the nearest rank of the monotone
 integer keys, always an actual element of the data.
+
+The method's constants and the formulas the staged route and
+:mod:`stainx_tpu_torch.parallel` share with the plain versions live here.
 """
 
 from __future__ import annotations
@@ -35,18 +38,15 @@ import torch
 from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming_plain
 from stainx_tpu_torch.ops.eigh3 import eigh3_top2
-from stainx_tpu_torch.ops.macenko import (
-    ALPHA,
-    BETA,
-    IO,
-    optical_density,
-    rescale_and_reconstruct,
-)
 from stainx_tpu_torch.ops.percentile import (
     kth_smallest,
     nearest_rank_index,
     static_nearest_rank_index,
 )
+
+IO = 240.0
+BETA = 0.15
+ALPHA = 1  # integer percent: percentile ranks are computed exactly
 
 SEED_STATE_LEN = 7  # 4 terminal keys + 2 miss streaks + valid flag (JAX layout)
 
@@ -58,6 +58,42 @@ def seed_state_init(device: str | torch.device = "cpu") -> torch.Tensor:
 
 
 # --------------------------------------------------------- plain helpers
+def optical_density(images_float: torch.Tensor) -> torch.Tensor:
+    """OD = −log((I·255 + 1) / Io) for float [0, 1] images."""
+    return -torch.log((images_float * 255.0 + 1.0) / IO)
+
+
+def maxc_scale(tmc: torch.Tensor, maxc: torch.Tensor) -> torch.Tensor:
+    """``tmc / maxC`` with the sign-preserving floor: a uniform tile's maxC
+    of 0 becomes 1e-30 (finite scale), while a negative 99th-percentile
+    concentration divides through unchanged, like the reference."""
+    return tmc / torch.where(maxc.abs() > 1e-30, maxc, 1e-30)
+
+
+def rescale_and_reconstruct(
+    c0: torch.Tensor,
+    c1: torch.Tensor,
+    max_c0: torch.Tensor,
+    max_c1: torch.Tensor,
+    target_max_conc: torch.Tensor,
+    stain_matrix: torch.Tensor,
+    recon_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """maxC guard, concentration rescale and Beer–Lambert reconstruction.
+    ``c0``/``c1`` are (N, P) concentration planes, ``max_c*`` their (N,)
+    99th percentiles; the rescaled concentrations and the stain matrix are
+    combined in ``recon_dtype``. Returns clipped RGB (N, 3, P) float32 in
+    [0, 255]."""
+    tmc = target_max_conc.reshape(-1).to(device=c0.device, dtype=torch.float32)
+    cn0 = (c0 * maxc_scale(tmc[0], max_c0)[:, None]).to(recon_dtype)
+    cn1 = (c1 * maxc_scale(tmc[1], max_c1)[:, None]).to(recon_dtype)
+    stain = stain_matrix.to(device=c0.device, dtype=torch.float32).to(recon_dtype)
+    od_recon = torch.stack(
+        [(cn0 * stain[i, 0] + cn1 * stain[i, 1]).to(torch.float32) for i in range(3)], dim=1
+    )
+    return torch.clamp(IO * torch.exp(-od_recon), 0.0, 255.0)
+
+
 def od_from_planes(x: torch.Tensor, is_uint8: bool) -> torch.Tensor:
     """OD of raw (R, 3, P) values as float32."""
     if is_uint8:

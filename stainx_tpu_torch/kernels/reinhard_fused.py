@@ -14,7 +14,7 @@ each kernel in ``launch.B7b`` and ``launch.B7a``
   kernel sums in float64 in a fixed order, so two runs give the same bits.
 - :func:`reinhard_mean_std`: the same launch, whose finalize also writes
   the LAB mean and std from those sums (plain version
-  :func:`~stainx_tpu_torch.ops.reinhard.moments_to_mean_std`).
+  :func:`moments_to_mean_std`).
 - :func:`reinhard_apply`: RGB→LAB, ``(lab − μ)/(σ + 1e-8)·σ_ref + μ_ref``,
   LAB→RGB and the clip to [0, 1] in one pass; uint8 stores
   ``trunc(clip(x·255, 0, 255))``. The four (3,) statistics are device
@@ -25,13 +25,16 @@ each kernel in ``launch.B7b`` and ``launch.B7a``
 Inside a profiler session, :func:`reinhard_transfer` on a CUDA tensor also
 opens the span ``stainx.stats``, the call-wide statistics pass, as a child
 of ``stainx.kernel.B7``. No Python runs between the C call's launches, so
-the C call records the span's device interval itself: the wrapper takes
-two CUDA timing events from :func:`~stainx_tpu_torch.profiling.caller_timed`
-and calls ``stainx_reinhard_transform_timed``, which records one on the
-stream before the moments launch and one after their finalize, then
-launches the apply. With no session running the wrapper makes the untimed C
-call with the same arguments as ever; the launches, their order and the
-outputs are the same either way.
+the C call records the span's device interval itself: the wrapper passes
+``stainx_reinhard_transform`` two CUDA timing events from
+:func:`~stainx_tpu_torch.profiling.caller_timed`, and the C call records one
+on the stream before the moments launch and one after their finalize, then
+launches the apply. With no session running the wrapper passes two nulls
+and nothing is recorded; the launches, their order and the outputs are the
+same either way.
+
+``LAB_MOMENT_CENTER`` and :func:`moments_to_mean_std` are shared with
+:mod:`stainx_tpu_torch.ops.reinhard` and :mod:`stainx_tpu_torch.parallel`.
 
 The plain versions are built on :mod:`stainx_tpu_torch.ops.color`, the JAX
 package's formulas term by term. The kernels fold constants, fuse
@@ -48,10 +51,29 @@ import torch
 
 from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.ops.color import lab_planes_to_rgb, normalize_to_float, rgb_planes_to_lab
-from stainx_tpu_torch.ops.reinhard import LAB_MOMENT_CENTER, moments_to_mean_std
+
+# Moments accumulate about this shift (the middle of the 8-bit LAB encoding)
+# so that Σx² − (Σx)²/n does not cancel; the centre does not change the
+# mean and std algebraically.
+LAB_MOMENT_CENTER = 128.0
 
 
 # --------------------------------------------------------- plain versions
+def moments_to_mean_std(n, s: torch.Tensor, sq: torch.Tensor):
+    """Bessel-corrected mean and std from centred additive moments: the
+    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``. ``n`` (a number
+    or a float64 tensor) and ``max(n − 1, 1)``, taken in float64, enter as
+    float32 tensors, so each step is one rounded float32 operation and both
+    divisions are true divisions on any device: the plain version of what
+    the moments kernel's finalize writes."""
+    n64 = torch.as_tensor(n, dtype=torch.float64).to(s.device)
+    nf = n64.to(torch.float32)
+    den = torch.clamp(n64 - 1.0, min=1.0).to(torch.float32)
+    mean_c = s / nf
+    var = torch.clamp(sq - nf * mean_c * mean_c, min=0.0) / den
+    return mean_c + LAB_MOMENT_CENTER, torch.sqrt(var)
+
+
 def _planes(images: torch.Tensor):
     n, _, h, w = images.shape
     x = normalize_to_float(images).reshape(n, 3, h * w)
@@ -108,11 +130,9 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_reinhard_moments.restype = i32
         lib.stainx_reinhard_apply.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32, ptr]
         lib.stainx_reinhard_apply.restype = i32
-        lib.stainx_reinhard_transform.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32, ptr]
+        lib.stainx_reinhard_transform.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32,
+                                                              ptr, ptr, ptr]
         lib.stainx_reinhard_transform.restype = i32
-        lib.stainx_reinhard_transform_timed.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32,
-                                                                    ptr, ptr, ptr]
-        lib.stainx_reinhard_transform_timed.restype = i32
         lib._stainx_declared = True
     return lib
 
@@ -242,10 +262,7 @@ def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> to
         call = (images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
                 small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args)
         with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
-            if events is None:
-                code = lib.stainx_reinhard_transform(*call)
-            else:
-                code = lib.stainx_reinhard_transform_timed(*call, *events)
+            code = lib.stainx_reinhard_transform(*call, *(events or (None, None)))
         kernels.check(lib, code, "reinhard_transfer")
         profiling.count("launch.B7b")
         profiling.count("launch.B7a")

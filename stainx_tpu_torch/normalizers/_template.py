@@ -2,18 +2,9 @@
 
 Counterpart of ``stainx_tpu/normalizers/_template.py``. There is no backend
 knob: the device decides the route (CUDA runs the hand-written kernels, the
-CPU runs their plain PyTorch versions). ``fit``, ``transform`` and the
-÷255 are the spans ``stainx.fit``, ``stainx.transform`` and
-``stainx.finalize``, each with its device interval
+CPU runs their plain PyTorch versions). ``fit`` and ``transform`` are the
+spans ``stainx.fit`` and ``stainx.transform``, each with its device interval
 (:mod:`stainx_tpu_torch.profiling`).
-
-Where the ÷255 of ``normalize_to_0_1`` runs: a normalizer whose transform
-kernels write the output already scaled (Macenko on float32 input on CUDA:
-the kernels' store multiplies by ``1/255``, :meth:`_folds_range`) runs no
-division of its own, and the call counts ``finalize.folded``; every other
-call (uint8 input, the staged dtypes, every CPU call, the mesh path of
-``StainNormalizerTransform``) divides eagerly in ``_finalize_range``, the
-span ``stainx.finalize``. Both give the same bits on the card.
 """
 
 from __future__ import annotations
@@ -59,19 +50,7 @@ class NormalizerTemplate(StainNormalizerBase):
         with profiling.annotate("stainx.transform", device=self.device):
             if not self._is_fitted:
                 raise ValueError("Must call fit() before transform()")
-            images = self._as_device_tensor(images)
-            result = self._transform_impl(images)
-        if self._folds_range(images):
-            profiling.count("finalize.folded")
-            return result
-        return self._finalize_range(result)
-
-    def _finalize_range(self, result: torch.Tensor) -> torch.Tensor:
-        """The output value-range contract: ``normalize_to_0_1`` divides by 255."""
-        if getattr(self, "normalize_to_0_1", False):
-            with profiling.annotate("stainx.finalize", device=result.device):
-                result = result / 255.0
-        return result
+            return self._transform_impl(self._as_device_tensor(images))
 
     # ----------------------------------------------------------- state dict
     @property
@@ -125,9 +104,3 @@ class NormalizerTemplate(StainNormalizerBase):
 
     def _transform_impl(self, images: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
-
-    def _folds_range(self, images: torch.Tensor) -> bool:
-        """Whether :meth:`_transform_impl` writes the output of ``images``
-        (on ``self.device``) already in the range :meth:`_finalize_range`
-        gives, so that ``transform`` skips the division."""
-        return False

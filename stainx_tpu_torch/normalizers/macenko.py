@@ -6,8 +6,11 @@ Fitted state: ``_stain_matrix`` (3, 2) H/E columns and ``_target_max_conc``
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
+from stainx_tpu_torch import profiling
 from stainx_tpu_torch.normalizers._template import NormalizerTemplate
 from stainx_tpu_torch.ops import macenko as macenko_ops
 
@@ -50,6 +53,7 @@ class Macenko(NormalizerTemplate):
             raise ValueError(f"precision must be 'stable' or 'fast', got {precision!r}")
         self._precision = precision
         self.normalize_to_0_1 = normalize_to_0_1
+        self._range_folded = False  # this call's ÷255 went into the kernels' store
         super().__init__(device=device)
 
     @property
@@ -80,21 +84,36 @@ class Macenko(NormalizerTemplate):
                 f"{tuple(self._target_max_conc.shape)}"
             )
 
+    def transform(self, images: Any) -> torch.Tensor:
+        """Transform images with the fitted parameters, in the range
+        ``normalize_to_0_1`` sets: a ÷255 in the kernels' store counts
+        ``finalize.folded``, an eager one is the span ``stainx.finalize``
+        (:mod:`stainx_tpu_torch.profiling`)."""
+        result = super().transform(images)
+        if self._range_folded:
+            profiling.count("finalize.folded")
+            return result
+        return self._finalize_range(result)
+
+    def _finalize_range(self, result: torch.Tensor) -> torch.Tensor:
+        """The eager ÷255 of ``normalize_to_0_1``; ``result`` as it is without it."""
+        if self.normalize_to_0_1:
+            with profiling.annotate("stainx.finalize", device=result.device):
+                result = result / 255.0
+        return result
+
     def _transform_impl(self, images: torch.Tensor) -> torch.Tensor:
         self._validate_layout(images, "transform")
         self._validate_fitted_params()
-        scale = macenko_ops.UNIT_SCALE if self._folds_range(images) else 1.0
+        # Fold the ÷255 into the store where a kernel writes float32 output:
+        # uint8 output takes no scale, the staged dtypes run no transform
+        # kernel, and the CPU keeps the eager division's bits.
+        self._range_folded = (bool(self.normalize_to_0_1) and images.dtype == torch.float32
+                              and images.is_cuda)
         return macenko_ops.macenko_transform(
             images, self._stain_matrix, self._target_max_conc, precision=self._precision,
-            scale=scale,
+            scale=macenko_ops.UNIT_SCALE if self._range_folded else 1.0,
         )
-
-    def _folds_range(self, images: torch.Tensor) -> bool:
-        """The ÷255 goes into the kernels' store for float32 input on CUDA:
-        there a kernel writes the output, in the input's dtype. uint8 output
-        takes no scale, the staged dtypes run no transform kernel, and the
-        CPU keeps the eager division's bits."""
-        return bool(self.normalize_to_0_1) and images.dtype == torch.float32 and images.is_cuda
 
     @staticmethod
     def _validate_layout(images: torch.Tensor, stage: str) -> None:

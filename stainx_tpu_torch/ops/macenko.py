@@ -16,17 +16,19 @@ Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
   99th percentiles, the reconstruction in ``recon_dtype`` (bfloat16 under
   ``precision="fast"``) and the cast back to the input dtype. Its steps
   are plain PyTorch, as the JAX package leaves them to XLA; its selections
-  go to B3 (:func:`~stainx_tpu_torch.kernels.selection.kth_smallest_pallas`,
-  one thread-block cluster a row) or, for at most
-  :data:`SELECT_STREAM_MAX_ROWS` rows of at least
-  :data:`SELECT_STREAM_MIN_ELEMS` elements, to B6
-  (:func:`~stainx_tpu_torch.kernels.selection_stream.kth_smallest_streaming`,
-  which finds the rows' extremes and count itself). Both selections are
-  exact, so the route never changes an output.
+  go to B3 (one thread-block cluster a row) or, for few long rows, to B6
+  (which finds the rows' extremes and count itself), as
+  :func:`~stainx_tpu_torch.ops.percentile.select_route` chooses. Both
+  selections are exact, so the route never changes an output.
 
 A CUDA tensor launches the hand-written kernels, a CPU tensor runs their
 plain PyTorch versions. Each staged fit or transform is counted in
 ``route.staged`` (:mod:`stainx_tpu_torch.profiling`).
+
+The method's constants and formulas live in
+:mod:`stainx_tpu_torch.kernels.macenko_fused`, the B3/B6 choice in
+:mod:`stainx_tpu_torch.ops.percentile`; their names are imported here too
+(patch a threshold in its own module).
 
 ``seed_state`` is the (7,) int32 cross-call state of the JAX kernels. The
 CUDA kernels run the images of a batch in parallel and need no probe seeds,
@@ -38,14 +40,26 @@ from __future__ import annotations
 
 import torch
 
-from stainx_tpu_torch import profiling
+from stainx_tpu_torch import kernels, profiling
+from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
+from stainx_tpu_torch.kernels.macenko_fused import (  # noqa: F401 (IO, maxc_scale: names kept here)
+    ALPHA,
+    BETA,
+    IO,
+    maxc_scale,
+    optical_density,
+    rescale_and_reconstruct,
+)
 from stainx_tpu_torch.ops import color
 from stainx_tpu_torch.ops.eigh3 import eigh3_top2
-from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
-
-IO = 240.0
-BETA = 0.15
-ALPHA = 1  # integer percent: percentile ranks are computed exactly
+from stainx_tpu_torch.ops.percentile import (  # noqa: F401 (the B3/B6 threshold: names kept here)
+    SELECT_STREAM_MAX_ROWS,
+    SELECT_STREAM_MIN_ELEMS,
+    _select,
+    nearest_rank_index,
+    select_route,
+    static_nearest_rank_index,
+)
 
 _KERNEL_DTYPES = (torch.uint8, torch.float32)
 
@@ -94,27 +108,6 @@ STREAM_MAX_ROWS_F32 = 256
 # The CPU runs the plain version of either route; it takes the route of an
 # H100, whose blocks opt in to 232 448 bytes (227 KiB) of shared memory.
 CPU_ROUTE_SMEM = 232_448
-# The staged pipeline's selections, from the three-round sweep of B3
-# against B6 in chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule
-# of the ladder above, after both were redesigned (B3: a thread-block
-# cluster a row in shared memory; B6: one C call that finds each row's
-# extremes itself and finishes on a candidate buffer); three runs on the
-# same kernels agreed, and the figures here are the last run's. B6 won no
-# size of up to 262 144 elements (B3 at (512, 224^2) K=1 0.132-0.135 ms
-# called against 0.237-0.241; at (64, 512^2) K=2 0.117-0.119 against
-# 0.187-0.195); at 524 288 and 1 048 576 elements it won some K=2 cells of
-# 8 to 32 rows and (32, 1 048 576) K=1, and lost or tied the rest, so B3
-# keeps them (the route does not tell K apart). From 4 194 304 elements B6
-# won every round for 1 to 32 rows (at (32, 4 194 304) K=2 0.947-0.953 ms
-# against 1.405-1.413; at path (d)'s (1, 12 845 056) K=2 0.138 against
-# 0.481-0.487), and B3 from 64 rows on (1.63-1.67 against 2.08-2.13 at
-# (64, 4 194 304) K=2).
-# So B6 takes rows of at least SELECT_STREAM_MIN_ELEMS elements when there
-# are at most SELECT_STREAM_MAX_ROWS of them: path (d)'s pool fit, and no
-# field of path (c).
-SELECT_STREAM_MIN_ELEMS = 4_194_304
-SELECT_STREAM_MAX_ROWS = 32
-
 # normalize_to_0_1's ÷255 as PyTorch runs ``x / 255.0`` on a float32 CUDA
 # tensor: a product with the float32 reciprocal 1.0f / 255.0f. The
 # transform kernels' store multiplies by it, so a folded ÷255 gives the
@@ -136,21 +129,7 @@ def fit_route(pixels: int, dtype: torch.dtype, smem_limit: int) -> str:
     """``"mega"`` (B2) for a pool of that many pixels of the kernel input
     ``dtype`` that fits one block's ``smem_limit`` bytes of shared memory,
     else ``"stream"`` (B5)."""
-    from stainx_tpu_torch.kernels.macenko_fused import fit_resident_bytes
-
-    return "mega" if fit_resident_bytes(pixels, dtype) <= smem_limit else "stream"
-
-
-def select_route(rows: int, p: int) -> str:
-    """``"stream"`` (B6) or ``"rows"`` (B3) for a selection on ``rows``
-    rows of ``p`` elements in the staged pipeline."""
-    few_long_rows = p >= SELECT_STREAM_MIN_ELEMS and rows <= SELECT_STREAM_MAX_ROWS
-    return "stream" if few_long_rows else "rows"
-
-
-def optical_density(images_float: torch.Tensor) -> torch.Tensor:
-    """OD = −log((I·255 + 1) / Io) for float [0, 1] images."""
-    return -torch.log((images_float * 255.0 + 1.0) / IO)
+    return "mega" if macenko_fused.fit_resident_bytes(pixels, dtype) <= smem_limit else "stream"
 
 
 # The distributed fit accumulates its OD moments about this fixed shift:
@@ -183,37 +162,6 @@ def cov_from_moments(cnt: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> t
         cnt - 1.0, min=1.0
     )[:, None, None]
     return torch.where((cnt > 1.0)[:, None, None], cov, 0.0)
-
-
-def maxc_scale(tmc: torch.Tensor, maxc: torch.Tensor) -> torch.Tensor:
-    """``tmc / maxC`` with the sign-preserving floor: a uniform tile's maxC
-    of 0 becomes 1e-30 (finite scale), while a negative 99th-percentile
-    concentration divides through unchanged, like the reference."""
-    return tmc / torch.where(maxc.abs() > 1e-30, maxc, 1e-30)
-
-
-def rescale_and_reconstruct(
-    c0: torch.Tensor,
-    c1: torch.Tensor,
-    max_c0: torch.Tensor,
-    max_c1: torch.Tensor,
-    target_max_conc: torch.Tensor,
-    stain_matrix: torch.Tensor,
-    recon_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """maxC guard, concentration rescale and Beer–Lambert reconstruction.
-    ``c0``/``c1`` are (N, P) concentration planes, ``max_c*`` their (N,)
-    99th percentiles; the rescaled concentrations and the stain matrix are
-    combined in ``recon_dtype``. Returns clipped RGB (N, 3, P) float32 in
-    [0, 255]."""
-    tmc = target_max_conc.reshape(-1).to(device=c0.device, dtype=torch.float32)
-    cn0 = (c0 * maxc_scale(tmc[0], max_c0)[:, None]).to(recon_dtype)
-    cn1 = (c1 * maxc_scale(tmc[1], max_c1)[:, None]).to(recon_dtype)
-    stain = stain_matrix.to(device=c0.device, dtype=torch.float32).to(recon_dtype)
-    od_recon = torch.stack(
-        [(cn0 * stain[i, 0] + cn1 * stain[i, 1]).to(torch.float32) for i in range(3)], dim=1
-    )
-    return torch.clamp(IO * torch.exp(-od_recon), 0.0, 255.0)
 
 
 # ------------------------------------------------------------ staged route
@@ -266,18 +214,6 @@ def _concentrations_2x2(he: torch.Tensor, od_c):
     c0 = (c * inv_det)[:, None] * rhs0 - (b * inv_det)[:, None] * rhs1
     c1 = (a * inv_det)[:, None] * rhs1 - (b * inv_det)[:, None] * rhs0
     return c0, c1
-
-
-def _select(xs: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
-    """(R, K) values at ``ranks`` among the elements below +inf of each row
-    of ``xs`` (R, P), through B3 or B6 by :func:`select_route`. B6 finds
-    each row's extremes and count in its own first read."""
-    from stainx_tpu_torch.kernels.selection import kth_smallest_pallas
-    from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming
-
-    if select_route(*xs.shape) == "stream":
-        return kth_smallest_streaming(xs, ranks)
-    return kth_smallest_pallas(xs, ranks)
 
 
 def _stain_separate(od_c, mask: torch.Tensor, cnt: torch.Tensor):
@@ -356,8 +292,6 @@ def macenko_transform(
     ``precision="fast"`` reconstructs in bfloat16 on the staged route (every
     dtype but uint8 and float32). With ``seed_state`` the return is
     ``(out, seed_state)``."""
-    from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
-
     if images.dtype in _KERNEL_DTYPES:
         x = images.contiguous()
         if transform_route(x.shape[0], x.shape[2] * x.shape[3], x.dtype) == "stream":
@@ -378,9 +312,6 @@ def macenko_fit(images: torch.Tensor, seed_state: torch.Tensor | None = None):
     fallback, covariance and angle percentiles over the filtered pixels,
     concentration 99th percentiles over all pooled pixels. With
     ``seed_state`` the return is ``(he, maxc, seed_state)``."""
-    from stainx_tpu_torch import kernels
-    from stainx_tpu_torch.kernels import macenko_fused, macenko_stream
-
     if images.dtype in _KERNEL_DTYPES:
         x = images.contiguous()
         n, _, h, w = x.shape

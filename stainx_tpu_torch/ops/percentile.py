@@ -6,12 +6,16 @@ round-half-to-even, clamped at 0, in integer arithmetic that cannot overflow
 int32. Selection itself is the plain version of the CUDA kernels' radix
 select: sort the monotone integer keys of each row and read the key at the
 rank. The result is always an actual element of the row.
+
+On a CUDA tensor the selections run B3 or B6 as :func:`select_route`
+chooses, for these wrappers and the staged Macenko route alike.
 """
 
 from __future__ import annotations
 
 import torch
 
+from stainx_tpu_torch.kernels import selection, selection_stream
 from stainx_tpu_torch.kernels.selection import monotone_key, unkey
 
 
@@ -65,6 +69,45 @@ def kth_smallest(
     return out.squeeze(-1) if flat else out
 
 
+# B3 or B6 for a selection, from the three-round sweep of B3 against B6 in
+# chip_smoke.py phase 5 (H100 80GB HBM3, 700 W), by the rule of the ladder
+# in ops/macenko.py, after both were redesigned (B3: a thread-block cluster
+# a row in shared memory; B6: one C call that finds each row's extremes
+# itself and finishes on a candidate buffer); three runs on the same
+# kernels agreed, and the figures here are the last run's. B6 won no
+# size of up to 262 144 elements (B3 at (512, 224^2) K=1 0.132-0.135 ms
+# called against 0.237-0.241; at (64, 512^2) K=2 0.117-0.119 against
+# 0.187-0.195); at 524 288 and 1 048 576 elements it won some K=2 cells of
+# 8 to 32 rows and (32, 1 048 576) K=1, and lost or tied the rest, so B3
+# keeps them (the route does not tell K apart). From 4 194 304 elements B6
+# won every round for 1 to 32 rows (at (32, 4 194 304) K=2 0.947-0.953 ms
+# against 1.405-1.413; at path (d)'s (1, 12 845 056) K=2 0.138 against
+# 0.481-0.487), and B3 from 64 rows on (1.63-1.67 against 2.08-2.13 at
+# (64, 4 194 304) K=2).
+# So B6 takes rows of at least SELECT_STREAM_MIN_ELEMS elements when there
+# are at most SELECT_STREAM_MAX_ROWS of them: path (d)'s pool fit, and no
+# field of path (c).
+SELECT_STREAM_MIN_ELEMS = 4_194_304
+SELECT_STREAM_MAX_ROWS = 32
+
+
+def select_route(rows: int, p: int) -> str:
+    """``"stream"`` (B6) or ``"rows"`` (B3) for a selection on ``rows``
+    rows of ``p`` elements: the staged Macenko route's selections and, on a
+    CUDA tensor, the percentile wrappers'."""
+    few_long_rows = p >= SELECT_STREAM_MIN_ELEMS and rows <= SELECT_STREAM_MAX_ROWS
+    return "stream" if few_long_rows else "rows"
+
+
+def _select(xs: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """(R, K) values at ``ranks`` among the elements below +inf of each row
+    of ``xs`` (R, P), through B3 or B6 by :func:`select_route`. B6 finds
+    each row's extremes and count in its own first read."""
+    if select_route(*xs.shape) == "stream":
+        return selection_stream.kth_smallest_streaming(xs, ranks)
+    return selection.kth_smallest_pallas(xs, ranks)
+
+
 def _select_rows(x: torch.Tensor, rank: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """:func:`kth_smallest` of ``x`` (..., P) at one rank a row (...,): the
     plain version on a CPU tensor, :func:`_select_on_card` on a CUDA one."""
@@ -77,14 +120,11 @@ def _select_on_card(x: torch.Tensor, rank: torch.Tensor, mask: torch.Tensor | No
     """B3 or B6 on the rows of ``x`` with every invalid entry (masked, NaN
     or ±inf) made a +inf sentinel, which those kernels leave out of the
     count; on a CPU tensor their plain versions run."""
-    # ops.macenko imports this module: import it at the call.
-    from stainx_tpu_torch.ops import macenko
-
     xf = x.to(torch.float32)
     valid = torch.isfinite(xf) if mask is None else mask.to(x.device) & torch.isfinite(xf)
     rows = torch.where(valid, xf, torch.inf).reshape(-1, x.shape[-1]).contiguous()
     ranks = rank.to(device=x.device, dtype=torch.int32).reshape(-1, 1)
-    return macenko._select(rows, ranks).reshape(x.shape[:-1])
+    return _select(rows, ranks).reshape(x.shape[:-1])
 
 
 def masked_nearest_rank_percentile(

@@ -22,12 +22,9 @@ from __future__ import annotations
 
 import torch
 
+from stainx_tpu_torch.kernels import reinhard_fused
+from stainx_tpu_torch.kernels.reinhard_fused import LAB_MOMENT_CENTER, moments_to_mean_std
 from stainx_tpu_torch.ops import color
-
-# Moments accumulate about this shift (the middle of the 8-bit LAB encoding)
-# so that Σx² − (Σx)²/n does not cancel; the centre does not change the
-# mean and std algebraically.
-LAB_MOMENT_CENTER = 128.0
 
 _KERNEL_DTYPES = (torch.uint8, torch.float32)
 
@@ -49,17 +46,15 @@ def lab_moments(
     the weight stays factored as an (N, 1, H, 1) broadcast into float64
     sums; weighted on CUDA, B7b runs on the rows the weights keep, picked
     by a boolean index (which reads the weights back to the host)."""
-    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_moments
-
     if weights is None and valid_rows is None:
-        s, sq = reinhard_moments(_kernel_input(images))
+        s, sq = reinhard_fused.reinhard_moments(_kernel_input(images))
         return float(images.shape[0] * images.shape[2] * images.shape[3]), s, sq
     rw = torch.ones(images.shape[0]) if weights is None else (weights > 0).to(torch.float32)
     rv = torch.ones(images.shape[2]) if valid_rows is None else valid_rows.to(torch.float32)
     rw, rv = rw.to(images.device), rv.to(images.device)
     if images.is_cuda:
         kept = images[rw > 0][:, :, rv > 0]
-        s, sq = reinhard_moments(_kernel_input(kept))
+        s, sq = reinhard_fused.reinhard_moments(_kernel_input(kept))
         return float(kept.shape[0] * kept.shape[2] * kept.shape[3]), s, sq
     lab = color.rgb_to_lab(images, channel_axis=1) - LAB_MOMENT_CENTER
     wpx = (rw[:, None, None, None] * rv[None, None, :, None]).to(torch.float64)
@@ -67,21 +62,6 @@ def lab_moments(
     s = (lab.to(torch.float64) * wpx).sum(dim=(0, 2, 3))
     sq = ((lab * lab).to(torch.float64) * wpx).sum(dim=(0, 2, 3))
     return n, s.to(torch.float32), sq.to(torch.float32)
-
-
-def moments_to_mean_std(n, s: torch.Tensor, sq: torch.Tensor):
-    """Bessel-corrected mean and std from centred additive moments: the
-    variance is ``max(sq − n·mean², 0) / max(n − 1, 1)``. ``n`` (a number
-    or a float64 tensor) and ``max(n − 1, 1)``, taken in float64, enter as
-    float32 tensors, so each step is one rounded float32 operation and both
-    divisions are true divisions on any device: the plain version of what
-    the moments kernel's finalize writes."""
-    n64 = torch.as_tensor(n, dtype=torch.float64).to(s.device)
-    nf = n64.to(torch.float32)
-    den = torch.clamp(n64 - 1.0, min=1.0).to(torch.float32)
-    mean_c = s / nf
-    var = torch.clamp(sq - nf * mean_c * mean_c, min=0.0) / den
-    return mean_c + LAB_MOMENT_CENTER, torch.sqrt(var)
 
 
 def _kernel_input(images: torch.Tensor) -> torch.Tensor:
@@ -92,9 +72,7 @@ def _kernel_input(images: torch.Tensor) -> torch.Tensor:
 
 def reinhard_fit(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Reference LAB mean and std over the whole (N, 3, H, W) batch, each (3,)."""
-    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_mean_std
-
-    return reinhard_mean_std(_kernel_input(images))
+    return reinhard_fused.reinhard_mean_std(_kernel_input(images))
 
 
 def reinhard_transform(
@@ -103,9 +81,7 @@ def reinhard_transform(
     """Transform an (N, 3, H, W) batch to the reference LAB statistics. The
     output has the input's dtype: uint8 in [0, 255] (truncated), floats in
     [0, 1]."""
-    from stainx_tpu_torch.kernels.reinhard_fused import reinhard_transfer
-
-    out = reinhard_transfer(_kernel_input(images), reference_mean, reference_std)
+    out = reinhard_fused.reinhard_transfer(_kernel_input(images), reference_mean, reference_std)
     if images.dtype not in _KERNEL_DTYPES:
         out = color.preserve_dtype(out, images.dtype)
     return out
@@ -124,6 +100,8 @@ def reinhard_fit_sharded(
     :func:`stainx_tpu_torch.parallel.distributed.rank_sum` adds them: the
     same mean and std on every rank. ``weights`` and ``valid_rows`` are
     :func:`lab_moments`'s."""
+    # parallel.distributed imports this module, and the name mirrors the
+    # JAX package's ops API: import it at the call.
     from stainx_tpu_torch.parallel.distributed import rank_sum
 
     n, s, sq = lab_moments(images, weights, valid_rows)

@@ -49,6 +49,12 @@ _CHANNELS_FIRST = frozenset({1, -3})
 _CHANNELS_LAST = frozenset({-1, 3})
 
 
+def _check_ref_index(idx: int, n: int) -> None:
+    """A batch-mode fit's ``batch_ref_index`` must pick one of ``n`` images."""
+    if idx < 0 or idx >= n:
+        raise IndexError(f"batch_ref_index={idx} out of range for batch size {n}")
+
+
 class StainNormalizerTransform(nn.Module):
     """Apply stain normalization inside a training input pipeline."""
 
@@ -248,10 +254,7 @@ class StainNormalizerTransform(nn.Module):
             if idx is None:
                 self.normalizer.fit(batch)
             else:
-                if idx < 0 or idx >= batch.shape[0]:
-                    raise IndexError(
-                        f"batch_ref_index={idx} out of range for batch size {batch.shape[0]}"
-                    )
+                _check_ref_index(idx, batch.shape[0])
                 self.normalizer.fit(batch[idx : idx + 1])
 
         result = self.normalizer.transform(batch)
@@ -328,22 +331,19 @@ class StainNormalizerTransform(nn.Module):
             if idx is None:
                 params = parallel.fit_on_mesh(method, img, self.mesh, pixel_axis=self.pixel_axis)
             else:
-                if idx < 0 or idx >= img.shape[0]:
-                    raise IndexError(
-                        f"batch_ref_index={idx} out of range for batch size {img.shape[0]}"
-                    )
+                _check_ref_index(idx, img.shape[0])
                 params = self._fit_mesh_reference(method, img, idx)
             self._store_mesh_params(method, params)
         else:
             params = self._mesh_params(method)
 
-        kwargs = {}
         if method == "macenko":
             # Numerics must not depend on whether a mesh is attached.
-            kwargs["precision"] = self.normalizer.precision
-        elif method == "histogram_matching":
+            result = parallel.transform_on_mesh(method, img, params, self.mesh,
+                                                pixel_axis=self.pixel_axis,
+                                                precision=self.normalizer.precision)
+            return self.normalizer._finalize_range(result)
+        if method == "histogram_matching":
             params = self.normalizer._coerce_reference(params, img)
-        result = parallel.transform_on_mesh(
-            method, img, params, self.mesh, pixel_axis=self.pixel_axis, **kwargs
-        )
-        return self.normalizer._finalize_range(result)
+        return parallel.transform_on_mesh(method, img, params, self.mesh,
+                                          pixel_axis=self.pixel_axis)

@@ -164,10 +164,8 @@ def test_card_route_on_the_plain_versions(monkeypatch, route):
     """What the wrappers run on a CUDA tensor (invalid entries made +inf
     sentinels, then B3 or B6 by the staged route's threshold), here on
     those kernels' plain versions: the same bits as the CPU route."""
-    from stainx_tpu_torch.ops import macenko as mk
-
-    monkeypatch.setattr(mk, "SELECT_STREAM_MIN_ELEMS", 1 if route == "stream" else 1 << 40)
-    assert mk.select_route(5, 300) == route
+    monkeypatch.setattr(pct, "SELECT_STREAM_MIN_ELEMS", 1 if route == "stream" else 1 << 40)
+    assert pct.select_route(5, 300) == route
     for _, x, m, cnt, q in _masked_fields():
         xt, mt = torch.as_tensor(x), None if m is None else torch.as_tensor(m)
         rank = pct.nearest_rank_index(q, torch.as_tensor(cnt))

@@ -31,6 +31,7 @@ from stainx_tpu_torch.convert import state_from_jax
 from stainx_tpu_torch.kernels import selection as sel
 from stainx_tpu_torch.kernels import selection_stream as ss
 from stainx_tpu_torch.ops import macenko as mk
+from stainx_tpu_torch.ops import percentile as pct
 
 from tests.oracles import numpy_reference as oracle
 
@@ -273,7 +274,7 @@ class TestRoutes:
                 return fn(x, ranks, *rest, **kw)
             return wrapped
 
-        monkeypatch.setattr(mk, "SELECT_STREAM_MIN_ELEMS", threshold)
+        monkeypatch.setattr(pct, "SELECT_STREAM_MIN_ELEMS", threshold)
         monkeypatch.setattr(sel, "kth_smallest_pallas", spy("rows", sel.kth_smallest_pallas))
         monkeypatch.setattr(ss, "kth_smallest_streaming", spy("stream", ss.kth_smallest_streaming))
         got = Macenko(device="cpu").fit(_port(ref64, "float16")).transform(

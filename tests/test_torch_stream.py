@@ -28,6 +28,7 @@ from stainx_tpu_torch.kernels import macenko_stream as ms
 from stainx_tpu_torch.kernels import selection as sel
 from stainx_tpu_torch.kernels import selection_stream as ss
 from stainx_tpu_torch.ops import macenko as mk
+from stainx_tpu_torch.ops import percentile as pct
 
 from tests.oracles import numpy_reference as oracle
 
@@ -274,7 +275,7 @@ class TestRouteLadder:
         monkeypatch.setattr(mk, "STREAM_MIN_ELEMS_F32", 16 * 16)
         monkeypatch.setattr(mk, "CPU_ROUTE_SMEM", 0)
         monkeypatch.setattr(ms, "macenko_fit_stream", lambda x: calls.append("B5"))
-        monkeypatch.setattr(mk, "SELECT_STREAM_MIN_ELEMS", 16 * 16 * 2)
+        monkeypatch.setattr(pct, "SELECT_STREAM_MIN_ELEMS", 16 * 16 * 2)
         b3, b6 = sel.kth_smallest_pallas, ss.kth_smallest_streaming
         monkeypatch.setattr(sel, "kth_smallest_pallas",
                             lambda x, r: calls.append(("B3", x.shape)) or b3(x, r))

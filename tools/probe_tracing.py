@@ -19,12 +19,13 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   ``normalize_to_0_1`` done in the kernels' store) and the device spans the
   session lacks (``stainx.finalize`` wherever the division was folded).
 - ``split``: no profiler. The host's time a call in each layer of the two
-  cells' calls (the API call, ``fit``, ``transform``, ``_finalize_range``,
-  the B4 and B5 wrappers), each timed by ``perf_counter_ns`` around the
-  layer's function, in a closed loop over the cells' batches with their
-  calls in flight (16 and 4); medians in ms. A layer's time holds its
-  children's: ``transform`` holds the B4 wrapper and the ÷255 where it
-  divides (``_finalize_range``; none where the kernels' store does it).
+  cells' calls (the API call, ``fit``, ``Macenko.transform``,
+  ``Macenko._finalize_range``, the B4 and B5 wrappers), each timed by
+  ``perf_counter_ns`` around the layer's function, in a closed loop over
+  the cells' batches with their calls in flight (16 and 4); medians in ms.
+  A layer's time holds its children's: ``transform`` holds the B4 wrapper
+  and the ÷255 where it divides (``_finalize_range``; none where the
+  kernels' store does it).
 - ``cost``: the host's cost, in µs, of a span (with and without a device
   interval), a count, a ``record_function``, a CUDA event pair and
   ``torch.cuda.current_stream``, with no profiler running and inside a
@@ -133,8 +134,8 @@ def _medians_ms(times: dict) -> dict:
 
 
 def split(seconds: float) -> list[dict]:
+    from stainx_tpu_torch import Macenko
     from stainx_tpu_torch.kernels import macenko_stream as ms
-    from stainx_tpu_torch.normalizers._template import NormalizerTemplate as T
 
     times: dict[str, list] = {}
 
@@ -150,8 +151,9 @@ def split(seconds: float) -> list[dict]:
 
     ms.macenko_transform_stream = timed("B4 wrapper", ms.macenko_transform_stream)
     ms.macenko_fit_stream = timed("B5 wrapper", ms.macenko_fit_stream)
-    T.fit, T.transform = timed("fit", T.fit), timed("transform", T.transform)
-    T._finalize_range = timed("finalize_range", T._finalize_range)
+    Macenko.fit = timed("fit", Macenko.fit)
+    Macenko.transform = timed("transform", Macenko.transform)
+    Macenko._finalize_range = timed("finalize_range", Macenko._finalize_range)
     torch.set_num_threads(1)
     out = []
     for cell, call, pool, in_flight in _cells():
