@@ -76,13 +76,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1×3×256²), ragged rows past the resident part on clusters of 2 and 4,
    forced cluster shapes with few pixels resident (a pooled fit, a white
    batch that takes the fallback) and the tile store's uint8 rows, with
-   each call's ``keyfield.*`` count and the batch-mode forward's launches;
+   each call's ``keyfield.*`` count and the batch-mode forward's launches
+   (one B4, its fit fused in: ``fit.fused``);
    ``normalize_to_0_1``'s ÷255 folded into the float32 transform kernels'
    store (the card tests of ``tests/test_torch_fold_range.py``, in a pytest
    process: every float32 route of B1 and B4 against its unscaled output
    divided by 255 bit for bit, the batch-mode training forward against the
-   two-step form with one ``finalize.folded`` a forward, the uint8 kernels'
-   SASS instruction counts); the exact row select (B3) bit for bit on the staged fit's
+   two-step form on its own fit with one ``finalize.folded`` a forward, the
+   uint8 kernels' SASS instruction counts); batch mode's fit fused into B4's
+   cluster launch (the card tests of ``tests/test_torch_fused_fit.py``: row
+   statistics bit for bit B4's, the fit within 2e-5 of B5's, outputs within
+   a grey level of the two launches and bit for bit B4's on the fused fit,
+   reference tiles with 0 and 2 beta-masked pixels, launch counts, a stale
+   fused state failing the training cell's check, the transform-only
+   kernels' SASS counts); the exact row select (B3) bit for bit on the staged fit's
    (1, 512²) K=2 and (2, 512²) K=1, (64, 512²) K=2, (128, 512²) K=1,
    (256, 224²) K=2, (512, 224²) K=1, ragged (3, 1 000 003) and (5, 50 001)
    fields with sentinels, ties, ranks past the count and an empty row, a
@@ -497,8 +504,8 @@ def od_once_checks(dev, seed: int, build) -> None:
             require(keyfield > 0, f"{label}: no key field")
         if label.startswith("40x") or label.startswith("20x"):
             require(csize > 1, f"{label}: clusters of {csize}")
-    # The batch-mode forward at the training shape: one B5 fit on the first
-    # tile, all resident, and one B4 transform with its key field.
+    # The batch-mode forward at the training shape: one B4 transform with its
+    # key field, the fit of the first tile fused into its launch.
     forward = StainNormalizerTransform("macenko", mode="batch")
     forward(train)
     torch.cuda.synchronize()
@@ -506,23 +513,36 @@ def od_once_checks(dev, seed: int, build) -> None:
     forward(train)
     torch.cuda.synchronize()
     counted = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
-               if v != before.get(k, 0) and k.startswith(("launch.", "keyfield."))}
+               if v != before.get(k, 0) and k.startswith(("launch.", "keyfield.", "fit."))}
     print(f"batch-mode forward 128x3x256^2 f32: {counted}")
-    require(counted == {"launch.B5.cluster": 1, "launch.B4.cluster": 1, "keyfield.B4": 1},
+    require(counted == {"launch.B4.cluster": 1, "keyfield.B4": 1, "fit.fused": 1},
             f"the batch-mode forward counted {counted}")
 
 
-def fold_checks() -> None:
-    """The card tests of ``tests/test_torch_fold_range.py`` (the ÷255 of
-    ``normalize_to_0_1`` in the float32 transform kernels' store), run by
+def card_tests(label: str, test_file: str) -> None:
+    """The card tests (marker ``cuda``) of ``tests/<test_file>``, run by
     pytest in a process of its own on the libraries this run built."""
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-rs",
-         "-m", "cuda", os.path.join("tests", "test_torch_fold_range.py")],
+         "-m", "cuda", os.path.join("tests", test_file)],
         capture_output=True, text=True, cwd=ROOT)
     lines = proc.stdout.strip().splitlines()
-    print(f"folded ÷255: {lines[-1] if lines else proc.stderr.strip()[-300:]}")
-    require(proc.returncode == 0, f"the fold card tests failed:\n{proc.stdout[-4000:]}")
+    print(f"{label}: {lines[-1] if lines else proc.stderr.strip()[-300:]}")
+    require(proc.returncode == 0, f"the {label} card tests failed:\n{proc.stdout[-4000:]}")
+
+
+def fold_checks() -> None:
+    """``tests/test_torch_fold_range.py`` on the card: the ÷255 of
+    ``normalize_to_0_1`` in the float32 transform kernels' store."""
+    card_tests("folded ÷255", "test_torch_fold_range.py")
+
+
+def fused_fit_checks() -> None:
+    """``tests/test_torch_fused_fit.py`` on the card: batch mode's fit fused
+    into B4's cluster launch against B4's row statistics, B5's fit and the
+    two-launch route, its launch counts, and the training cell's check on a
+    stale fused state."""
+    card_tests("fused fit", "test_torch_fused_fit.py")
 
 
 def one_block_selections(x, he, mc, fit: bool):
@@ -2589,6 +2609,7 @@ def main() -> int:
     od_once_checks(dev, args.seed, per_pass)
     torch.cuda.empty_cache()
     fold_checks()
+    fused_fit_checks()
 
     # B3, the exact row select, bit for bit against its plain version.
     def check_b3(label, x, ranks, cluster=None):

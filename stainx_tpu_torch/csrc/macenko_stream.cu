@@ -89,6 +89,23 @@
 //    histogram (a per-row ticket): no separate init, scalar or pick launch
 //    and no host sync.
 //
+// 3. The batch-mode fit fused into the cluster route's transform (one
+//    cooperative launch of cluster_kernel<T, true>): batch mode fits image
+//    ref_row and transforms the batch on that fit, and every row's cluster
+//    already computes the row's own statistics, ref_row's among them, with
+//    the fit's arithmetic. So the rank-0 block of row ref_row also writes
+//    them to fit_prm, a RowParams of its own (B5's numbers for that image,
+//    the moments summed in B4's block order); a grid barrier follows, and
+//    every row reconstructs on fit_prm's HE and maxC. A reference row whose
+//    beta-masked pixels number under 3 takes the transform's fallback for
+//    its own statistics, so its cluster first runs the fit's path (no
+//    fallback) for fit_prm. The barrier needs every row's cluster resident
+//    at once: the launch is cooperative, which the card refuses rather than
+//    run a grid it cannot hold, and the wrapper takes this route only where
+//    the card holds all the clusters (kernels/macenko_stream.py
+//    fused_shape). This saves B5's separate launch, which ran one cluster on
+//    16 of 132 SMs while the rest of the card waited.
+//
 // Both routes write a row's statistics into a 32-float RowParams: v_mid and
 // v_max, the fallback flag, HE, the normal rows, the selected angles and
 // maxC. stainx_stream_fields writes a row's angle and concentration keys
@@ -980,13 +997,18 @@ __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all
 // the cluster takes pixels [r*S, (r+1)*S) of the row, the first R of them
 // resident. keys: for float32 rows with R < S, 2 * (S - R) uint32 a block
 // (block b's from keys + b * 2 * (S - R)), else null. out_scale multiplies
-// each float32 output value (store_rgb).
-template <typename T>
+// each float32 output value (store_rgb). Fused (a transform, one image a
+// row, launched cooperatively): row ref_row's fit, without the fallback,
+// also goes to fit_prm, and every row reconstructs on it in place of stain
+// and tmc (which are then null). Without Fused, ref_row and fit_prm are
+// not read.
+template <typename T, bool Fused>
 __global__ void __launch_bounds__(kCThreads, 1)
 cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr, int64_t S,
                int64_t R, int vec, int fallback, long long idx99, const float* __restrict__ stain,
                const float* __restrict__ tmc, RowParams* __restrict__ prm,
-               uint32_t* __restrict__ keys, float out_scale) {
+               uint32_t* __restrict__ keys, float out_scale, int64_t ref_row,
+               RowParams* fit_prm) {
   extern __shared__ __align__(16) unsigned char smem[];
   ClusterShared& sh = *reinterpret_cast<ClusterShared*>(smem);
   T* planes = reinterpret_cast<T*>(smem + kClusterFixed);
@@ -1008,6 +1030,32 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
 
   cluster_moments<T>(sl, false, 0, sh, cluster);
   const bool use_all = fallback && sh.sums[0] < 3.0;  // the same in every block
+  if constexpr (Fused) {
+    if (use_all && row == ref_row) {  // the same in every block of the cluster
+      // The fit takes no fallback: its statistics from the beta-masked sums.
+      float v[6];
+      if (threadIdx.x == 0) row_scalars(sh.sums, false, sh.row, sh.st);
+      __syncthreads();
+      for (int k = 0; k < 6; ++k) v[k] = sh.row.evs[k];
+      cluster_select2<T, kAngle>(sl, v, false, sh, cluster);
+      if (threadIdx.x == 0) {
+        row_stains(sh.st, sh.row);
+        sel_reset(sh.st, idx99, idx99);
+      }
+      __syncthreads();
+      for (int k = 0; k < 3; ++k) {
+        v[k] = sh.row.m0[k];
+        v[3 + k] = sh.row.m1[k];
+      }
+      cluster_select2<T, kConc>(sl, v, false, sh, cluster);
+      if (threadIdx.x == 0) {
+        sh.row.maxc[0] = sel_value(sh.st, 0);
+        sh.row.maxc[1] = sel_value(sh.st, 1);
+        if (rank == 0) *fit_prm = sh.row;
+      }
+      __syncthreads();
+    }
+  }
   if (use_all) cluster_moments<T>(sl, true, 1, sh, cluster);
   if (threadIdx.x == 0) row_scalars(sh.sums, use_all, sh.row, sh.st);
   __syncthreads();
@@ -1029,14 +1077,28 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
     sh.row.maxc[0] = sel_value(sh.st, 0);
     sh.row.maxc[1] = sel_value(sh.st, 1);
     if (rank == 0) prm[row] = sh.row;
+    if constexpr (Fused) {
+      if (rank == 0 && row == ref_row && !use_all) *fit_prm = sh.row;
+    }
   }
-  if (out == nullptr) return;
+  if constexpr (!Fused) {
+    if (out == nullptr) return;
+  }
 
   __syncthreads();
-  float st[6];
-  for (int k = 0; k < 6; ++k) st[k] = stain[k];
-  const float sc0 = maxc_scale(tmc[0], sh.row.maxc[0]);
-  const float sc1 = maxc_scale(tmc[1], sh.row.maxc[1]);
+  float st[6], tm[2];
+  if constexpr (Fused) {
+    cg::this_grid().sync();  // fit_prm is written
+    // Written in this launch by another block: read through L2, not the
+    // read-only path.
+    for (int k = 0; k < 6; ++k) st[k] = __ldcg(fit_prm->he + k);
+    for (int k = 0; k < 2; ++k) tm[k] = __ldcg(fit_prm->maxc + k);
+  } else {
+    for (int k = 0; k < 6; ++k) st[k] = stain[k];
+    for (int k = 0; k < 2; ++k) tm[k] = tmc[k];
+  }
+  const float sc0 = maxc_scale(tm[0], sh.row.maxc[0]);
+  const float sc1 = maxc_scale(tm[1], sh.row.maxc[1]);
   T* dst = out + row * 3 * p;  // one image a row
   auto put = [&](const bool (&ok)[4], const float (&rgb)[3][4], int64_t q) {
     if (vec) {  // a group is all in or all out
@@ -1081,16 +1143,17 @@ cluster_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t p, int ipr,
 
 template <typename T>
 using ClusterKernel = void (*)(const T*, T*, int64_t, int, int64_t, int64_t, int, int, long long,
-                               const float*, const float*, RowParams*, uint32_t*, float);
+                               const float*, const float*, RowParams*, uint32_t*, float, int64_t,
+                               RowParams*);
 
 // Sets the cluster kernel's shared memory for R resident pixels a block and
 // allows clusters of 16 (past the portable 8), and fills cfg for `rows`
-// clusters of csize blocks.
-template <typename T>
+// clusters of csize blocks; Fused: a cooperative launch.
+template <typename T, bool Fused>
 cudaError_t cluster_config(long long rows, int csize, long long R, cudaStream_t s,
-                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attrs)[2]) {
   const size_t smem = kClusterFixed + 3 * static_cast<size_t>(R) * sizeof(T);
-  const ClusterKernel<T> kernel = cluster_kernel<T>;
+  const ClusterKernel<T> kernel = cluster_kernel<T, Fused>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e == cudaSuccess) {
@@ -1101,38 +1164,42 @@ cudaError_t cluster_config(long long rows, int csize, long long R, cudaStream_t 
   cfg.blockDim = dim3(kCThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(csize);
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = static_cast<unsigned>(csize);
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = Fused ? 2 : 1;
   return e;
 }
 
-template <typename T>
+template <typename T, bool Fused>
 cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p, int ipr,
                            int csize, long long S, long long R, int vec, int fallback,
                            long long idx99, const float* stain, const float* tmc, float out_scale,
-                           RowParams* prm, uint32_t* keys, cudaStream_t s) {
+                           RowParams* prm, uint32_t* keys, long long ref_row, RowParams* fit_prm,
+                           cudaStream_t s) {
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  const cudaError_t e = cluster_config<T>(rows, csize, R, s, cfg, attr);
+  cudaLaunchAttribute attrs[2];
+  const cudaError_t e = cluster_config<T, Fused>(rows, csize, R, s, cfg, attrs);
   if (e != cudaSuccess) return e;
-  return cudaLaunchKernelEx(&cfg, ClusterKernel<T>(cluster_kernel<T>), static_cast<const T*>(x),
-                            static_cast<T*>(out), static_cast<int64_t>(p), ipr,
-                            static_cast<int64_t>(S), static_cast<int64_t>(R), vec, fallback, idx99,
-                            stain, tmc, prm, keys, out_scale);
+  return cudaLaunchKernelEx(&cfg, ClusterKernel<T>(cluster_kernel<T, Fused>),
+                            static_cast<const T*>(x), static_cast<T*>(out),
+                            static_cast<int64_t>(p), ipr, static_cast<int64_t>(S),
+                            static_cast<int64_t>(R), vec, fallback, idx99, stain, tmc, prm, keys,
+                            out_scale, static_cast<int64_t>(ref_row), fit_prm);
 }
 
 template <typename T>
 cudaError_t cluster_occupancy(int csize, long long R, int* clusters) {
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  const cudaError_t e = cluster_config<T>(1, csize, R, nullptr, cfg, attr);
+  cudaLaunchAttribute attrs[2];
+  const cudaError_t e = cluster_config<T, false>(1, csize, R, nullptr, cfg, attrs);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveClusters(
-      clusters, reinterpret_cast<const void*>(ClusterKernel<T>(cluster_kernel<T>)), &cfg);
+      clusters, reinterpret_cast<const void*>(ClusterKernel<T>(cluster_kernel<T, false>)), &cfg);
 }
 
 // ------------------------------------------------------- streamed launches
@@ -1252,10 +1319,40 @@ int stainx_cluster_run(const void* x, void* out, long long n, long long p, int i
   auto* kf = static_cast<uint32_t*>(keys);
   const long long rows = n / ipr;
   const cudaError_t e =
-      is_uint8 ? launch_cluster<uint8_t>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99,
-                                         st, tm, out_scale, rp, nullptr, s)
-               : launch_cluster<float>(x, out, rows, p, ipr, csize, S, R, vec, fallback, idx99, st,
-                                       tm, out_scale, rp, kf, s);
+      is_uint8 ? launch_cluster<uint8_t, false>(x, out, rows, p, ipr, csize, S, R, vec, fallback,
+                                                idx99, st, tm, out_scale, rp, nullptr, 0, nullptr,
+                                                s)
+               : launch_cluster<float, false>(x, out, rows, p, ipr, csize, S, R, vec, fallback,
+                                              idx99, st, tm, out_scale, rp, kf, 0, nullptr, s);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster route's transform (one image a row, the <3-pixel fallback on)
+// with batch mode's fit of image ref_row fused in: fit_prm (one 32-float
+// RowParams) gets that image's fit, as stainx_cluster_run gives it with
+// out null and fallback 0 on that image alone, up to the order of its
+// float64 sums, and every image is reconstructed on its HE and maxC. One
+// cooperative cluster launch: the card must hold every row's cluster at
+// once (else cudaErrorCooperativeLaunchTooLarge). The other arguments as
+// stainx_cluster_run's.
+int stainx_cluster_fit_transform(const void* x, void* out, long long n, long long p, int is_uint8,
+                                 int vec, int csize, long long S, long long R, long long idx99,
+                                 long long ref_row, float out_scale, void* prm, void* fit_prm,
+                                 void* keys, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* rp = static_cast<RowParams*>(prm);
+  auto* fp = static_cast<RowParams*>(fit_prm);
+  auto* kf = static_cast<uint32_t*>(keys);
+  const cudaError_t e =
+      is_uint8 ? launch_cluster<uint8_t, true>(x, out, n, p, 1, csize, S, R, vec, 1, idx99,
+                                               nullptr, nullptr, out_scale, rp, nullptr, ref_row,
+                                               fp, s)
+               : launch_cluster<float, true>(x, out, n, p, 1, csize, S, R, vec, 1, idx99, nullptr,
+                                             nullptr, out_scale, rp, kf, ref_row, fp, s);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);

@@ -22,6 +22,11 @@ blocks. On a CUDA tensor a wrapper launches ``csrc/macenko_stream.cu``
   fit (each in launches of at most 65 535 images, so a pool of any size
   fits), all issued by one C call.
 
+:func:`macenko_fit_transform_stream` is batch mode's fit fused into B4's
+cluster route: one cooperative launch fits image ``idx`` (what B5 gives for
+it alone) and transforms the batch on that fit, where the card holds every
+row's cluster at once (:func:`fused_shape`).
+
 Both select inside their own kernels (an exact radix select on the
 monotone key, with B6's conventions): no B6 launch; uint8 keys never reach
 device memory. A wrapper raises rather than fall back. On a CPU tensor it runs its
@@ -31,7 +36,9 @@ span ``stainx.kernel.B4`` or ``stainx.kernel.B5`` (its route in the span's
 arguments) and counts its C calls in ``launch.B4.<route>`` or
 ``launch.B5.<route>``, and a cluster call that writes a key field in
 ``keyfield.B4`` or ``keyfield.B5``, its bytes in the span's ``keyfield``
-argument (:mod:`stainx_tpu_torch.profiling`).
+argument (:mod:`stainx_tpu_torch.profiling`). The fused call is the span
+``stainx.kernel.B4`` (its ``fit_row`` in the arguments), a ``launch.B4.cluster``
+and a ``fit.fused``.
 
 Nothing is read back to the host: ranks, statistics and selected values stay
 on the device, so a call can be captured in a CUDA graph. ``seed_state`` is
@@ -42,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 
 import torch
 
@@ -80,6 +88,13 @@ def macenko_fit_stream_plain(images):
     return mf.fit_plain(images, stream=True)
 
 
+def macenko_fit_transform_stream_plain(images, idx: int, scale: float = 1.0):
+    """Plain PyTorch version of the fused fit and transform: B5's plain
+    fit of image ``idx``, then B4's plain transform on it."""
+    he, maxc = macenko_fit_stream_plain(images[idx:idx + 1])
+    return macenko_transform_stream_plain(images, he, maxc, scale), he, maxc
+
+
 # ------------------------------------------------------------ host logic
 def resident_budget(itemsize: int, smem_per_block: int) -> int:
     """Pixels of a row a cluster block can hold in shared memory beside its
@@ -113,6 +128,29 @@ def cluster_shape(rows: int, row_len: int, itemsize: int, smem_per_block: int,
         resident = min(slice_, budget)
         if c == 1 or active(c, resident) >= rows:
             return c, slice_, resident
+
+
+def fused_shape(rows: int, row_len: int, itemsize: int, smem_per_block: int,
+                active) -> tuple[int, int, int] | None:
+    """The cluster shape of B4 with batch mode's fit fused in, or None where
+    the batch takes two launches: :func:`cluster_shape`'s, where the card
+    holds every row's cluster at once (``active`` as :func:`cluster_shape`'s),
+    as the fused launch's grid barrier needs. Clusters of one block are the
+    last size :func:`cluster_shape` tries, whether or not the card holds
+    them all."""
+    shape = cluster_shape(rows, row_len, itemsize, smem_per_block, active)
+    if shape is None or active(shape[0], shape[2]) < rows:
+        return None
+    return shape
+
+
+def check_fit_row(idx, n: int) -> int:
+    """``idx`` as an index of one of ``n`` images; raises ``IndexError``
+    past them."""
+    idx = operator.index(idx)
+    if not 0 <= idx < n:
+        raise IndexError(f"fit row {idx} out of range for a batch of {n} images")
+    return idx
 
 
 def cluster_scratch(rows: int, csize: int, slice_: int, resident: int,
@@ -168,16 +206,20 @@ def _lib() -> ctypes.CDLL:
             ptr, ptr, ptr
         ]
         lib.stainx_stream_fields.argtypes = [ptr, i64, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+        lib.stainx_cluster_fit_transform.argtypes = [
+            ptr, ptr, i64, i64, i32, i32, i32, i64, i64, i64, i64, f32, ptr, ptr, ptr, ptr
+        ]
         lib.stainx_cluster_occupancy.argtypes = [i32, i32, i64, ptr]
         for fn in (lib.stainx_cluster_run, lib.stainx_stream_run, lib.stainx_stream_fields,
-                   lib.stainx_cluster_occupancy):
+                   lib.stainx_cluster_fit_transform, lib.stainx_cluster_occupancy):
             fn.restype = i32
         lib._stainx_declared = True
     return lib
 
 
 def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
-         shape: tuple[int, int, int] | None = None, scale: float = 1.0) -> torch.Tensor:
+         shape: tuple[int, int, int] | None = None, scale: float = 1.0,
+         fit_into: torch.Tensor | None = None, fit_row: int = 0) -> torch.Tensor:
     """One B4 (``out`` given) or B5 call on the card; returns the (rows, 32)
     RowParams, and counts the launch by its route. ``force`` takes a route
     other than :func:`route` would (the streamed route takes every row; the
@@ -185,7 +227,10 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
     ``(size, slice, resident)`` other than :func:`cluster_shape`'s (slice
     and resident multiples of :data:`SLICE_QUANTUM`, the slices covering the
     row, resident within the slice and the block's shared memory). ``scale``
-    multiplies a float32 transform's output values in the kernel's store."""
+    multiplies a float32 transform's output values in the kernel's store.
+    ``fit_into`` (a (32,) float32 tensor), on the cluster route of a
+    transform: the fused call, which writes the fit of image ``fit_row`` there
+    and transforms on it (``stain`` and ``tmc`` are not read)."""
     n, _, h, w = images.shape
     p = h * w
     per_row = n if fit else 1
@@ -206,8 +251,8 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
     null = None
     if take == "cluster":
         if shape is None:
-            active = functools.partial(_active_clusters, dev.index, images.dtype)
-            shape = cluster_shape(rows, row_len, itemsize, smem, active)
+            shape = cluster_shape(rows, row_len, itemsize, smem,
+                                  active_clusters(dev.index, images.dtype))
         if shape is None:
             raise ValueError(f"{what}: rows of {row_len} pixels do not fit a cluster")
         csize, slice_, resident = shape
@@ -217,12 +262,19 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
         buf = torch.empty((buf_rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
         keys = buf.data_ptr() + rows * PARAMS_WIDTH * 4 if keyfield else null
         with kernels.on_device(dev):
-            code = lib.stainx_cluster_run(
-                images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
-                int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
-                null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(), scale,
-                buf.data_ptr(), keys, stream,
-            )
+            if fit_into is not None:
+                code = lib.stainx_cluster_fit_transform(
+                    images.data_ptr(), out.data_ptr(), n, p, int(is_uint8), int(vec), csize,
+                    slice_, resident, idx99, fit_row, scale, buf.data_ptr(),
+                    fit_into.data_ptr(), keys, stream,
+                )
+            else:
+                code = lib.stainx_cluster_run(
+                    images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
+                    int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
+                    null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(), scale,
+                    buf.data_ptr(), keys, stream,
+                )
         kernels.check(lib, code, what)
         profiling.count(counter + take)
         if keyfield:
@@ -286,6 +338,12 @@ def cluster_occupancy(dtype: torch.dtype, csize: int, resident: int) -> int:
     return found.value
 
 
+def active_clusters(index: int, dtype: torch.dtype):
+    """``active(csize, resident)`` for :func:`cluster_shape` and
+    :func:`fused_shape` on CUDA device ``index``."""
+    return functools.partial(_active_clusters, index, dtype)
+
+
 @functools.cache
 def _active_clusters(index: int, dtype: torch.dtype, csize: int, resident: int) -> int:
     """:func:`cluster_occupancy` on CUDA device ``index``, asked once a shape
@@ -318,6 +376,46 @@ def macenko_transform_stream(images, stain_matrix, target_max_conc, *, force=Non
             return out
         _run(images, out, he, tmc, fit=False, force=force, scale=scale)
         return out
+
+
+def macenko_fit_transform_stream(images, idx: int, *, scale: float = 1.0):
+    """Batch mode's fit and transform in one launch: fits image ``idx`` of
+    an (N, 3, H, W) uint8/float32 batch as :func:`macenko_fit_stream` fits
+    it alone (its float64 moments summed in B4's block order, so HE may
+    differ in its last bits) and transforms the batch on that fit as
+    :func:`macenko_transform_stream` does (``scale`` as there). Returns
+    ``(out, stain_matrix (3, 2), max_concentrations (2,))``, the fit as
+    views of a 32-float tensor of its own. One C call, a cooperative launch
+    of B4's cluster route; raises where :func:`fused_shape` finds none (the
+    rows' clusters not resident at once, or rows past a cluster)."""
+    what = "macenko_fit_transform_stream"
+    with profiling.annotate("stainx.kernel.B4", args={"fit_row": idx}):
+        kernels.check_rgb_batch(images, what)
+        idx = check_fit_row(idx, images.shape[0])
+        if images.device.type == "cpu":
+            return macenko_fit_transform_stream_plain(images, idx, scale)
+        mf._check_scale(images, scale, what)
+        kernels.check_cuda(images, what)
+        return _fit_transform(images, idx, scale)
+
+
+def _fit_transform(images, idx: int, scale: float):
+    """The fused call on the card: the shape, the output and the fit's
+    own RowParams, the C call; counts ``fit.fused``."""
+    n, _, h, w = images.shape
+    dev = images.device
+    itemsize = 1 if images.dtype == torch.uint8 else 4
+    shape = fused_shape(n, h * w, itemsize, kernels.device_limits(dev.index)[1],
+                        active_clusters(dev.index, images.dtype))
+    if shape is None:
+        raise ValueError(f"macenko_fit_transform_stream: {n} rows of {h * w} pixels are not "
+                         "held by the card at once on the cluster route")
+    out = torch.empty_like(images)
+    fit_prm = torch.empty(PARAMS_WIDTH, dtype=torch.float32, device=dev)
+    _run(images, out, None, None, fit=False, force="cluster", shape=shape, scale=scale,
+         fit_into=fit_prm, fit_row=idx)
+    profiling.count("fit.fused")
+    return out, fit_prm[HE_COLUMNS].view(3, 2), fit_prm[MAXC_COLUMNS]
 
 
 def macenko_fit_stream(images, *, force=None):

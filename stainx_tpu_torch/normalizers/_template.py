@@ -52,6 +52,12 @@ class NormalizerTemplate(StainNormalizerBase):
                 raise ValueError("Must call fit() before transform()")
             return self._transform_impl(self._as_device_tensor(images))
 
+    def _fit_transform_at(self, batch: torch.Tensor, idx: int) -> torch.Tensor:
+        """Batch mode's step: fit on image ``idx`` of ``batch``, then
+        transform the batch. A normalizer may do both in one pass."""
+        self.fit(batch[idx : idx + 1])
+        return self.transform(batch)
+
     # ----------------------------------------------------------- state dict
     @property
     def state(self) -> dict[str, Any]:

@@ -39,6 +39,17 @@ class Macenko(NormalizerTemplate):
         reconstruction in bfloat16, and the statistics, selections and
         solves stay float32 and exact.
 
+    Batch mode (``StainNormalizerTransform(mode="batch")`` with an integer
+    ``batch_ref_index``) fits image ``batch_ref_index`` and transforms the
+    batch on that fit. On a CUDA uint8 or float32 batch that B4's cluster
+    route takes with every row resident at once
+    (``ops.macenko.fuses_fit``: on an H100, up to 132 tiles of 256²) the
+    two are one launch, ``kernels.macenko_stream.
+    macenko_fit_transform_stream``, counted in ``fit.fused``: the same fit,
+    its float64 sums in another order (HE within 2e-5 of ``fit``'s), and
+    ``stainx.fit`` holds no kernel. Elsewhere it is ``fit`` then
+    ``transform``.
+
     Non-finite float pixels are not validated; results on them are
     unspecified, and the CUDA and plain routes may differ there.
     """
@@ -89,7 +100,36 @@ class Macenko(NormalizerTemplate):
         ``normalize_to_0_1`` sets: a ÷255 in the kernels' store counts
         ``finalize.folded``, an eager one is the span ``stainx.finalize``
         (:mod:`stainx_tpu_torch.profiling`)."""
-        result = super().transform(images)
+        return self._in_range(super().transform(images))
+
+    def _fit_transform_at(self, batch: torch.Tensor, idx: int) -> torch.Tensor:
+        """Batch mode's step. Where ``ops.macenko.fuses_fit`` holds (B4's
+        cluster route on CUDA, every row resident at once) the fit of image
+        ``idx`` is fused into the transform's launch: the spans
+        ``stainx.fit`` (no kernel) and ``stainx.transform`` (the launch), the
+        fitted state set from it; elsewhere, ``fit`` then ``transform``."""
+        batch = self._as_device_tensor(batch)
+        if not macenko_ops.fuses_fit(batch):
+            return super()._fit_transform_at(batch, idx)
+        with profiling.annotate("stainx.fit", device=self.device):
+            self._validate_layout(batch, "fit")
+        with profiling.annotate("stainx.transform", device=self.device):
+            out, self._stain_matrix, self._target_max_conc = macenko_ops.macenko_fit_transform(
+                batch, idx, scale=self._store_scale(batch))
+        self._is_fitted = True
+        return self._in_range(out)
+
+    def _store_scale(self, images: torch.Tensor) -> float:
+        """The scale of the kernels' float32 store for this call, and whether
+        it takes the ÷255 (``_range_folded``): uint8 output takes no scale,
+        the staged dtypes run no transform kernel, and the CPU keeps the eager
+        division's bits."""
+        self._range_folded = (bool(self.normalize_to_0_1) and images.dtype == torch.float32
+                              and images.is_cuda)
+        return macenko_ops.UNIT_SCALE if self._range_folded else 1.0
+
+    def _in_range(self, result: torch.Tensor) -> torch.Tensor:
+        """A transform's output in the range ``normalize_to_0_1`` sets."""
         if self._range_folded:
             profiling.count("finalize.folded")
             return result
@@ -105,14 +145,9 @@ class Macenko(NormalizerTemplate):
     def _transform_impl(self, images: torch.Tensor) -> torch.Tensor:
         self._validate_layout(images, "transform")
         self._validate_fitted_params()
-        # Fold the ÷255 into the store where a kernel writes float32 output:
-        # uint8 output takes no scale, the staged dtypes run no transform
-        # kernel, and the CPU keeps the eager division's bits.
-        self._range_folded = (bool(self.normalize_to_0_1) and images.dtype == torch.float32
-                              and images.is_cuda)
         return macenko_ops.macenko_transform(
             images, self._stain_matrix, self._target_max_conc, precision=self._precision,
-            scale=macenko_ops.UNIT_SCALE if self._range_folded else 1.0,
+            scale=self._store_scale(images),
         )
 
     @staticmethod

@@ -21,6 +21,12 @@ Counterpart of ``stainx_tpu/ops/macenko.py`` (constants Io=240, β=0.15,
   :func:`~stainx_tpu_torch.ops.percentile.select_route` chooses. Both
   selections are exact, so the route never changes an output.
 
+Batch mode's fit of one image and transform of the batch
+(:func:`macenko_fit_transform`) is one launch where :func:`fuses_fit` finds
+B4's cluster route with every row resident at once, the fit fused into the
+transform's kernel; elsewhere it is :func:`macenko_fit` then
+:func:`macenko_transform`.
+
 A CUDA tensor launches the hand-written kernels, a CPU tensor runs their
 plain PyTorch versions. Each staged fit or transform is counted in
 ``route.staged`` (:mod:`stainx_tpu_torch.profiling`).
@@ -304,6 +310,42 @@ def macenko_transform(
             raise ValueError(f"scale applies to float32 output only, got {images.dtype}")
         out = _staged_transform(images, stain_matrix, target_max_conc, precision)
     return (out, seed_state) if seed_state is not None else out
+
+
+def fuses_fit(images: torch.Tensor) -> bool:
+    """Whether :func:`macenko_fit_transform` fuses the fit into the
+    transform's launch: an (N, 3, H, W) uint8 or float32 batch on CUDA that
+    the ladder gives B4 (:func:`transform_route`), on B4's cluster route
+    with every row's cluster held by the card at once
+    (:func:`~stainx_tpu_torch.kernels.macenko_stream.fused_shape`; the
+    occupancy asked once a shape). Reads only the device, dtype and shape."""
+    if not images.is_cuda or images.dtype not in _KERNEL_DTYPES or images.dim() != 4:
+        return False
+    n, c, h, w = images.shape
+    if c != 3 or transform_route(n, h * w, images.dtype) != "stream":
+        return False
+    index = images.device.index
+    active = macenko_stream.active_clusters(index, images.dtype)
+    itemsize = 1 if images.dtype == torch.uint8 else 4
+    return macenko_stream.fused_shape(n, h * w, itemsize, kernels.device_limits(index)[1],
+                                      active) is not None
+
+
+def macenko_fit_transform(images: torch.Tensor, idx: int, scale: float = 1.0,
+                          precision: str = "stable"):
+    """Batch mode's step: fit on image ``idx`` of an (N, 3, H, W) batch and
+    transform the batch on that fit. Returns ``(out, stain_matrix (3, 2),
+    max_concentrations (2,))``. Where :func:`fuses_fit` holds, one launch
+    (:func:`~stainx_tpu_torch.kernels.macenko_stream.
+    macenko_fit_transform_stream`: the same fit, its float64 sums in another
+    order); else :func:`macenko_fit` then :func:`macenko_transform`
+    (``scale`` and ``precision`` as there)."""
+    idx = macenko_stream.check_fit_row(idx, images.shape[0])
+    if fuses_fit(images):
+        return macenko_stream.macenko_fit_transform_stream(images.contiguous(), idx, scale=scale)
+    he, maxc = macenko_fit(images[idx:idx + 1])
+    out = macenko_transform(images, he, maxc, precision=precision, scale=scale)
+    return out, he, maxc
 
 
 def macenko_fit(images: torch.Tensor, seed_state: torch.Tensor | None = None):

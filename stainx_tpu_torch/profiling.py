@@ -37,7 +37,10 @@ version):
 Span                          Where                                         Device interval
 ============================  ============================================  ===============
 ``stainx.forward``            ``StainNormalizerTransform.forward``          no
-``stainx.fit``                ``fit`` of every normalizer                   yes
+``stainx.fit``                ``fit`` of every normalizer; a batch-mode     yes
+                              Macenko fit fused into the transform's
+                              launch (``fit.fused``) opens it around
+                              nothing on the card
 ``stainx.transform``          ``transform`` of every normalizer, before     yes
                               the ÷255 of ``normalize_to_0_1``
 ``stainx.finalize``           the eager ÷255 of ``normalize_to_0_1``, a     yes
@@ -59,8 +62,8 @@ Span                          Where                                         Devi
 A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``;
 B4, B5: ``cluster``, with ``csize``, ``slice``, ``resident`` and
 ``keyfield``, the bytes of its key field (0 for uint8 rows and float32
-rows held whole in shared memory), or ``stream``; B3: the cluster shape of
-its last launch).
+rows held whole in shared memory), or ``stream``; B4 with the fit fused
+in also ``fit_row``; B3: the cluster shape of its last launch).
 
 Counters:
 
@@ -80,6 +83,10 @@ Counter                 Counts
 ``finalize.folded``     transforms whose ÷255 of ``normalize_to_0_1`` the
                         kernels' store did (Macenko on float32 input on CUDA),
                         with no ``stainx.finalize`` span
+``fit.fused``           batch-mode Macenko fits done inside the transform's
+                        launch (``macenko_fit_transform_stream``: B4's cluster
+                        route, every row resident at once); the forward's
+                        ``stainx.fit`` span then holds no kernel
 ``build.nvcc``          sources ``kernels.build_all`` compiled
 ``occupancy.query``     cluster occupancies asked of the card (once a shape)
 ======================  ========================================================

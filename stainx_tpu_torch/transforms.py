@@ -247,17 +247,14 @@ class StainNormalizerTransform(nn.Module):
             return result[0] if was_single else result
         batch = self._prepare(img)
 
-        if self.mode == "batch":
-            # Intentional: re-fits every call. batch_ref_index=None fits on
-            # the whole batch rather than one designated image.
-            idx = self.batch_ref_index
-            if idx is None:
+        if self.mode == "batch" and self.batch_ref_index is not None:
+            # Intentional: re-fits every call, on the designated image.
+            _check_ref_index(self.batch_ref_index, batch.shape[0])
+            result = self.normalizer._fit_transform_at(batch, self.batch_ref_index)
+        else:
+            if self.mode == "batch":  # batch_ref_index=None fits on the whole batch
                 self.normalizer.fit(batch)
-            else:
-                _check_ref_index(idx, batch.shape[0])
-                self.normalizer.fit(batch[idx : idx + 1])
-
-        result = self.normalizer.transform(batch)
+            result = self.normalizer.transform(batch)
         return result[0] if was_single else result
 
     # ------------------------------------------------------------ mesh path

@@ -189,8 +189,8 @@ def test_the_c_interfaces_take_the_scale_after_tmc(monkeypatch):
         pass
 
     for name in ("stainx_cluster_run", "stainx_stream_run", "stainx_stream_fields",
-                 "stainx_cluster_occupancy", "stainx_macenko_transform_mega",
-                 "stainx_macenko_fit_mega"):
+                 "stainx_cluster_fit_transform", "stainx_cluster_occupancy",
+                 "stainx_macenko_transform_mega", "stainx_macenko_fit_mega"):
         setattr(Lib, name, Fn())
     monkeypatch.setattr(kernels, "library", lambda stem: Lib)
     for module, source, entries in (
@@ -262,15 +262,16 @@ def test_folded_store_is_the_division_on_the_card(label, wrapper, shape, kwargs)
 @pytest.mark.cuda
 def test_the_training_forward_folds_on_the_card():
     """The batch-mode forward on 128x3x256^2 float32 gives the bits of the
-    two-step form (an unscaled transform, then ``/ 255.0``), counts one
-    ``finalize.folded`` a forward and opens no ``stainx.finalize``; a uint8
-    transform with ``normalize_to_0_1`` still divides eagerly."""
+    two-step form (an unscaled transform on the forward's fit, then
+    ``/ 255.0``), counts one ``finalize.folded`` a forward and opens no
+    ``stainx.finalize``; a uint8 transform with ``normalize_to_0_1`` still
+    divides eagerly."""
     dev = _card()
     batch = _batch((128, 256, 256), 4, dev)
     forward = StainNormalizerTransform("macenko", mode="batch", device=dev)
     before = profiling.counters("finalize.").get("finalize.folded", 0)
     out = forward(batch)
-    two_step = Macenko(device=dev).fit(batch[:1]).transform(batch) / 255.0
+    two_step = Macenko(device=dev).load_state(forward.normalizer.state).transform(batch) / 255.0
     torch.cuda.synchronize(dev)
     assert torch.equal(out, two_step)
     assert profiling.counters("finalize.")["finalize.folded"] - before == 1
@@ -294,11 +295,11 @@ def test_the_training_forward_folds_on_the_card():
 # before the float32 store took a scale (``cuobjdump -sass``, CUDA 12.9 on an
 # H100 machine), by a fragment of each kernel's mangled name (its length,
 # so ``resident_kernel`` is not ``fit_resident_kernel``; ``Ih`` the uint8
-# instantiation): the uint8 store takes no scale, so each must compile to
-# the same instructions.
+# instantiation, ``Lb0E`` the cluster kernel without the fused fit): the
+# uint8 store takes no scale, so each must compile to the same instructions.
 UINT8_SASS_NVCC = "V12.9"
 UINT8_SASS = {
-    "macenko_stream": {"14cluster_kernelIh": 16_736, "18stream_reconstructIhLi1E": 504,
+    "macenko_stream": {"14cluster_kernelIhLb0E": 16_736, "18stream_reconstructIhLi1E": 504,
                        "18stream_reconstructIhLi4E": 712},
     "macenko_fused": {"16transform_kernelIhLi1E": 5_088, "16transform_kernelIhLi4E": 5_880,
                       "15resident_kernelIhLi1ELb0E": 7_776, "15resident_kernelIhLi1ELb1E": 8_088,

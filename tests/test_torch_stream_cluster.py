@@ -292,7 +292,7 @@ class TestClusterKeyField:
             pass
 
         for name in ("stainx_cluster_run", "stainx_stream_run", "stainx_stream_fields",
-                     "stainx_cluster_occupancy"):
+                     "stainx_cluster_fit_transform", "stainx_cluster_occupancy"):
             setattr(Lib, name, Fn())
         monkeypatch.setattr(kernels, "library", lambda stem: Lib)
         lib = ms._lib()

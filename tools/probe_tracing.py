@@ -20,7 +20,8 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   session lacks (``stainx.finalize`` wherever the division was folded).
 - ``split``: no profiler. The host's time a call in each layer of the two
   cells' calls (the API call, ``fit``, ``Macenko.transform``,
-  ``Macenko._finalize_range``, the B4 and B5 wrappers), each timed by
+  ``Macenko._finalize_range``, the B4 and B5 wrappers and B4 with the fit
+  fused in, which a ``.train`` forward calls in place of both), each timed by
   ``perf_counter_ns`` around the layer's function, in a closed loop over
   the cells' batches with their calls in flight (16 and 4); medians in ms.
   A layer's time holds its children's: ``transform`` holds the B4 wrapper
@@ -151,6 +152,7 @@ def split(seconds: float) -> list[dict]:
 
     ms.macenko_transform_stream = timed("B4 wrapper", ms.macenko_transform_stream)
     ms.macenko_fit_stream = timed("B5 wrapper", ms.macenko_fit_stream)
+    ms.macenko_fit_transform_stream = timed("fused B4 wrapper", ms.macenko_fit_transform_stream)
     Macenko.fit = timed("fit", Macenko.fit)
     Macenko.transform = timed("transform", Macenko.transform)
     Macenko._finalize_range = timed("finalize_range", Macenko._finalize_range)
