@@ -107,6 +107,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    finalize, B7a, nothing between), its output held against the plain
    steps (≤ 1 grey level) and against a second transform (bit for bit);
    the same for the HM transform (B8a, its finalize, B8b; bit for bit);
+   at the benchmark cells' shapes (Reinhard 128×3×512², HM 256×3×512²
+   uint8), each transform in a profiler session holds one ``stainx.stats``
+   span a call with a device interval and launches B7b + B7a or B8a + B8b,
+   with outputs equal to an unprofiled call's (``stats_span_checks``);
    the Reinhard and
    histogram-matching oracle gates (≤ 1 grey level) run the public API on
    the first 8 images, since both take batch-global statistics; one NHWC
@@ -636,6 +640,62 @@ def device_steps(call, steps: tuple[str, ...], sessions: int = 3):
         print(f"device_steps: the profiler recorded no device work after the marker "
               f"({marker + 1} event(s) before it); another session")
     return result, [next((k for k in steps if k in name), name) for name in names]
+
+
+# The methods whose transform takes statistics over the whole call, at their
+# benchmark cells' shapes (portbench: reinhard-u8-512.store,
+# hm-u8-512.store-b256): class, tiles a call of 3x512^2 uint8, the launches
+# of a transform, and the kernel span its ``stainx.stats`` span opens in.
+STATS_CELLS = (
+    ("Reinhard", 128, {"launch.B7b": 1, "launch.B7a": 1}, "stainx.kernel.B7"),
+    ("HistogramMatching", 256, {"launch.B8a": 1, "launch.B8b": 1}, "stainx.kernel.B8"),
+)
+
+
+def stats_span_checks(dev, calls: int = 5) -> None:
+    """The ``stainx.stats`` span of each of :data:`STATS_CELLS`' transforms
+    at its cell's shape, on the benchmark's tiles: inside a profiler session
+    one span a call, a child of the method's kernel span, with a device
+    interval; the launches a call; and every output of the session equal, bit
+    for bit, to a call made outside one (where the C call gets null events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import stainx_tpu_torch
+    from portbench import gen
+
+    g = gen.torch_generator(gen.seed_streams(2800000001, 1)[0], dev)
+    for name, batch, want, parent in STATS_CELLS:
+        ref = gen.tiles(1, (3, 512, 512), "uint8", (0.85, 1.15), g)
+        x = gen.tiles(batch, (3, 512, 512), "uint8", (0.85, 1.15), g)
+        system = getattr(stainx_tpu_torch, name)(device=dev).fit(ref)
+        unprofiled = system.transform(x)
+        torch.cuda.synchronize(dev)
+        before = profiling.counters("launch.")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            outs = [system.transform(x) for _ in range(calls)]
+            torch.cuda.synchronize(dev)
+        after = profiling.counters("launch.")
+        launched = {k: (v - before.get(k, 0)) / calls for k, v in after.items()
+                    if v != before.get(k, 0)}
+        sess = profiling.session()
+        stats = [s for s in sess.spans if s.name == "stainx.stats"]
+        dev_ms = sorted(s.device_ms for s in stats if s.device_ms is not None)
+        print(f"{name} transform {batch}x3x512^2 u8 in a session: "
+              f"{len(stats) / calls} stainx.stats span(s) a call under "
+              f"{sorted({sess.spans[s.parent].name for s in stats})}, launches a call {launched}, "
+              f"stats device ms {[round(v, 4) for v in dev_ms]}")
+        require(len(sess.roots()) == calls and len(stats) == calls and len(dev_ms) == calls,
+                f"{name}: {len(stats)} stainx.stats spans with {len(dev_ms)} device intervals "
+                f"over {len(sess.roots())} calls, not one a call")
+        require(all(sess.spans[s.parent].name == parent for s in stats),
+                f"{name}: a stainx.stats span outside {parent}")
+        require(launched == {k: float(v) for k, v in want.items()},
+                f"{name}: launches a call {launched}, not {want}")
+        require(all(torch.equal(o, unprofiled) for o in outs),
+                f"{name}: a profiled transform differs from an unprofiled one")
+        del x, outs, unprofiled
+        torch.cuda.empty_cache()
 
 
 MESH_TIMING_ITERS = 10  # calls a mesh path is timed over, two inputs cycled
@@ -2813,6 +2873,7 @@ def main() -> int:
           f"steps and to a second transform")
     require(hm_steps == ["hist_kernel", "hist_finalize", "apply_kernel"],
             f"the HM transform ran {hm_steps} on the device, not B8a, its finalize, B8b alone")
+    stats_span_checks(dev)
 
     def grey_gate(label, got, expect):
         err = float(np.abs(got.cpu().numpy().astype(np.float32) - expect.astype(np.float32)).max())

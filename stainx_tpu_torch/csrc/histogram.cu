@@ -441,14 +441,30 @@ int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long l
 // the table's type) = table[c, x]. src_scale: float32(1 / float32(n * p +
 // 1e-8)). vec: x
 // and out are 16-byte aligned; apply_blocks: the apply's grid.
+// stats_start and stats_end, where not null, are CUDA events of the stream's
+// device, made with timing: stats_start is recorded before the histogram
+// launch and stats_end after the LUT finalize, so the interval between them
+// holds the call-wide histogram and LUT and nothing the host or the apply
+// does. The launches, their order and the outputs are the same with or
+// without.
 int stainx_hm_transform(const void* x, void* out, void* partials, const void* ref_hist, void* lut,
                         void* table, long long n, long long p, int c, int bpc, long long chunk,
-                        float src_scale, int is_float, int vec, int apply_blocks, void* stream) {
+                        float src_scale, int is_float, int vec, int apply_blocks, void* stream,
+                        void* stats_start, void* stats_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
+  int code = 0;
+  if (stats_start != nullptr) {
+    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_start), s));
+    if (code != 0) return code;
+  }
   launch_hist(a, s);
   launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_scale, static_cast<float*>(lut),
                   table, is_float, s);
+  if (stats_end != nullptr) {
+    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_end), s));
+    if (code != 0) return code;
+  }
   launch_apply(a.x, out, table, n * c * p, p, c, is_float, vec, apply_blocks, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,14 @@ launch the LUT apply (:mod:`stainx_tpu_torch.profiling`).
   ``counts / (sum + 1e-8)``, in one C call.
 - :func:`hm_transfer`: the transform, the histogram, a finalize that builds
   the LUT of :func:`hm_build_lut` and its table, and the apply, in one C
-  call: nothing is issued between them.
+  call: nothing is issued between them. Inside a profiler session, on a
+  CUDA tensor, it also opens the span ``stainx.stats``, the call-wide
+  histogram and LUT, as a child of ``stainx.kernel.B8``: the wrapper passes
+  ``stainx_hm_transform`` two CUDA timing events from
+  :func:`~stainx_tpu_torch.profiling.caller_timed`, which the C call
+  records on the stream before the histogram launch and after the LUT
+  finalize, before the apply. With no session running it passes two nulls;
+  the launches, their order and the outputs are the same either way.
 - :func:`apply_lut`: a per-channel 256-entry lookup of (N, C, P) uint8
   through a (C, 256) float32 LUT: ``⌊clip(lut[c, v], 0, 255)⌋`` as uint8, or
   ``clip(lut[c, v] / 255, 0, 1)`` as float32. The (C, 256) table of either
@@ -224,7 +231,7 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_hm_fit.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i64, ptr]
         lib.stainx_hm_fit.restype = i32
         lib.stainx_hm_transform.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, ptr]
+            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, ptr, ptr, ptr]
         )
         lib.stainx_hm_transform.restype = i32
         lib.stainx_hm_lut.argtypes = [ptr, ptr, ptr, ptr, i32, f32, i32, ptr]
@@ -322,15 +329,13 @@ def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torc
         table = torch.empty((c, 256), dtype=out_dtype, device=dev)
         out = torch.empty(values_u8.shape, dtype=out_dtype, device=dev)
         lib = _lib()
-        with kernels.on_device(dev):
-            code = lib.stainx_hm_transform(
-                values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
+        call = (values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
                 lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk,
-                _reciprocal(float(n * p) + 1e-8),
-                int(out_dtype == torch.float32),
+                _reciprocal(float(n * p) + 1e-8), int(out_dtype == torch.float32),
                 int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
-                _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
-            )
+                _vector_blocks(values_u8), kernels.current_stream(dev))
+        with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
+            code = lib.stainx_hm_transform(*call, *(events or (None, None)))
         kernels.check(lib, code, "hm_transfer")
         profiling.count("launch.B8a")
         profiling.count("launch.B8b")

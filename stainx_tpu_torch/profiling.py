@@ -53,10 +53,14 @@ Span                          Where                                         Devi
                               (``hm_transfer``: B8a, B8b) for one C call
                               that launches both
 ``stainx.stats``              the call-wide statistics a transform takes    yes, recorded
-                              before it writes any output: Reinhard's B7b   inside the C
-                              and its finalize, in ``reinhard_transfer``'s  call
-                              C call on a CUDA tensor (a child of
-                              ``stainx.kernel.B7``; :func:`caller_timed`)
+                              before it writes any output, in one C call    inside the C
+                              on a CUDA tensor (:func:`caller_timed`):      call
+                              Reinhard's B7b and its finalize in
+                              ``reinhard_transfer``'s (a child of
+                              ``stainx.kernel.B7``); histogram matching's
+                              B8a and its LUT finalize in
+                              ``hm_transfer``'s (a child of
+                              ``stainx.kernel.B8``)
 ============================  ============================================  ===============
 
 A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``;

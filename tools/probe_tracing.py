@@ -14,10 +14,14 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   root spans against ``traced_calls``, each span's host time and device
   interval per call (means, and the device intervals' quartiles with the
   first call left out), the device intervals' sum against
-  ``busy_ms_per_call``, the session's counts and the kernel spans' route
-  arguments, the ``finalize.folded`` count per call (the ÷255 of
-  ``normalize_to_0_1`` done in the kernels' store) and the device spans the
-  session lacks (``stainx.finalize`` wherever the division was folded).
+  ``busy_ms_per_call``, the session's counts, its ``launch.*`` counts per
+  call and the kernel spans' route arguments, the ``finalize.folded`` count
+  per call (the ÷255 of ``normalize_to_0_1`` done in the kernels' store),
+  the device spans the session lacks (``stainx.finalize`` wherever the
+  division was folded) and, for the cells whose transform takes statistics
+  over the call (``reinhard-u8-512.store``: B7b and its finalize;
+  ``hm-u8-512.store-b256``: B8a and its LUT finalize), the ``stainx.stats``
+  spans per call under ``per_call``: one a call, with a device interval.
 - ``split``: no profiler. The host's time a call in each layer of the two
   cells' calls (the API call, ``fit``, ``Macenko.transform``,
   ``Macenko._finalize_range``, the B4 and B5 wrappers and B4 with the fit
@@ -83,6 +87,8 @@ def session(cell_name: str, seed: int, seconds: float) -> dict:
             "traced_calls": res["notes"].get("traced_calls"), "busy_ms_per_call": busy,
             "device_ms_sum": dev_sum, "device_ms_sum_over_busy": dev_sum / busy if busy else None,
             "finalize_folded_per_call": sess.counts.get("finalize.folded", 0) / calls,
+            "launches_per_call": {k: v / calls for k, v in sess.counts.items()
+                                  if k.startswith("launch.")},
             "absent_device_spans": [n for n in DEVICE_SPANS if n not in per_call],
             "per_call": per_call, "device_ms_quartiles": quartiles, "counts": sess.counts,
             "kernel_args": sorted({json.dumps(s.args, sort_keys=True) for s in sess.spans
