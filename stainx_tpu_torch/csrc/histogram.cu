@@ -56,10 +56,26 @@
 //   torch.searchsorted, and float32 constants; built with -fmad=false, so
 //   no product and sum are fused. The LUT is therefore bit for bit that of
 //   hm_build_lut on the same counts, on any device.
-//   apply_kernel stages the C x 256 table in shared memory (in device memory,
-//   read through the read-only cache, when it exceeds 32 KB), looks up each
-//   byte of a 16-byte load and stores 16 bytes (uint8) or 64 bytes (float32)
-//   at once.
+//   apply_kernel: a block takes a stretch of one channel's N * P values and
+//   walks its planes, as hist_kernel does (grid: C x blocks_per_channel), so
+//   the channel and the table row it looks up are fixed for the block: no
+//   division and no channel step in the loop (a grid-stride walk over the
+//   flat input paid a 64-bit division a vector and a 64-bit step a byte,
+//   17 instructions a byte, and ran at 1.2x a copy's time). A vector is
+//   what one 16-byte store of the output holds, 16 input bytes for uint8
+//   and 4 for float32, so a warp stores 512 contiguous bytes either way
+//   (four 16-byte stores a thread, 64 bytes apart, would write half
+//   sectors). Where input and output line up, each plane stretch is a head
+//   up to the first vector boundary, the vectors (kApplyUnroll or
+//   kApplyUnrollF32 loads in flight a thread before any lookup; __ldcs and
+//   __stcs, as each byte is touched once) and a tail, so any P and
+//   alignment runs through the same kernel; otherwise the stretch goes byte
+//   by byte. Blocks are short (kernels/histogram.py::apply_split): many
+//   blocks in turn keep more loads in flight than few long ones, which wait
+//   in step. The C x 256 table is staged in dynamic shared memory of its
+//   own size (in device memory, read through the read-only cache, when it
+//   exceeds 32 KB). What bounds it now is its bytes: 1.03-1.05x the time of
+//   a copy of them at 256x3x512^2 uint8 (77 instructions a 16-byte vector).
 //   stainx_hm_fit and stainx_hm_transform launch the histogram, the finalize
 //   and (transform) the apply in one C call: nothing is issued between them
 //   and nothing returns to the host.
@@ -67,13 +83,16 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;      // apply_kernel, hist_finalize
 constexpr int kHistThreads = 512;  // hist_kernel
 constexpr int kHistWarps = kHistThreads / 32;
-constexpr int kUnroll = 4;         // 16-byte loads in flight a thread
+constexpr int kUnroll = 4;         // 16-byte loads in flight a thread (hist_kernel)
+constexpr int kApplyUnroll = 2;    // 16-byte loads in flight a thread (apply_kernel, uint8 out)
+constexpr int kApplyUnrollF32 = 4; // 4-byte loads in flight a thread (apply_kernel, float32 out)
 constexpr int kTableBytes = 32 * 1024;  // largest table staged in shared memory
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -273,90 +292,118 @@ hist_finalize(const int* __restrict__ partials, int bpc, int mode,
 }
 
 // ------------------------------------------------------------------- apply
-__device__ __forceinline__ int byte_of(const uint4& q, int j) {
-  const unsigned w = j < 4 ? q.x : (j < 8 ? q.y : (j < 12 ? q.z : q.w));
-  return static_cast<int>((w >> (8 * (j & 3))) & 0xFFu);
-}
-
-// Channel (row % c) and position within the row of element i.
-__device__ __forceinline__ void locate(int64_t i, int64_t p, int c, int& ch, int64_t& pos) {
-  const int64_t row = i / p;
-  pos = i - row * p;
-  ch = static_cast<int>(row % c);
-}
-
-__device__ __forceinline__ void step(int64_t p, int c, int& ch, int64_t& pos) {
-  if (++pos == p) {
-    pos = 0;
-    ch = (ch + 1 == c) ? 0 : ch + 1;
-  }
-}
-
 template <bool kShared, typename Tab>
-__device__ __forceinline__ Tab lookup(const Tab* tab, int k) {
-  if constexpr (kShared) return tab[k];
-  else return __ldg(tab + k);
+__device__ __forceinline__ Tab lookup(const Tab* row, unsigned v) {
+  if constexpr (kShared) return row[v];
+  else return __ldg(row + v);
 }
 
+// The table entries of the four bytes of w: packed as four bytes (uint8) or
+// as a float4 (float32).
+template <bool kShared>
+__device__ __forceinline__ unsigned look4(const uint8_t* row, unsigned w) {
+  return static_cast<unsigned>(lookup<kShared>(row, w & 0xFFu)) |
+         (static_cast<unsigned>(lookup<kShared>(row, (w >> 8) & 0xFFu)) << 8) |
+         (static_cast<unsigned>(lookup<kShared>(row, (w >> 16) & 0xFFu)) << 16) |
+         (static_cast<unsigned>(lookup<kShared>(row, w >> 24)) << 24);
+}
+
+template <bool kShared>
+__device__ __forceinline__ float4 look4(const float* row, unsigned w) {
+  return make_float4(lookup<kShared>(row, w & 0xFFu), lookup<kShared>(row, (w >> 8) & 0xFFu),
+                     lookup<kShared>(row, (w >> 16) & 0xFFu), lookup<kShared>(row, w >> 24));
+}
+
+// A vector is what one 16-byte store of the output holds: 16 input bytes
+// (a uint4) for uint8 output, 4 (an unsigned) for float32, so the lanes of a
+// warp store 512 contiguous bytes.
 template <typename Tab>
-__device__ __forceinline__ void store16(Tab* __restrict__ out, int64_t i, const Tab (&v)[16]) {
-  if constexpr (sizeof(Tab) == 1) {
-    uint4 w;
-    unsigned* wp = reinterpret_cast<unsigned*>(&w);
-    for (int k = 0; k < 4; ++k) {
-      wp[k] = static_cast<unsigned>(v[4 * k]) | (static_cast<unsigned>(v[4 * k + 1]) << 8) |
-              (static_cast<unsigned>(v[4 * k + 2]) << 16) |
-              (static_cast<unsigned>(v[4 * k + 3]) << 24);
+using VecIn = std::conditional_t<sizeof(Tab) == 1, uint4, unsigned>;
+
+// Looks up the bytes of q and stores their entries at dst, 16-byte aligned.
+template <bool kShared>
+__device__ __forceinline__ void put16(uint8_t* dst, const uint8_t* row, const uint4& q) {
+  __stcs(reinterpret_cast<uint4*>(dst),
+         make_uint4(look4<kShared>(row, q.x), look4<kShared>(row, q.y),
+                    look4<kShared>(row, q.z), look4<kShared>(row, q.w)));
+}
+
+template <bool kShared>
+__device__ __forceinline__ void put16(float* dst, const float* row, unsigned q) {
+  __stcs(reinterpret_cast<float4*>(dst), look4<kShared>(row, q));
+}
+
+// dst[i] = row[src[i]] for the len values of one plane stretch (len < 2^31).
+// kVec: src and dst line up (where src sits on a vector boundary, dst sits
+// on a 16-byte one): the bytes before src's first vector boundary, the
+// vectors, kApplyUnroll (uint8) or kApplyUnrollF32 loads in flight a thread
+// before any lookup (the rest one at a time), then the bytes after the last
+// boundary. Otherwise byte by byte.
+template <typename Tab, bool kVec, bool kShared>
+__device__ __forceinline__ void apply_stretch(const uint8_t* __restrict__ src,
+                                              Tab* __restrict__ dst, int len, const Tab* row) {
+  int done = 0;
+  if constexpr (kVec) {
+    using In = VecIn<Tab>;
+    constexpr int kB = sizeof(In);  // input bytes a vector
+    constexpr int kU = sizeof(Tab) == 1 ? kApplyUnroll : kApplyUnrollF32;
+    const int head_raw =
+        static_cast<int>((kB - (reinterpret_cast<uintptr_t>(src) & (kB - 1))) & (kB - 1));
+    const int head = head_raw < len ? head_raw : len;
+    if (static_cast<int>(threadIdx.x) < head) {
+      dst[threadIdx.x] = lookup<kShared>(row, src[threadIdx.x]);
     }
-    *reinterpret_cast<uint4*>(out + i) = w;
-  } else {
-    float4* o = reinterpret_cast<float4*>(out + i);
-    for (int k = 0; k < 4; ++k) o[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    const In* vec = reinterpret_cast<const In*>(src + head);
+    Tab* out = dst + head;
+    const int nvec = (len - head) / kB;
+    int v = threadIdx.x;
+    for (; v + (kU - 1) * kThreads < nvec; v += kU * kThreads) {
+      In q[kU];
+#pragma unroll
+      for (int k = 0; k < kU; ++k) q[k] = __ldcs(vec + v + k * kThreads);
+#pragma unroll
+      for (int k = 0; k < kU; ++k) put16<kShared>(out + kB * (v + k * kThreads), row, q[k]);
+    }
+    for (; v < nvec; v += kThreads) put16<kShared>(out + kB * v, row, __ldcs(vec + v));
+    done = head + kB * nvec;
+  }
+  for (int i = done + threadIdx.x; i < len; i += kThreads) {
+    dst[i] = lookup<kShared>(row, src[i]);
   }
 }
 
-// out[i] = table[(i / p) % c][x[i]]; table: (c, 256) of Tab. kVec: x and out
-// are 16-byte aligned. kShared: the table fits kTableBytes.
+// out[n, c, p] = table[c, x[n, c, p]]; x: (n, c, p) uint8, table: (c, 256)
+// of Tab. Block blockIdx.x applies stretch blockIdx.x % bpc of channel
+// blockIdx.x / bpc, the channel's n * p values split in bpc stretches of
+// `chunk` < 2^31 (the last shorter), walking the images it covers plane by
+// plane.
+// kShared: the table is staged in dynamic shared memory (c * 256 entries);
+// else it is read through the read-only cache.
 template <typename Tab, bool kVec, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const uint8_t* __restrict__ x, Tab* __restrict__ out, const Tab* __restrict__ table,
-             int64_t total, int64_t p, int c) {
-  __shared__ __align__(16) unsigned char raw[kShared ? kTableBytes : 16];
-  const Tab* tab = table;
+             int64_t n, int64_t p, int c, int bpc, int64_t chunk) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  const int ch = blockIdx.x / bpc;
+  const int64_t total = n * p;
+  int64_t f = static_cast<int64_t>(blockIdx.x % bpc) * chunk;
+  const int64_t end = f + chunk < total ? f + chunk : total;
+  if (f >= end) return;
+  const Tab* row = table + ch * 256;
   if constexpr (kShared) {
     Tab* st = reinterpret_cast<Tab*>(raw);
     for (int k = threadIdx.x; k < c * 256; k += kThreads) st[k] = table[k];
     __syncthreads();
-    tab = st;
+    row = st + ch * 256;
   }
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-
-  int64_t scalar_from = 0;
-  if constexpr (kVec) {
-    const int64_t nvec = total / 16;
-    scalar_from = nvec * 16;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    for (int64_t v = tid; v < nvec; v += stride) {
-      const uint4 q = xv[v];
-      int ch;
-      int64_t pos;
-      locate(v * 16, p, c, ch, pos);
-      Tab vals[16];
-      for (int j = 0; j < 16; ++j) {
-        if (j > 0) step(p, c, ch, pos);
-        const int k = ch * 256 + byte_of(q, j);
-        vals[j] = lookup<kShared>(tab, k);
-      }
-      store16<Tab>(out, v * 16, vals);
-    }
-  }
-  for (int64_t i = scalar_from + tid; i < total; i += stride) {
-    int ch;
-    int64_t pos;
-    locate(i, p, c, ch, pos);
-    const int k = ch * 256 + x[i];
-    out[i] = lookup<kShared>(tab, k);
+  int64_t img = f / p, pos = f - img * p;  // once a block
+  while (f < end) {
+    const int len = static_cast<int>(p - pos < end - f ? p - pos : end - f);
+    const int64_t at = (img * c + ch) * p + pos;
+    apply_stretch<Tab, kVec, kShared>(x + at, out + at, len, row);
+    f += len;
+    ++img;
+    pos = 0;
   }
 }
 
@@ -384,22 +431,36 @@ void launch_finalize(const HistArgs& a, int mode, const float* ref_hist, float s
                                          is_float);
 }
 
-template <typename Tab>
-void launch_apply_t(const uint8_t* x, void* out, const void* table, int64_t total, int64_t p, int c,
-                    int vec, int blocks, cudaStream_t s) {
-  auto* o = static_cast<Tab*>(out);
-  const auto* t = static_cast<const Tab*>(table);
-  const bool shared = static_cast<int64_t>(c) * 256 * sizeof(Tab) <= kTableBytes;
-  if (vec && shared) apply_kernel<Tab, true, true><<<blocks, kThreads, 0, s>>>(x, o, t, total, p, c);
-  else if (vec) apply_kernel<Tab, true, false><<<blocks, kThreads, 0, s>>>(x, o, t, total, p, c);
-  else if (shared) apply_kernel<Tab, false, true><<<blocks, kThreads, 0, s>>>(x, o, t, total, p, c);
-  else apply_kernel<Tab, false, false><<<blocks, kThreads, 0, s>>>(x, o, t, total, p, c);
+struct ApplyArgs {
+  const uint8_t* x;
+  void* out;
+  const void* table;
+  long long n, p;
+  int c, bpc;
+  long long chunk;
+  int is_float, vec;
+};
+
+template <typename Tab, bool kVec, bool kShared>
+void launch_apply_k(const ApplyArgs& a, cudaStream_t s) {
+  const size_t smem = kShared ? static_cast<size_t>(a.c) * 256 * sizeof(Tab) : 0;
+  apply_kernel<Tab, kVec, kShared><<<a.c * a.bpc, kThreads, smem, s>>>(
+      a.x, static_cast<Tab*>(a.out), static_cast<const Tab*>(a.table), a.n, a.p, a.c, a.bpc,
+      a.chunk);
 }
 
-void launch_apply(const uint8_t* x, void* out, const void* table, long long total, long long p,
-                  int c, int is_float, int vec, int blocks, cudaStream_t s) {
-  if (is_float) launch_apply_t<float>(x, out, table, total, p, c, vec, blocks, s);
-  else launch_apply_t<uint8_t>(x, out, table, total, p, c, vec, blocks, s);
+template <typename Tab>
+void launch_apply_t(const ApplyArgs& a, cudaStream_t s) {
+  const bool shared = static_cast<int64_t>(a.c) * 256 * sizeof(Tab) <= kTableBytes;
+  if (a.vec && shared) launch_apply_k<Tab, true, true>(a, s);
+  else if (a.vec) launch_apply_k<Tab, true, false>(a, s);
+  else if (shared) launch_apply_k<Tab, false, true>(a, s);
+  else launch_apply_k<Tab, false, false>(a, s);
+}
+
+void launch_apply(const ApplyArgs& a, cudaStream_t s) {
+  if (a.is_float) launch_apply_t<float>(a, s);
+  else launch_apply_t<uint8_t>(a, s);
 }
 
 }  // namespace
@@ -439,8 +500,9 @@ int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long l
 // against ref_hist ((c, 256) float32) into lut ((c, 256) float32) and its
 // table ((c, 256) uint8, or float32 when is_float), then out ((n, c, p) of
 // the table's type) = table[c, x]. src_scale: float32(1 / float32(n * p +
-// 1e-8)). vec: x
-// and out are 16-byte aligned; apply_blocks: the apply's grid.
+// 1e-8)). The apply: apply_bpc blocks a channel, each applying
+// apply_chunk of the channel's n * p values; vec: x and out line up modulo
+// 16 bytes and the planes run 16-byte vectors.
 // stats_start and stats_end, where not null, are CUDA events of the stream's
 // device, made with timing: stats_start is recorded before the histogram
 // launch and stats_end after the LUT finalize, so the interval between them
@@ -449,8 +511,9 @@ int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long l
 // without.
 int stainx_hm_transform(const void* x, void* out, void* partials, const void* ref_hist, void* lut,
                         void* table, long long n, long long p, int c, int bpc, long long chunk,
-                        float src_scale, int is_float, int vec, int apply_blocks, void* stream,
-                        void* stats_start, void* stats_end) {
+                        float src_scale, int is_float, int vec, int apply_bpc,
+                        long long apply_chunk, void* stream, void* stats_start,
+                        void* stats_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
   int code = 0;
@@ -465,7 +528,7 @@ int stainx_hm_transform(const void* x, void* out, void* partials, const void* re
     code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_end), s));
     if (code != 0) return code;
   }
-  launch_apply(a.x, out, table, n * c * p, p, c, is_float, vec, apply_blocks, s);
+  launch_apply({a.x, out, table, n, p, c, apply_bpc, apply_chunk, is_float, vec}, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,11 +543,13 @@ int stainx_hm_lut(const void* counts, const void* ref_hist, void* lut, void* tab
 }
 
 // x: (n, c, p) contiguous uint8; table: (c, 256) uint8 (is_float 0) or
-// float32 (is_float 1); out: (n, c, p) of the table's type. vec: x and out
-// are 16-byte aligned.
-int stainx_apply_lut(const void* x, void* out, const void* table, long long total, long long p,
-                     int c, int is_float, int vec, int blocks, void* stream) {
-  launch_apply(static_cast<const uint8_t*>(x), out, table, total, p, c, is_float, vec, blocks,
+// float32 (is_float 1); out: (n, c, p) of the table's type. bpc blocks a
+// channel, each applying `chunk` of the channel's n * p values (bpc * chunk
+// >= n * p); vec: x and out line up modulo 16 bytes and the planes run
+// 16-byte vectors.
+int stainx_apply_lut(const void* x, void* out, const void* table, long long n, long long p, int c,
+                     int bpc, long long chunk, int is_float, int vec, void* stream) {
+  launch_apply({static_cast<const uint8_t*>(x), out, table, n, p, c, bpc, chunk, is_float, vec},
                static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@ Any channel count C ≥ 1 is accepted. Each wrapper is a span,
 ``stainx.kernel.B8a``, ``stainx.kernel.B8b`` or, for :func:`hm_transfer`,
 ``stainx.kernel.B8``; ``launch.B8a`` counts the C calls that launch the
 histogram kernel (B8a/B8c, with its finalize), ``launch.B8b`` those that
-launch the LUT apply (:mod:`stainx_tpu_torch.profiling`).
+launch the LUT apply, and ``lut.vector`` those LUT applies whose planes
+run vectors (:mod:`stainx_tpu_torch.profiling`).
 
 - :func:`histogram_256`: per-channel 256-bin counts of (N, C, P) or (C, P)
   uint8 as (C, 256) float32. The kernel counts in int32 (exact, the same on
@@ -30,6 +31,14 @@ launch the LUT apply (:mod:`stainx_tpu_torch.profiling`).
   ``clip(lut[c, v] / 255, 0, 1)`` as float32. The (C, 256) table of either
   form is made here, on the device, and the kernel only looks it up.
 
+The apply kernel walks its input as the histogram kernel does: a block
+takes a stretch of one channel's N·P values (:func:`apply_split`) and
+walks the planes it covers, so the channel and its table row are fixed
+for the block. A vector is what one 16-byte store of the output holds: 16
+input bytes for uint8 output, 4 for float32. Where the input and the
+output line up (:func:`vector_aligned`), each plane stretch runs as a
+head, vectors and a tail; otherwise byte by byte.
+
 The finalize computes in float32 in the order of the plain versions
 (:func:`sum256`, :func:`scan256`, true divisions, and the products by a
 reciprocal of :func:`_reciprocal`), so its LUT is the plain LUT bit for bit
@@ -47,6 +56,9 @@ from stainx_tpu_torch import kernels, profiling
 
 _OUT_DTYPES = (torch.uint8, torch.float32)
 MIN_BLOCK_VALUES = 32_768  # values a 512-thread histogram block counts at least
+MIN_APPLY_VALUES = 4_096  # values a 256-thread apply block looks up at least
+APPLY_BLOCK_VALUES = 16_384  # and at most: short blocks, many in turn
+APPLY_BLOCKS_PER_SM = 8  # apply blocks of 256 threads an SM that fill the card
 
 
 # --------------------------------------------------------- plain versions
@@ -231,12 +243,12 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_hm_fit.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i64, ptr]
         lib.stainx_hm_fit.restype = i32
         lib.stainx_hm_transform.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, ptr, ptr, ptr]
+            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, i64, ptr, ptr, ptr]
         )
         lib.stainx_hm_transform.restype = i32
         lib.stainx_hm_lut.argtypes = [ptr, ptr, ptr, ptr, i32, f32, i32, ptr]
         lib.stainx_hm_lut.restype = i32
-        lib.stainx_apply_lut.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i32, i32, ptr]
+        lib.stainx_apply_lut.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i64, i32, i32, ptr]
         lib.stainx_apply_lut.restype = i32
         lib._stainx_declared = True
     return lib
@@ -267,9 +279,42 @@ def _hist_args(values: torch.Tensor, what: str):
     return partials, n, p, c, bpc, chunk
 
 
-def _vector_blocks(values: torch.Tensor) -> int:
-    """Grid of a launch that reads 16 bytes a thread."""
-    return kernels.grid_blocks(-(-values.numel() // 16), values.device)
+def apply_split(n: int, c: int, p: int, sms: int) -> tuple[int, int]:
+    """(blocks a channel, values a block) of a LUT-apply launch over (N, C,
+    P) values. A block looks up a stretch of its channel's N·P values (a
+    multiple of 16): enough blocks to give each SM
+    :data:`APPLY_BLOCKS_PER_SM` over all channels, each stretch kept
+    between :data:`MIN_APPLY_VALUES` and :data:`APPLY_BLOCK_VALUES`, so a
+    large input is many short blocks; one block for an empty input.
+    Raises where the blocks exceed a grid."""
+    total = n * p
+    fill = -(-APPLY_BLOCKS_PER_SM * sms // c)
+    chunk = kernels.ceil_to(min(max(-(-total // fill), MIN_APPLY_VALUES), APPLY_BLOCK_VALUES), 16)
+    bpc = max(1, -(-total // chunk))
+    if c * bpc > kernels.MAX_GRID_X:
+        raise ValueError(f"apply_lut: {c} channels of {bpc} blocks exceed a grid")
+    return bpc, chunk
+
+
+def vector_aligned(values: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the apply kernel runs vectors over the planes of (N, C, P)
+    uint8 ``values`` into ``out``: where the input sits on a vector
+    boundary (16 bytes for uint8 output, 4 for float32), the output sits on
+    a 16-byte one, which holds when ``out.data_ptr() - out.element_size()
+    * values.data_ptr()`` is a multiple of 16; and a plane of P ≥ 32 values
+    holds a whole vector wherever it starts."""
+    lined_up = (out.data_ptr() - out.element_size() * values.data_ptr()) % 16 == 0
+    return lined_up and values.shape[2] >= 32
+
+
+def _apply_launch(values: torch.Tensor, out: torch.Tensor) -> tuple[int, int, int]:
+    """(vector walk, blocks a channel, values a block) of an apply launch,
+    the vector walk counted in ``lut.vector``."""
+    n, c, p = values.shape
+    vec = vector_aligned(values, out)
+    if vec:
+        profiling.count("lut.vector")
+    return (int(vec), *apply_split(n, c, p, kernels.device_limits(values.device.index)[0]))
 
 
 def histogram_256(values_u8: torch.Tensor) -> torch.Tensor:
@@ -332,8 +377,7 @@ def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torc
         call = (values_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), ref.data_ptr(),
                 lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk,
                 _reciprocal(float(n * p) + 1e-8), int(out_dtype == torch.float32),
-                int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
-                _vector_blocks(values_u8), kernels.current_stream(dev))
+                *_apply_launch(values_u8, out), kernels.current_stream(dev))
         with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
             code = lib.stainx_hm_transform(*call, *(events or (None, None)))
         kernels.check(lib, code, "hm_transfer")
@@ -376,7 +420,10 @@ def hm_lut(counts: torch.Tensor, ref_hist: torch.Tensor, num_pixels: int, out_dt
 def apply_lut(values_u8: torch.Tensor, lut: torch.Tensor, out_dtype: torch.dtype = torch.uint8):
     """Per-channel LUT apply (B8b): (N, C, P) uint8 and a (C, 256) LUT →
     (N, C, P) ``out_dtype``: uint8 ``⌊clip(lut[c, v], 0, 255)⌋`` or float32
-    ``clip(lut[c, v] / 255, 0, 1)``. One launch a call."""
+    ``clip(lut[c, v] / 255, 0, 1)``. One launch a call: each block walks
+    a stretch of one channel's planes (:func:`apply_split`), in vectors
+    where :func:`vector_aligned` holds (counted in ``lut.vector``), byte
+    by byte where it does not."""
     with profiling.annotate("stainx.kernel.B8b"):
         _check_apply(values_u8, lut, out_dtype)
         if values_u8.device.type == "cpu":
@@ -387,13 +434,12 @@ def apply_lut(values_u8: torch.Tensor, lut: torch.Tensor, out_dtype: torch.dtype
         if out.numel() == 0:
             return out
         n, c, p = values_u8.shape
+        vec, bpc, chunk = _apply_launch(values_u8, out)
         lib = _lib()
         with kernels.on_device(values_u8.device):
             code = lib.stainx_apply_lut(
-                values_u8.data_ptr(), out.data_ptr(), table.data_ptr(), values_u8.numel(), p, c,
-                int(out_dtype == torch.float32),
-                int(values_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0),
-                _vector_blocks(values_u8), kernels.current_stream(values_u8.device),
+                values_u8.data_ptr(), out.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk,
+                int(out_dtype == torch.float32), vec, kernels.current_stream(values_u8.device),
             )
         kernels.check(lib, code, "apply_lut")
         profiling.count("launch.B8b")

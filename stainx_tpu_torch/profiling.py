@@ -91,6 +91,11 @@ Counter                 Counts
                         launch (``macenko_fit_transform_stream``: B4's cluster
                         route, every row resident at once); the forward's
                         ``stainx.fit`` span then holds no kernel
+``lut.vector``          B8b launches (``apply_lut``, ``hm_transfer``) whose
+                        planes run vectors (one 16-byte store of output each):
+                        input and output line up and P ≥ 32
+                        (``kernels.histogram.vector_aligned``); none for a
+                        launch that goes byte by byte
 ``build.nvcc``          sources ``kernels.build_all`` compiled
 ``occupancy.query``     cluster occupancies asked of the card (once a shape)
 ======================  ========================================================
