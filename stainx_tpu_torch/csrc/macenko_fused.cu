@@ -849,13 +849,21 @@ fit_resident_kernel(const T* __restrict__ x, float* __restrict__ out8, int n, in
   }
 }
 
+// Records `start` on `s` where it is not null: the timing mark just before a
+// launch, after the host's set-up of it.
+cudaError_t mark(cudaEvent_t start, cudaStream_t s) {
+  return start == nullptr ? cudaSuccess : cudaEventRecord(start, s);
+}
+
 template <typename T, int V, bool kCheck>
 cudaError_t launch_resident(const T* x, T* out, const float* stain, const float* tmc,
                             float out_scale, long long n, long long p, long long idx99,
-                            size_t smem, uint32_t* keys, float* sel, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(resident_kernel<T, V, kCheck>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
+                            size_t smem, uint32_t* keys, float* sel, cudaStream_t s,
+                            cudaEvent_t start) {
+  cudaError_t e = cudaFuncSetAttribute(resident_kernel<T, V, kCheck>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) e = mark(start, s);
   if (e != cudaSuccess) return e;
   resident_kernel<T, V, kCheck><<<static_cast<unsigned>(n), kRThreads, smem, s>>>(
       x, out, stain, tmc, static_cast<int>(p), idx99, keys, sel, out_scale);
@@ -865,28 +873,53 @@ cudaError_t launch_resident(const T* x, T* out, const float* stain, const float*
 template <typename T>
 cudaError_t launch_transform(const void* x, void* out, const float* stain, const float* tmc,
                              float out_scale, long long n, long long p, int vec4, long long idx99,
-                             long long smem, uint32_t* keys, float* sel, cudaStream_t s) {
+                             long long smem, uint32_t* keys, float* sel, cudaStream_t s,
+                             cudaEvent_t start) {
   const auto* xi = static_cast<const T*>(x);
   auto* xo = static_cast<T*>(out);
   const dim3 grid(static_cast<unsigned>(n));
   if (keys != nullptr) {
     return vec4 ? launch_resident<T, 4, true>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
-                                              keys, sel, s)
+                                              keys, sel, s, start)
                 : launch_resident<T, 1, true>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
-                                              keys, sel, s);
+                                              keys, sel, s, start);
   }
   if (smem > 0) {
     return vec4 ? launch_resident<T, 4, false>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
-                                               keys, sel, s)
+                                               keys, sel, s, start)
                 : launch_resident<T, 1, false>(xi, xo, stain, tmc, out_scale, n, p, idx99, smem,
-                                               keys, sel, s);
+                                               keys, sel, s, start);
   }
+  const cudaError_t e = mark(start, s);
+  if (e != cudaSuccess) return e;
   if (vec4) {
     transform_kernel<T, 4><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99, out_scale);
   } else {
     transform_kernel<T, 1><<<grid, kThreads, 0, s>>>(xi, xo, stain, tmc, p, idx99, out_scale);
   }
   return cudaSuccess;
+}
+
+// Blocks of B1 that one SM holds at once: the resident body with `smem`
+// bytes of dynamic shared memory (its attribute set as the launch sets it),
+// or the L2 body where smem is 0.
+template <typename T, int V>
+cudaError_t body_occupancy(long long smem, int* blocks) {
+  if (smem == 0) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, transform_kernel<T, V>, kThreads,
+                                                         0);
+  }
+  const cudaError_t e = cudaFuncSetAttribute(resident_kernel<T, V, false>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, resident_kernel<T, V, false>,
+                                                       kRThreads, static_cast<size_t>(smem));
+}
+
+template <typename T>
+cudaError_t transform_occupancy(int vec4, long long smem, int* blocks) {
+  return vec4 ? body_occupancy<T, 4>(smem, blocks) : body_occupancy<T, 1>(smem, blocks);
 }
 
 template <typename T, int V, bool kCheck>
@@ -931,21 +964,43 @@ const char* stainx_error_string(int code) {
 // dynamic shared memory (kResidentFixed, then 8p and 3p * sizeof(T) bytes,
 // each rounded up to 16), or 0 for the body that re-reads the image from L2. keys and sel are
 // null, or (check only, resident body) (n, 3, p) uint32 and (n, 4) float32
-// for the keys each image selected on and the selected values. Returns the
-// CUDA error of the launch.
+// for the keys each image selected on and the selected values.
+// launch_start and launch_end, where not null, are CUDA events of the
+// stream's device, made with timing: recorded just before the launch (after
+// its shared-memory attribute is set) and just after it, so the interval
+// between them holds B1 and nothing the host does before it. The launch and
+// the output are the same with or without. Returns the CUDA error of the
+// launch.
 int stainx_macenko_transform_mega(const void* x, void* out, const void* stain, const void* tmc,
                                   float out_scale, long long n, long long p, int is_uint8, int vec4,
                                   long long idx99, long long smem, void* keys, void* sel,
-                                  void* stream) {
+                                  void* stream, void* launch_start, void* launch_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const float*>(stain);
   const auto* tm = static_cast<const float*>(tmc);
   auto* k = static_cast<uint32_t*>(keys);
   auto* sl = static_cast<float*>(sel);
-  const cudaError_t e =
-      is_uint8
-          ? launch_transform<uint8_t>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k, sl, s)
-          : launch_transform<float>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k, sl, s);
+  const auto start = static_cast<cudaEvent_t>(launch_start);
+  cudaError_t e =
+      is_uint8 ? launch_transform<uint8_t>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k,
+                                           sl, s, start)
+               : launch_transform<float>(x, out, st, tm, out_scale, n, p, vec4, idx99, smem, k,
+                                         sl, s, start);
+  if (e == cudaSuccess) e = mark(static_cast<cudaEvent_t>(launch_end), s);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of stainx_macenko_transform_mega's launch (the same is_uint8, vec4
+// and smem) that one SM of the current device holds at once, into *blocks
+// (int). Returns the CUDA error of the query.
+int stainx_macenko_transform_occupancy(int is_uint8, int vec4, long long smem, void* blocks) {
+  auto* b = static_cast<int*>(blocks);
+  const cudaError_t e = is_uint8 ? transform_occupancy<uint8_t>(vec4, smem, b)
+                                 : transform_occupancy<float>(vec4, smem, b);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);

@@ -6,6 +6,11 @@ hand-written kernel from ``csrc/macenko_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs its plain PyTorch version. Each wrapper is
 the span ``stainx.kernel.B1`` or ``stainx.kernel.B2`` and counts its
 launches in ``launch.B1`` or ``launch.B2`` (:mod:`stainx_tpu_torch.profiling`).
+In a profiler session B1's span holds the device interval of its launch
+alone (events recorded inside its C call) and names its body (``route``)
+and the blocks an SM holds (``blocks_per_sm``, asked of the card once a
+shape); each B1 launch also counts in ``resident.B1`` or ``l2.B1``, by
+body.
 
 The plain versions repeat the kernels' arithmetic on batched tensors:
 
@@ -32,6 +37,7 @@ The method's constants and the formulas the staged route and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -281,7 +287,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_stainx_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.stainx_macenko_transform_mega.argtypes = [
-            ptr, ptr, ptr, ptr, ctypes.c_float, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr
+            ptr, ptr, ptr, ptr, ctypes.c_float, i64, i64, i32, i32, i64, i64, ptr, ptr, ptr, ptr, ptr
         ]
         lib.stainx_macenko_transform_mega.restype = i32
         lib.stainx_macenko_fit_mega.argtypes = [
@@ -329,9 +335,15 @@ def transform_body(p: int, dtype: torch.dtype, smem_limit: int) -> str:
     return "resident" if resident_bytes(p, dtype) <= smem_limit else "l2"
 
 
-def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: float = 1.0):
+def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: float = 1.0,
+               events=None):
     """One B1 launch: the output (float32 values times ``scale``), and with
-    ``check`` the keys and selections of :func:`resident_selections`."""
+    ``check`` the keys and selections of :func:`resident_selections`.
+    Without ``check`` the launch counts in ``launch.B1`` and in its body's
+    counter, ``resident.B1`` or ``l2.B1``. ``events``: None, or the two
+    event handles of :func:`~stainx_tpu_torch.profiling.caller_timed`, which
+    the C call records around the launch; given them, the span also notes
+    :func:`blocks_per_sm`."""
     _check_scale(images, scale, "macenko_transform_mega")
     kernels.check_cuda(images, "macenko_transform_mega")
     dev = images.device
@@ -353,17 +365,40 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: 
     sel = torch.empty((n, 4), dtype=torch.float32, device=dev) if check else None
     if out.numel() == 0:
         return out, keys, sel
+    is_uint8, vec4 = int(images.dtype == torch.uint8), int(_vec4(p, images, out))
     lib = _lib()
     with kernels.on_device(dev):
         code = lib.stainx_macenko_transform_mega(
             images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(), scale,
-            n, p, int(images.dtype == torch.uint8), int(_vec4(p, images, out)),
-            static_nearest_rank_index(99, p), smem,
+            n, p, is_uint8, vec4, static_nearest_rank_index(99, p), smem,
             keys.data_ptr() if check else None, sel.data_ptr() if check else None,
-            kernels.current_stream(dev),
+            kernels.current_stream(dev), *(events or (None, None)),
         )
     kernels.check(lib, code, "macenko_transform_mega")
+    if not check:
+        profiling.count("launch.B1")
+        profiling.count(f"{body}.B1")
+    if events is not None:
+        profiling.note(blocks_per_sm=blocks_per_sm(dev.index, is_uint8, vec4, smem))
     return out, keys, sel
+
+
+@functools.cache
+def blocks_per_sm(index: int, is_uint8: int, vec4: int, smem: int) -> int:
+    """Blocks of a B1 launch (its dtype, vector width and the resident
+    body's ``smem`` bytes, or 0 for the L2 body) that one SM of CUDA device
+    ``index`` holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    asked once a shape (each ask counted in ``occupancy.query``)."""
+    profiling.count("occupancy.query")
+    lib = _lib()
+    query = lib.stainx_macenko_transform_occupancy
+    query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    found = ctypes.c_int(0)
+    with kernels.on_device(index):
+        code = query(is_uint8, vec4, smem, ctypes.addressof(found))
+    kernels.check(lib, code, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return found.value
 
 
 def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | None = None, *,
@@ -374,14 +409,12 @@ def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | No
     (``ops.macenko.UNIT_SCALE`` writes [0, 1]; uint8 takes only 1). One
     launch per call, one thread block per image; ``body`` (``"resident"``
     or ``"l2"``) overrides :func:`transform_body`, for measurements."""
-    with profiling.annotate("stainx.kernel.B1"):
+    with profiling.caller_timed("stainx.kernel.B1", images.device) as events:
         kernels.check_rgb_batch(images, "macenko_transform_mega")
         if images.device.type == "cpu":
             return macenko_transform_mega_plain(images, stain_matrix, target_max_conc, scale)
         out, _, _ = _transform(images, stain_matrix, target_max_conc, body, check=False,
-                               scale=scale)
-        if out.numel():
-            profiling.count("launch.B1")
+                               scale=scale, events=events)
         return out
 
 

@@ -47,11 +47,12 @@ Span                          Where                                         Devi
                               sibling of ``stainx.transform``; absent
                               where the kernels' store does it
                               (``finalize.folded``)
-``stainx.kernel.<K>``         each kernel wrapper, ``<K>`` one of B1, B2,   no
-                              B3, B4, B5, B6, B7a, B7b, B8a, B8b; ``B7``
-                              (``reinhard_transfer``: B7b, B7a) and ``B8``
-                              (``hm_transfer``: B8a, B8b) for one C call
-                              that launches both
+``stainx.kernel.<K>``         each kernel wrapper, ``<K>`` one of B1, B2,   B1 only: its
+                              B3, B4, B5, B6, B7a, B7b, B8a, B8b; ``B7``    launch alone,
+                              (``reinhard_transfer``: B7b, B7a) and ``B8``  recorded inside
+                              (``hm_transfer``: B8a, B8b) for one C call    the C call
+                              that launches both; B1's is a
+                              :func:`caller_timed` span
 ``stainx.stats``              the call-wide statistics a transform takes    yes, recorded
                               before it writes any output, in one C call    inside the C
                               on a CUDA tensor (:func:`caller_timed`):      call
@@ -63,7 +64,8 @@ Span                          Where                                         Devi
                               ``stainx.kernel.B8``)
 ============================  ============================================  ===============
 
-A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``;
+A kernel span's arguments name its ``route`` (B1: ``resident`` or ``l2``,
+with ``blocks_per_sm``, the blocks of the launch one SM holds at once;
 B4, B5: ``cluster``, with ``csize``, ``slice``, ``resident`` and
 ``keyfield``, the bytes of its key field (0 for uint8 rows and float32
 rows held whole in shared memory), or ``stream``; B4 with the fit fused
@@ -79,6 +81,9 @@ Counter                 Counts
                         ``launch.B4.stream``, ``launch.B5.cluster`` and
                         ``launch.B5.stream`` by route. A CPU tensor runs the
                         plain versions and counts none.
+``resident.B1``,        B1's launches by body: the image in a block's shared
+``l2.B1``               memory, or re-read from L2 each pass (the same launches
+                        as ``launch.B1``)
 ``keyfield.<K>``        B4's or B5's cluster-route C calls on float32 rows that
                         wrote a key field (pixels past the resident part of a
                         block's slice): ``keyfield.B4``, ``keyfield.B5``
@@ -97,7 +102,8 @@ Counter                 Counts
                         (``kernels.histogram.vector_aligned``); none for a
                         launch that goes byte by byte
 ``build.nvcc``          sources ``kernels.build_all`` compiled
-``occupancy.query``     cluster occupancies asked of the card (once a shape)
+``occupancy.query``     occupancies asked of the card, once a shape: B3's, B4's
+                        and B5's clusters, B1's blocks an SM
 ======================  ========================================================
 
 ``build.nvcc`` and ``occupancy.query`` are for a slow set-up: read
