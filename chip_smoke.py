@@ -337,16 +337,6 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def largest(fits) -> int:
-    """The largest size up to 2^24 for which ``fits(size)`` holds, where it
-    holds up to some size and never past it."""
-    lo, hi = 1, 1 << 24
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
-    return lo
-
-
 def _int_bits(t):
     import torch
 
@@ -549,6 +539,15 @@ def fused_fit_checks() -> None:
     card_tests("fused fit", "test_torch_fused_fit.py")
 
 
+def resident_checks() -> None:
+    """``tests/test_torch_patch_reference.py`` on the card: B1 at the patch
+    cell's 512x3x96² uint8 call (two blocks an SM on an H100), its span and
+    counters, the selections of B1's resident body and of B2 at 96² and at
+    the largest row and pool a block holds, and B1 on phase 8's <3-pixel
+    fallback tile against its plain version."""
+    card_tests("patch cell and resident edges", "test_torch_patch_reference.py")
+
+
 def one_block_selections(x, he, mc, fit: bool):
     """Check only: B2's selections (``fit``) or those of B1's resident body
     against ``kth_smallest`` on the keys the kernel selected on, which a
@@ -558,13 +557,7 @@ def one_block_selections(x, he, mc, fit: bool):
     import torch
 
     from stainx_tpu_torch.kernels import macenko_fused as mf
-    from stainx_tpu_torch.kernels import selection as sel
-    from stainx_tpu_torch.ops import macenko as mk
-    from stainx_tpu_torch.ops.percentile import (
-        kth_smallest,
-        nearest_rank_index,
-        static_nearest_rank_index,
-    )
+    from stainx_tpu_torch.testing import selections_exact
 
     if fit:
         he_s, mc_s, keys, got = mf.fit_selections(x)
@@ -573,19 +566,10 @@ def one_block_selections(x, he, mc, fit: bool):
     else:
         result, keys, got = mf.resident_selections(x, he, mc)
         p = x.shape[2] * x.shape[3]
-    k = keys.to(torch.int64) & 0xFFFFFFFF
-    vals = sel.unkey(k)
-    member = k[:, 0] < 0xFF800000
-    cnt = member.sum(-1)
-    ranks = torch.stack([nearest_rank_index(mk.ALPHA, cnt),
-                         nearest_rank_index(100 - mk.ALPHA, cnt)], -1)
-    idx = torch.full((keys.shape[0],), static_nearest_rank_index(99, p), device=x.device)
-    want = torch.cat([kth_smallest(vals[:, 0], ranks, member),
-                      kth_smallest(vals[:, 1], idx)[:, None],
-                      kth_smallest(vals[:, 2], idx)[:, None]], -1)
+    cnt = ((keys[:, 0].to(torch.int64) & 0xFFFFFFFF) < 0xFF800000).sum(-1)
+    exact = selections_exact(keys, got, p)
     torch.cuda.synchronize()
-    return (torch.equal(_int_bits(got), _int_bits(want)), (int(cnt.min()), int(cnt.max())),
-            result)
+    return exact, (int(cnt.min()), int(cnt.max())), result
 
 
 def run(cmd: list[str]) -> str:
@@ -1684,7 +1668,7 @@ def random_shapes_phase(seed: int, dev) -> None:
     from stainx_tpu_torch.ops import percentile as pct
     from stainx_tpu_torch.ops.percentile import nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std
-    from stainx_tpu_torch.testing import HE_REF
+    from stainx_tpu_torch.testing import HE_REF, largest
 
     t_start = time.perf_counter()
     docs_pages_check()
@@ -2080,7 +2064,12 @@ def main() -> int:
     from stainx_tpu_torch.ops.eigh3 import eigh3_top2
     from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
     from stainx_tpu_torch.ops.reinhard import moments_to_mean_std, reinhard_transform
-    from stainx_tpu_torch.testing import branch_point_field, colour_cube, synthetic_he_batch
+    from stainx_tpu_torch.testing import (
+        branch_point_field,
+        colour_cube,
+        largest,
+        synthetic_he_batch,
+    )
 
     dev = torch.device("cuda", 0)
 
@@ -2670,6 +2659,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fold_checks()
     fused_fit_checks()
+    resident_checks()
 
     # B3, the exact row select, bit for bit against its plain version.
     def check_b3(label, x, ranks, cluster=None):
@@ -3488,12 +3478,15 @@ def main() -> int:
     unearned.clear()
     kept.clear()
     for n, side, dtype in [(4, 64, "u8"), (256, 64, "u8"), (64, 96, "u8"), (256, 96, "u8"),
-                           (16, 128, "u8"), (256, 128, "u8"), (4, 136, "u8"), (256, 136, "u8"),
-                           (256, 64, "f32"), (16, 96, "f32"), (256, 96, "f32"),
-                           (4, 102, "f32"), (256, 102, "f32")]:
+                           (512, 96, "u8"), (16, 128, "u8"), (256, 128, "u8"), (4, 136, "u8"),
+                           (256, 136, "u8"), (256, 64, "f32"), (16, 96, "f32"), (256, 96, "f32"),
+                           (4, 102, "f32"), (256, 102, "f32")] + [
+            # the largest rows the resident body holds
+            (4, (1, largest_resident(types[d])), d) for d in ("u8", "f32")]:
+        h, w = side if isinstance(side, tuple) else (side, side)
         xs = sweep_inputs(n, side, dtype, args.seed + 600)
-        body = mf.transform_body(side * side, types[dtype], smem_optin)
-        race(f"B1 body {n}x3x{side}^2 {dtype}",
+        body = mf.transform_body(h * w, types[dtype], smem_optin)
+        race(f"B1 body {n}x3x{h}x{w} {dtype}",
              [("resident", lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="resident")),
               ("l2", lambda x: mf.macenko_transform_mega(x, he_k, mc_k, body="l2"))],
              xs, "mega" if body == "resident" else "stream")

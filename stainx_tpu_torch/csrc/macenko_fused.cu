@@ -35,19 +35,21 @@
 //   starts below the bits its smallest and largest key share, as B3's does,
 //   so the angles take about 3 passes of 8 bits and the concentrations 4,
 //   each over shared memory; a pass counts into 8 histogram copies (no warp
-//   matching), which the block sums, and a warp picks each bin. Moments add
+//   matching), the two selections' 16-bit counts packed into one word, which
+//   the block sums, and a warp picks each bin. Moments add
 //   a 4-pixel group in float32, then the groups in float64. Both kernels run
 //   the same phase functions (load_resident, rmoments, angle_setup,
 //   angle_keys, rselect2, conc_setup, conc_keys), templated on the block's
 //   thread count.
 //   resident_kernel (B1 wherever an image fits a block's shared memory:
-//   uint8 up to 19 222 pixels, float32 up to 10 572 on an H100; the wrapper's
+//   uint8 up to 19 968 pixels, float32 up to 10 982 on an H100; the wrapper's
 //   size rule, kernels/macenko_fused.py::transform_body) gives an image one
-//   block of 512 threads, two blocks an SM, so 256 images run in one wave
-//   and their chains overlap.
+//   block of 512 threads, two blocks an SM wherever two fit (uint8 up to
+//   about 9 350 pixels: a 96^2 block takes 114 176 bytes), so 256 images of
+//   64^2 run in one wave, 512 of 96^2 in two, and their chains overlap.
 //   fit_resident_kernel (B2, wherever the pool fits: kernels/macenko_fused.py
-//   ::fit_resident_bytes; on an H100 uint8 up to 19 106 pixels, float32 up
-//   to 10 508) gives the pool one block with the SM to itself, pooled
+//   ::fit_resident_bytes; on an H100 uint8 up to 19 850 pixels, float32 up
+//   to 10 918) gives the pool one block with the SM to itself, pooled
 //   channel-major into three planes. On one SM the sweeps over a large pool are bound by
 //   instruction issue, so the block has 1024 threads: on an H100 at 700 W
 //   that was 7 % faster than 512 on a 128^2 pool and 14 % on the largest,
@@ -88,10 +90,12 @@
 //   the JAX kernel's trig-free _cos_third_acos root was a Mosaic workaround.
 //   Angles use the diamond pseudo-angle and _dir_from_pseudo, as the JAX
 //   kernels do. Built with -fmad=false, so products and sums round as in the
-//   plain PyTorch versions.
+//   plain PyTorch versions; those divide by a constant as these kernels do
+//   (ops/eigh3.py::div_rn), not by a product with its reciprocal.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "macenko_common.cuh"
@@ -343,9 +347,17 @@ constexpr int kFThreads = 1024;
 // selections' histograms, lane l into copy l % kRCopies, copies a bank apart
 // (kRCopyStride words): lanes whose keys crowd one bin (angles and
 // concentrations fill a few bins of a digit) conflict at most 4 ways, with
-// no warp matching.
+// no warp matching. A word holds one bin of both selections, selection s's
+// count in bits [16s, 16s + 16): a copy sees at most 4 * ceil(P / 32) keys
+// of a selection (groups g with g % kRCopies its own, V <= 4 keys each),
+// below 2^16 for every P a block holds (2 496 at the largest uint8 row), so
+// no count carries into the other's half.
 constexpr int kRCopies = 8;
-constexpr int kRCopyStride = 2 * kBins + 1;
+constexpr int kRCopyStride = kBins + 1;
+// sm_90's most shared memory a block, 232 448 bytes, holds fewer than
+// 232 448 / 8 pixels' keys: a copy's counts stay below 2^16 at any P.
+static_assert(4 * ((232448 / 8 + 4 * kRCopies - 1) / (4 * kRCopies)) < (1 << 16),
+              "a histogram copy's 16-bit counts could carry");
 
 // The fixed head of a resident block's shared memory (kernels/macenko_fused.py
 // RESIDENT_FIXED_BYTES and FIT_FIXED_BYTES); the keys of the two selections
@@ -356,7 +368,7 @@ struct ResidentShared {
   float lut[256];                 // uint8 value -> OD
   double part[Warps][kSums];      // per-warp partial sums
   double sums[kSums];             // block totals
-  unsigned int rep[kRCopies * kRCopyStride];  // the pass's histogram copies
+  unsigned int rep[kRCopies * kRCopyStride];  // the pass's histogram copies, packed
   unsigned int hist[2][kBins];    // the pass's histograms of the two selections
   uint32_t lo[2], hi[2];          // smallest and largest key below the sentinel
   unsigned int cnt[2];            // keys below the sentinel
@@ -371,11 +383,13 @@ struct ResidentShared {
 };
 using TransformShared = ResidentShared<kRThreads / 32>;
 using FitShared = ResidentShared<kFThreads / 32>;
-constexpr int kResidentFixed = 20992;
-constexpr int kFitFixed = 22272;
+constexpr int kResidentFixed = 12800;
+constexpr int kFitFixed = 14080;
 static_assert(sizeof(TransformShared) == kResidentFixed, "ResidentShared layout");
 static_assert(sizeof(FitShared) == kFitFixed, "ResidentShared layout");
 static_assert(kResidentFixed % 16 == 0 && kFitFixed % 16 == 0, "the keys start 16-byte aligned");
+static_assert(offsetof(TransformShared, hist) % 16 == 0 && offsetof(FitShared, hist) % 16 == 0,
+              "rpick reads the histograms 16 bytes at a time");
 
 // What a resident plane holds for pixel value v: uint8 keeps the raw value
 // (OD through the table), float32 the OD itself, computed once at load.
@@ -629,8 +643,10 @@ __device__ void conc_keys(const T* planes, int P, uint32_t* keys0, uint32_t* key
   __syncthreads();
 }
 
+// Counts bin of selection s (a literal at each call: the shift is a
+// constant) in the thread's histogram copy.
 __device__ __forceinline__ void rep_add(unsigned* rep, int s, bool in, unsigned bin) {
-  if (in) atomicAdd(rep + (threadIdx.x & (kRCopies - 1)) * kRCopyStride + s * kBins + bin, 1u);
+  if (in) atomicAdd(rep + (threadIdx.x & (kRCopies - 1)) * kRCopyStride + bin, 1u << (16 * s));
 }
 
 // One warp: the bin of the kBins counts h (16-byte aligned) that holds
@@ -678,9 +694,9 @@ __device__ __forceinline__ void rpick(const unsigned* h, int rank, unsigned& bin
 // the selection's extremes share (sh.lo, sh.hi, sh.cnt) and chooses up to 8
 // bits a pass: the keys under the prefix count their digit into the
 // histogram copies (one histogram while both selections read the same keys
-// under the same prefix), the copies are summed (and cleared) into sh.hist,
-// and a warp a selection picks the bin holding the rank. Leaves the
-// selected keys in sh.prefix.
+// under the same prefix), the copies' two halves are summed (and the copies
+// cleared) into sh.hist, and a warp a selection picks the bin holding the
+// rank. Leaves the selected keys in sh.prefix.
 template <int V, int Threads, typename S>
 __device__ void rselect2(const uint32_t* k0, const uint32_t* k1, int P, S& sh) {
   if (threadIdx.x < 2) {
@@ -723,13 +739,16 @@ __device__ void rselect2(const uint32_t* k0, const uint32_t* k1, int P, S& sh) {
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < 2 * kBins; i += Threads) {
-      unsigned c = 0u;
+    for (int i = threadIdx.x; i < kBins; i += Threads) {
+      unsigned c0 = 0u, c1 = 0u;
       for (int k = 0; k < kRCopies; ++k) {
-        c += sh.rep[k * kRCopyStride + i];
+        const unsigned w = sh.rep[k * kRCopyStride + i];
+        c0 += w & 0xFFFFu;
+        c1 += w >> 16;
         sh.rep[k * kRCopyStride + i] = 0u;
       }
-      sh.hist[i / kBins][i % kBins] = c;
+      sh.hist[0][i] = c0;
+      sh.hist[1][i] = c1;
     }
     __syncthreads();
     if (warp < 2 && sh.top[warp] > 0) {

@@ -15,6 +15,8 @@ body.
 The plain versions repeat the kernels' arithmetic on batched tensors:
 
 - OD from the raw values (uint8 through int32, float as ``I·255``);
+  divisions by a constant here and in the eigh divide on every device, as
+  the kernels do (:func:`~stainx_tpu_torch.ops.eigh3.div_rn`);
 - the β-mask; at transform, all pixels when fewer than 3 survive;
 - the 10 masked moments about OD−1, products in float32, summed in float64
   (the kernels sum in float64 in a fixed order: no float atomics);
@@ -43,7 +45,7 @@ import torch
 
 from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels.selection_stream import kth_smallest_streaming_plain
-from stainx_tpu_torch.ops.eigh3 import eigh3_top2
+from stainx_tpu_torch.ops.eigh3 import div_rn, eigh3_top2
 from stainx_tpu_torch.ops.percentile import (
     kth_smallest,
     nearest_rank_index,
@@ -65,8 +67,9 @@ def seed_state_init(device: str | torch.device = "cpu") -> torch.Tensor:
 
 # --------------------------------------------------------- plain helpers
 def optical_density(images_float: torch.Tensor) -> torch.Tensor:
-    """OD = −log((I·255 + 1) / Io) for float [0, 1] images."""
-    return -torch.log((images_float * 255.0 + 1.0) / IO)
+    """OD = −log((I·255 + 1) / Io) for float [0, 1] images, dividing as the
+    kernels do (:func:`~stainx_tpu_torch.ops.eigh3.div_rn`)."""
+    return -torch.log(div_rn(images_float * 255.0 + 1.0, IO))
 
 
 def maxc_scale(tmc: torch.Tensor, maxc: torch.Tensor) -> torch.Tensor:
@@ -103,7 +106,7 @@ def rescale_and_reconstruct(
 def od_from_planes(x: torch.Tensor, is_uint8: bool) -> torch.Tensor:
     """OD of raw (R, 3, P) values as float32."""
     if is_uint8:
-        return -torch.log((x.to(torch.int32).to(torch.float32) + 1.0) / IO)
+        return -torch.log(div_rn(x.to(torch.int32).to(torch.float32) + 1.0, IO))
     return optical_density(x.to(torch.float32))
 
 
@@ -318,7 +321,7 @@ def _vec4(p: int, *tensors: torch.Tensor) -> bool:
 # kResidentFixed); an image adds its two selections' keys (8 bytes a pixel)
 # and its three planes (3 bytes a uint8 pixel, 12 a float32 one, kept as
 # OD), each rounded up to 16 bytes.
-RESIDENT_FIXED_BYTES = 20992
+RESIDENT_FIXED_BYTES = 12800
 
 
 def resident_bytes(p: int, dtype: torch.dtype) -> int:
@@ -331,7 +334,9 @@ def transform_body(p: int, dtype: torch.dtype, smem_limit: int) -> str:
     """``"resident"`` (the image in one 512-thread block's shared memory) or
     ``"l2"`` (a 1024-thread block re-reading it from L2 each pass) for
     images of ``p`` pixels of ``dtype``, given a block's opt-in shared
-    memory: resident wherever it fits."""
+    memory: resident wherever it fits (on an H100 up to 19 968 uint8
+    pixels or 10 982 float32, two blocks an SM up to 9 354 uint8 pixels,
+    such as a 96² patch)."""
     return "resident" if resident_bytes(p, dtype) <= smem_limit else "l2"
 
 
@@ -431,7 +436,7 @@ def resident_selections(images, stain_matrix, target_max_conc):
 
 # B2's block (csrc/macenko_fused.cu kFitFixed: B1's resident head with a
 # 1024-thread block's partial sums) holds a pool as B1's holds an image.
-FIT_FIXED_BYTES = 22272
+FIT_FIXED_BYTES = 14080
 
 
 def fit_resident_bytes(pixels: int, dtype: torch.dtype) -> int:

@@ -18,6 +18,15 @@ import torch
 _DIAG_EPS = 1e-30
 
 
+def div_rn(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, on every device, as the kernels divide.
+    PyTorch's CUDA division by a Python number multiplies by the number's
+    float32 reciprocal instead, which rounds differently for about a third
+    of float32 values; a divisor tensor on ``x``'s device keeps the
+    division."""
+    return x / x.new_full((), c)
+
+
 def eigvalsh3(a: torch.Tensor) -> torch.Tensor:
     """Ascending eigenvalues (..., 3) of symmetric ``a`` (..., 3, 3)."""
     a = a.to(torch.float32)
@@ -25,10 +34,10 @@ def eigvalsh3(a: torch.Tensor) -> torch.Tensor:
     a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
 
     p1 = a01 * a01 + a02 * a02 + a12 * a12
-    q = (a00 + a11 + a22) / 3.0
+    q = div_rn(a00 + a11 + a22, 3.0)
 
     p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
-    p = torch.sqrt(torch.clamp(p2 / 6.0, min=_DIAG_EPS))
+    p = torch.sqrt(torch.clamp(div_rn(p2, 6.0), min=_DIAG_EPS))
     inv_p = 1.0 / p
     b00, b11, b22 = (a00 - q) * inv_p, (a11 - q) * inv_p, (a22 - q) * inv_p
     b01, b02, b12 = a01 * inv_p, a02 * inv_p, a12 * inv_p
@@ -38,7 +47,7 @@ def eigvalsh3(a: torch.Tensor) -> torch.Tensor:
         + b02 * (b01 * b12 - b11 * b02)
     )
     r = torch.clamp(det_b / 2.0, -1.0, 1.0)
-    phi = torch.acos(r) / 3.0
+    phi = div_rn(torch.acos(r), 3.0)
     e_max = q + 2.0 * p * torch.cos(phi)
     e_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     e_mid = 3.0 * q - e_max - e_min

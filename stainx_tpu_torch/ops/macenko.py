@@ -76,9 +76,9 @@ _KERNEL_DTYPES = (torch.uint8, torch.float32)
 # and B5 make one C call (one cluster launch for rows that fit a cluster),
 # so their host cost needs no margin of its own. The figures are the last
 # sweep's, after B1 and B2 took their resident bodies for images and pools
-# that fit a block's shared memory (B1: uint8 up to 19 222 pixels, float32
-# up to 10 572, larger images keep a body that re-reads L2; B2: 19 106 and
-# 10 508).
+# that fit a block's shared memory (B1 then held uint8 up to 19 222 pixels,
+# float32 up to 10 572, larger images keep a body that re-reads L2; B2
+# 19 106 and 10 508).
 # Transform (B4): uint8 rows of at least 50 176 pixels (224²) in batches of
 # up to 512 rows. B4 won every cell from 224² up, 4 to 512 rows: 4x224² at
 # 0.068-0.069 ms called against B1's 0.285-0.289, the WSI tiles' 256x224²
@@ -97,8 +97,8 @@ STREAM_MAX_ROWS = 512
 STREAM_MIN_ELEMS_F32 = 25_600
 STREAM_MAX_ROWS_F32 = 256
 # Fit (fit_route): B2 takes every pool that fits one block's shared memory
-# (kernels/macenko_fused.py::fit_resident_bytes; on the H100 up to 19 106
-# uint8 pixels, 10 508 float32), B5 every larger one. In two sweeps B2 won
+# (kernels/macenko_fused.py::fit_resident_bytes; on the H100 up to 19 850
+# uint8 pixels, 10 918 float32), B5 every larger one. In two sweeps B2 won
 # every round at every pool it holds, from 1x64² (0.055-0.061 ms called
 # against B5's 0.076-0.078) through 1x128² (0.044-0.046 against
 # 0.063-0.065), 4x64², 8x48², 2x96² and 1x136²; float32 1x64² (0.058-0.075
@@ -106,6 +106,8 @@ STREAM_MAX_ROWS_F32 = 256
 # 1x1x10 508 (0.058-0.064 against 0.077-0.081); at the largest uint8 pool,
 # 1x1x19 106, the second sweep's rounds overlapped as called (0.056-0.068
 # against 0.065-0.077; on the device 0.052 against 0.062), so B2 keeps it.
+# (The largest pools B2 held before its histogram copies were packed;
+# chip_smoke.py phase 5 races B2 and B5 at the largest it holds now.)
 # Past it B5 beat a B2 body that re-read the pool from L2 in every round
 # at every pool: 1x1x19 107 uint8 (0.077-0.092 against 0.117-0.118),
 # 1x144² to 1x192², 224² and up; float32 1x1x10 509 (0.070-0.074 against

@@ -1,4 +1,5 @@
-"""Synthetic H&E data for tests and on-card checks (numpy only).
+"""Synthetic H&E data for tests and on-card checks (numpy only at import),
+and the two helpers the tests, ``chip_smoke.py`` and ``tools/`` share.
 
 A copy of ``benchmarks/utils.py::synthetic_he_batch``, which imports JAX:
 Beer–Lambert tiles from the torchstain default H&E basis with per-pixel
@@ -62,3 +63,43 @@ def branch_point_field(ulps: int, rows: int, seed: int = 0) -> np.ndarray:
     planes = [np.stack([pool] * 3)] + [np.stack([rng.permutation(pool) for _ in range(3)])
                                        for _ in range(rows - 1)]
     return np.stack(planes, axis=1)[None]
+
+
+def largest(fits) -> int:
+    """The largest size up to 2^24 for which ``fits(size)`` holds, where it
+    holds up to some size and never past it: the edge of a size rule such
+    as ``kernels.macenko_fused.transform_body``."""
+    lo, hi = 1, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def selections_exact(keys, sel, p: int) -> bool:
+    """Whether ``sel`` ((R, 4) float32: the α and 100−α angles, the two
+    maxC) are ``kth_smallest`` of the keys ((R, 3, p) int32: angles, +inf's
+    key off the β-mask, then the two concentrations) that B1's resident
+    body or B2 selected on, bit for bit
+    (``kernels.macenko_fused.resident_selections``, ``fit_selections``)."""
+    import torch
+
+    from stainx_tpu_torch.kernels import macenko_fused as mf
+    from stainx_tpu_torch.kernels.selection import unkey
+    from stainx_tpu_torch.ops.percentile import (
+        kth_smallest,
+        nearest_rank_index,
+        static_nearest_rank_index,
+    )
+
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    vals = unkey(k)
+    member = k[:, 0] < 0xFF800000
+    cnt = member.sum(-1)
+    ranks = torch.stack([nearest_rank_index(mf.ALPHA, cnt),
+                         nearest_rank_index(100 - mf.ALPHA, cnt)], -1)
+    idx = torch.full((keys.shape[0],), static_nearest_rank_index(99, p), device=keys.device)
+    want = torch.cat([kth_smallest(vals[:, 0], ranks, member),
+                      kth_smallest(vals[:, 1], idx)[:, None],
+                      kth_smallest(vals[:, 2], idx)[:, None]], -1)
+    return torch.equal(sel.contiguous().view(torch.int32), want.contiguous().view(torch.int32))

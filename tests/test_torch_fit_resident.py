@@ -13,6 +13,9 @@ forward is held against the JAX package's within 1 grey level (1/255 of
 its [0, 1] output, plus the division's rounding).
 """
 
+import math
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -26,19 +29,29 @@ from stainx_tpu_torch import StainNormalizerTransform, kernels, profiling
 from stainx_tpu_torch.kernels import macenko_fused as mf
 from stainx_tpu_torch.kernels import macenko_stream as ms
 from stainx_tpu_torch.ops import macenko as mk
+from stainx_tpu_torch.testing import largest
 
 from tests.oracles import numpy_reference as oracle
 
 HE_ATOL, MC_RTOL = 2e-5, 1e-4
 H100_SMEM_OPTIN = 232_448
-# The largest pools B2 holds on an H100 (22 272 fixed bytes, 8 bytes of
+# The largest pools B2 holds on an H100 (14 080 fixed bytes, 8 bytes of
 # keys a pixel and 3 (uint8) or 12 (float32) of planes, each rounded up to
-# 16): 19 106 uint8 pixels and 10 508 float32 ones. Pool shapes (N, H, W)
+# 16): 19 850 uint8 pixels and 10 918 float32 ones. Pool shapes (N, H, W)
 # of that many pixels and of one more, with the route each takes.
 FIT_EDGE = {
-    "uint8": [((2, 41, 233), "mega"), ((1, 1, 19_107), "stream")],
-    "float32": [((4, 37, 71), "mega"), ((3, 31, 113), "stream")],
+    "uint8": [((2, 25, 397), "mega"), ((3, 13, 509), "stream")],
+    "float32": [((2, 53, 103), "mega"), ((1, 61, 179), "stream")],
 }
+# An H100 SM's shared memory; each resident block also takes a 1 KB reserve.
+H100_SMEM_PER_SM = 233_472
+SOURCE = (kernels.CSRC / "macenko_fused.cu").read_text()
+
+
+def _source_int(name: str) -> int:
+    """The value of ``constexpr int <name> = <literal>;`` in
+    ``csrc/macenko_fused.cu``."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
 
 def _pool(shape, dtype, seed=0, he_scale=1.0):
@@ -97,7 +110,7 @@ class TestFitRoute:
 
     @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
     def test_floor(self, dtype):
-        floor = 19_107 if dtype == torch.uint8 else 10_509  # on an H100
+        floor = 19_851 if dtype == torch.uint8 else 10_919  # on an H100
         assert mk.fit_route(floor - 1, dtype, H100_SMEM_OPTIN) == "mega"
         assert mk.fit_route(floor, dtype, H100_SMEM_OPTIN) == "stream"
         assert mk.fit_route(64 * 64, dtype, H100_SMEM_OPTIN) == "mega"
@@ -112,6 +125,45 @@ class TestFitRoute:
         """Every pool B2 holds on an H100 is B2's."""
         (n, h, w), _ = FIT_EDGE[str(dtype).split(".")[1]][0]
         assert mk.fit_route(n * h * w, dtype, H100_SMEM_OPTIN) == "mega"
+
+
+class TestResidentFootprint:
+    """The resident blocks' shared memory (``csrc/macenko_fused.cu``'s
+    ``ResidentShared``, whose size the source's static_asserts tie to its
+    constants): the wrapper's constants, the packed histogram copies'
+    16-bit counts at the largest row and pool a block holds, and two B1
+    blocks an SM at 96² uint8."""
+
+    def test_fixed_bytes_are_the_layout(self):
+        assert mf.RESIDENT_FIXED_BYTES == _source_int("kResidentFixed")
+        assert mf.FIT_FIXED_BYTES == _source_int("kFitFixed")
+        assert (mf.RESIDENT_FIXED_BYTES, mf.FIT_FIXED_BYTES) == (12_800, 14_080)
+        assert mf.RESIDENT_FIXED_BYTES % 16 == 0 and mf.FIT_FIXED_BYTES % 16 == 0
+
+    @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+    def test_packed_counts_stay_below_two_to_the_16(self, dtype):
+        """A word of a histogram copy holds both selections' counts of one
+        bin in 16 bits each. Copy ``threadIdx & (kRCopies - 1)`` takes the
+        groups of V ≤ 4 keys whose index is its own modulo kRCopies (every
+        block's thread count is a multiple of it), so it counts at most
+        4·⌈P / (4·kRCopies)⌉ keys of a selection (⌈P/8⌉ and up to 3 more):
+        below 2¹⁶ at the largest B1 row and B2 pool a 232 448-byte block
+        holds."""
+        copies = _source_int("kRCopies")
+        rows = largest(lambda p: mf.transform_body(p, dtype, H100_SMEM_OPTIN) == "resident")
+        pool = largest(lambda p: mk.fit_route(p, dtype, H100_SMEM_OPTIN) == "mega")
+        assert (rows, pool) == ((19_968, 19_850) if dtype == torch.uint8 else (10_982, 10_918))
+        for pixels in (rows, pool):
+            per_copy = 4 * math.ceil(pixels / (4 * copies))
+            assert per_copy < 2**16, (pixels, copies, per_copy)
+
+    def test_two_b1_blocks_an_sm(self):
+        """Two resident B1 blocks and their reserves fit an H100 SM up to
+        9 354 uint8 pixels an image (a 96² patch is 9 216) and 5 145
+        float32."""
+        for dtype, most in ((torch.uint8, 9_354), (torch.float32, 5_145)):
+            assert 2 * (mf.resident_bytes(most, dtype) + 1024) <= H100_SMEM_PER_SM
+            assert 2 * (mf.resident_bytes(most + 1, dtype) + 1024) > H100_SMEM_PER_SM
 
 
 class TestPlainFitNearTheLimit:
@@ -141,7 +193,7 @@ class TestPlainFitNearTheLimit:
     def test_b5_plain_agrees_past_the_limit(self):
         """Past the resident limit a pool goes to B5, whose plain version
         takes B6's selection conventions: the same fit as B2's."""
-        x = torch.as_tensor(_pool((1, 1, 19_107), "uint8", seed=40))
+        x = torch.as_tensor(_pool((1, 1, 19_851), "uint8", seed=40))
         he2, mc2 = mf.macenko_fit_mega_plain(x)
         he5, mc5 = ms.macenko_fit_stream_plain(x)
         assert torch.equal(he2, he5) and torch.equal(mc2, mc5)

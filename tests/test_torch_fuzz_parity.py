@@ -15,8 +15,8 @@ the route an H100 takes, ``ops/macenko.py::CPU_ROUTE_SMEM``):
   level, histogram matching bit for bit);
 - the Macenko route edges of ``ops/macenko.py``, where each side runs
   another plain code path: rows of B1 or B4 (uint8 at 50 176 pixels,
-  float32 at 25 600) and pools of B2 or B5 (uint8 past 19 106 pixels,
-  float32 past 10 508, from ``fit_route`` at the H100's shared memory),
+  float32 at 25 600) and pools of B2 or B5 (uint8 past 19 850 pixels,
+  float32 past 10 918, from ``fit_route`` at the H100's shared memory),
   each at the last size below the edge, the first above it and one H × W
   drawn at random within 1 % on each side; the route each case took is
   read from the plain versions' ``stream`` flag. They are held against
@@ -354,9 +354,9 @@ def test_sweep(jax_side, seed, as_float):
 
 def test_edges_are_the_ladders():
     """The edges the cases straddle are the ladder's: B4 from 50 176 uint8
-    and 25 600 float32 pixels a row, B5 past 19 106 uint8 and 10 508
+    and 25 600 float32 pixels a row, B5 past 19 850 uint8 and 10 918
     float32 pooled pixels on an H100's shared memory."""
-    assert [EDGES[e][2] + 1 for e in EDGES] == [50_176, 25_600, 19_107, 10_509]
+    assert [EDGES[e][2] + 1 for e in EDGES] == [50_176, 25_600, 19_851, 10_919]
     for edge, side, draw in EDGE_CASES:
         n, h, w = edge_shape(edge, side, draw)
         what, _, last = EDGES[edge]

@@ -104,13 +104,14 @@ class TestTransform:
 
 
 # The largest images B1's resident body holds on an H100 (232 448 bytes of
-# opt-in shared memory a block): 20 992 fixed bytes, 8 bytes of keys a pixel
-# and 3 (uint8) or 12 (float32) of planes, each rounded up to 16. Shapes
-# (H, W) of that many pixels and of one more.
+# opt-in shared memory a block): 12 800 fixed bytes, 8 bytes of keys a pixel
+# and 3 (uint8) or 12 (float32) of planes, each rounded up to 16, so 19 968
+# uint8 pixels and 10 982 float32 ones. Shapes (H, W) of that many pixels
+# and of one more.
 H100_SMEM_OPTIN = 232_448
 RESIDENT_EDGE = {
-    "uint8": [((14, 1373), "resident"), ((47, 409), "l2")],
-    "float32": [((12, 881), "resident"), ((97, 109), "l2")],
+    "uint8": [((96, 208), "resident"), ((19, 1051), "l2")],
+    "float32": [((38, 289), "resident"), ((21, 523), "l2")],
 }
 
 

@@ -196,6 +196,17 @@ class TestEigh3:
         got = eigh3.eigvalsh3(torch.as_tensor(a)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("c", [3.0, 6.0, 240.0])
+    def test_div_rn_rounds_the_quotient_once(self, c):
+        """The plain versions' divisions by a constant (the eigh's 3 and 6,
+        OD's Io) are the kernels' correctly rounded ``/``, which differs from
+        a product with the float32 reciprocal in the last bit."""
+        x = np.random.default_rng(int(c)).random(4096, dtype=np.float32) * 300
+        got = eigh3.div_rn(torch.as_tensor(x), c).numpy()
+        want = x / np.float32(c)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+        assert not np.array_equal(want, x * (np.float32(1) / np.float32(c)))
+
 
 class TestKthSmallest:
     @pytest.mark.parametrize("case", ["random", "duplicates", "sentinels", "masked", "empty_rows"])

@@ -12,20 +12,26 @@ selections; H/E and the normal rows; the concentration keys; the
 concentration selections), writing one value so that nothing before the
 stop is dropped. Times each build's kernel (``body="resident"``) from
 CUDA-graph replays on 4x3x64^2 uint8 (one image's chain of dependent
-phases: the card is nearly idle) and 256x3x64^2 uint8 (the small-patch
-path), cycling two batches: the difference between two variants is the
-time of a phase. Builds go to ``build/probe_b1/`` (git-ignored). Variants
-compute wrong outputs on purpose; none is checked. Last, the small-patch
+phases: the card is nearly idle), 256x3x64^2 uint8 (the small-patch
+path) and 512x3x96^2 uint8 (the patch cell's call), cycling two batches:
+the difference between two variants is the time of a phase. Each shape's
+first line names the blocks an SM the card holds of it. Builds go to
+``build/probe_b1/`` (git-ignored). Variants compute wrong outputs on
+purpose; none is checked. Last, the small-patch
 ``Macenko().transform`` on 256x3x64^2 uint8 as called (CUDA events around
 eager calls), with the wrappers' stream and device helpers as built
 (``kernels.current_stream``, ``kernels.on_device``) and with
 ``torch.cuda.current_stream(device).cuda_stream`` and
 ``torch.cuda.device(device)`` in their place, in ten alternating rounds.
 With ``--against``, also builds another source of ``macenko_fused.cu``
-(such as an older one unpacked from git into ``build/``), holds B1's
-outputs of both builds bit for bit on small patches (uint8 and float32),
-ragged rows, a tile that takes the <3-pixel fallback, a uniform tile and
-the largest resident rows, and times both at 256x3x64^2 uint8 in six
+(such as an older one unpacked from git into ``build/``), launched with
+the shared memory its own ``kResidentFixed`` gives, holds B1's outputs of
+both builds bit for bit on small patches (uint8 and float32), the patch
+cell's 96^2 patches, ragged rows, a tile that takes the <3-pixel
+fallback, a uniform tile and the largest resident rows of each build (the
+larger of the two may take the other build's L2 body: its line gives the
+largest difference too), prints the blocks an SM each build holds at
+96^2, and times both at 256x3x64^2 and 512x3x96^2 uint8 in six
 alternating rounds. Imports no JAX and nothing of ``stainx_tpu``.
 """
 
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -70,7 +77,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from stainx_tpu_torch import kernels
     from stainx_tpu_torch.kernels import macenko_fused as mf
-    from stainx_tpu_torch.testing import synthetic_he_batch
+    from stainx_tpu_torch.ops.percentile import static_nearest_rank_index
+    from stainx_tpu_torch.testing import largest, synthetic_he_batch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -96,6 +104,7 @@ def main() -> int:
         procs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True)))
     libs = []
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -103,11 +112,49 @@ def main() -> int:
         cdll = ctypes.CDLL(str(lib))
         cdll.stainx_error_string.argtypes = [ctypes.c_int]
         cdll.stainx_error_string.restype = ctypes.c_char_p
+        cdll.stainx_macenko_transform_mega.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_float, i64, i64,
+                                                       i32, i32, i64, i64, ptr, ptr, ptr, ptr, ptr]
+        cdll.stainx_macenko_transform_mega.restype = i32
+        cdll.stainx_macenko_transform_occupancy.argtypes = [i32, i32, i64, ptr]
+        cdll.stainx_macenko_transform_occupancy.restype = i32
         libs.append((name, cdll))
 
     dev = torch.device("cuda", 0)
     ref = torch.as_tensor(synthetic_he_batch(1, 64, 64, seed=1)).to(dev)
-    he, mc = mf.macenko_fit_mega_plain(ref)
+    he, mc = (t.contiguous() for t in mf.macenko_fit_mega_plain(ref))
+    smem_optin = kernels.device_limits(dev.index)[1]
+    built_fixed = mf.RESIDENT_FIXED_BYTES
+
+    def block_bytes(p, dtype, fixed):
+        """A resident block's shared memory for p-pixel images in a build
+        whose fixed head takes ``fixed`` bytes (the wrapper's rule)."""
+        return mf.resident_bytes(p, dtype) - mf.RESIDENT_FIXED_BYTES + fixed
+
+    def launch(lib, x, fixed, body=None):
+        """B1 of lib's build on x, as the wrapper launches it, given the
+        build's fixed head: the resident body where the image fits (or
+        ``body``), else the L2 body."""
+        n, _, h, w = x.shape
+        p = h * w
+        smem = block_bytes(p, x.dtype, fixed)
+        body = body or ("resident" if smem <= smem_optin else "l2")
+        out = torch.empty_like(x)
+        code = lib.stainx_macenko_transform_mega(
+            x.data_ptr(), out.data_ptr(), he.data_ptr(), mc.data_ptr(), 1.0, n, p,
+            int(x.dtype == torch.uint8), int(mf._vec4(p, x, out)), static_nearest_rank_index(99, p),
+            smem if body == "resident" else 0, None, None, kernels.current_stream(dev), None, None)
+        kernels.check(lib, code, "macenko_transform_mega")
+        return out
+
+    def per_sm(lib, p, fixed):
+        """Blocks of lib's resident uint8 launch of p-pixel images an SM
+        holds (the wrapper's occupancy query, asked of that build)."""
+        found = ctypes.c_int(0)
+        code = lib.stainx_macenko_transform_occupancy(1, int(p % 4 == 0),
+                                                      block_bytes(p, torch.uint8, fixed),
+                                                      ctypes.addressof(found))
+        kernels.check(lib, code, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+        return found.value
 
     def replay_ms(fn, xs, iters=50):
         for x in xs:
@@ -132,10 +179,12 @@ def main() -> int:
 
     if args.against:
         (_, built), (_, other) = libs[-2], libs.pop()
+        other_fixed = int(re.search(r"constexpr int kResidentFixed = (\d+);",
+                                    builds[-1][1]).group(1))
+        fixed = {id(built): built_fixed, id(other): other_fixed}
 
         def b1_with(lib, x):
-            kernels._libs["macenko_fused"] = lib
-            return mf.macenko_transform_mega(x, he, mc)
+            return launch(lib, x, fixed[id(lib)])  # the shared memory that build lays out
 
         def u8(n, h, w, seed):
             return torch.as_tensor(synthetic_he_batch(n, h, w, seed=seed)).to(dev)
@@ -144,34 +193,45 @@ def main() -> int:
         fallback[:, 0] = torch.clamp(fallback[:, 0], min=215)
         fallback[:, :, 5, 7] = torch.tensor([120, 60, 150], dtype=torch.uint8, device=dev)[None]
         fallback[:, :, 40, 3] = torch.tensor([90, 70, 130], dtype=torch.uint8, device=dev)[None]
+        edges = {name: largest(lambda p, f=f: block_bytes(p, torch.uint8, f) <= smem_optin)
+                 for name, f in (("as built", built_fixed), ("against", other_fixed))}
         cases = [("256x3x64^2 u8", u8(256, 64, 64, 7)),
                  ("256x3x64^2 f32", u8(256, 64, 64, 7).float() / 255.0),
+                 ("512x3x96^2 u8", u8(512, 96, 96, 10)),
                  ("2x3x71x73 u8", u8(2, 71, 73, 8)), ("the <3-pixel fallback", fallback),
-                 ("uniform 250", torch.full((2, 3, 64, 64), 250, dtype=torch.uint8, device=dev)),
-                 ("3x3x1x19222 u8 (the largest resident rows)", u8(3, 1, 19222, 9))]
+                 ("uniform 250", torch.full((2, 3, 64, 64), 250, dtype=torch.uint8, device=dev))]
+        cases += [(f"3x3x1x{p} u8 (the largest resident rows {name})", u8(3, 1, p, 9))
+                  for name, p in sorted(edges.items(), key=lambda e: e[1])]
         for label, x in cases:
             a, b = b1_with(built, x), b1_with(other, x)
             same = torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                                b.view(torch.int32) if b.is_floating_point() else b)
-            print(f"B1 {label}: as built and {args.against} bit for bit {same}")
-        xs = [u8(256, 64, 64, 20 + k) for k in range(2)]
-        rounds = []
-        for r in range(6):
-            pair = [("as built", built), ("against", other)]
-            if r % 2:
-                pair.reverse()
-            rounds.append({name: replay_ms(lambda x, lb=lib: b1_with(lb, x), xs) for name, lib in pair})
-        for name in ("as built", "against"):
-            t = [r[name] for r in rounds]
-            print(f"B1 256x3x64^2 u8 {name}: {min(t):.4f}-{max(t):.4f} ms on the device, 6 rounds")
+            diff = (a.float() - b.float()).abs().max().item()
+            print(f"B1 {label}: as built and {args.against} bit for bit {same} "
+                  f"(max|d| {diff:.3g})")
+        print(f"B1 512x3x96^2 u8 blocks an SM: as built {per_sm(built, 96 * 96, built_fixed)}, "
+              f"{args.against} {per_sm(other, 96 * 96, other_fixed)}")
+        for n, side in ((256, 64), (512, 96)):
+            xs = [u8(n, side, side, 20 + k) for k in range(2)]
+            rounds = []
+            for r in range(6):
+                pair = [("as built", built), ("against", other)]
+                if r % 2:
+                    pair.reverse()
+                rounds.append({name: replay_ms(lambda x, lb=lib: b1_with(lb, x), xs)
+                               for name, lib in pair})
+            for name in ("as built", "against"):
+                t = [r[name] for r in rounds]
+                print(f"B1 {n}x3x{side}^2 u8 {name}: {min(t):.4f}-{max(t):.4f} ms on the "
+                      f"device, 6 rounds")
 
-    for n in (4, 256):
-        xs = [torch.as_tensor(synthetic_he_batch(n, 64, 64, seed=s)).to(dev) for s in (2, 3)]
+    for n, side in ((4, 64), (256, 64), (512, 96)):
+        xs = [torch.as_tensor(synthetic_he_batch(n, side, side, seed=s)).to(dev) for s in (2, 3)]
+        print(f"{n}x3x{side}^2 u8: {per_sm(libs[-1][1], side * side, built_fixed)} blocks an SM")
         prev = 0.0
         for name, lib in libs:
-            kernels._libs["macenko_fused"] = lib  # the wrapper launches this build
-            ms = replay_ms(lambda x: mf.macenko_transform_mega(x, he, mc, body="resident"), xs)
-            print(f"{n}x3x64^2 u8, resident body {name}: {ms:.4f} ms on the device "
+            ms = replay_ms(lambda x, lb=lib: launch(lb, x, built_fixed, body="resident"), xs)
+            print(f"{n}x3x{side}^2 u8, resident body {name}: {ms:.4f} ms on the device "
                   f"(+{ms - prev:.4f})")
             prev = ms
 
