@@ -463,6 +463,13 @@ void launch_apply(const ApplyArgs& a, cudaStream_t s) {
   else launch_apply_t<uint8_t>(a, s);
 }
 
+// Records `event` (a CUDA event, or null for none) on `s`; the CUDA error.
+int mark(void* event, cudaStream_t s) {
+  return event == nullptr
+             ? 0
+             : static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event), s));
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -507,29 +514,29 @@ int stainx_hm_fit(const void* x, void* partials, void* hist, long long n, long l
 // device, made with timing: stats_start is recorded before the histogram
 // launch and stats_end after the LUT finalize, so the interval between them
 // holds the call-wide histogram and LUT and nothing the host or the apply
-// does. The launches, their order and the outputs are the same with or
-// without.
+// does. launch_start and launch_end, where not null, are such events too:
+// recorded just before the first launch and just after the last, so the
+// interval holds the call's three launches. The launches, their order and
+// the outputs are the same with or without.
 int stainx_hm_transform(const void* x, void* out, void* partials, const void* ref_hist, void* lut,
                         void* table, long long n, long long p, int c, int bpc, long long chunk,
                         float src_scale, int is_float, int vec, int apply_bpc,
                         long long apply_chunk, void* stream, void* stats_start,
-                        void* stats_end) {
+                        void* stats_end, void* launch_start, void* launch_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   const HistArgs a = hist_args(x, partials, n, p, c, bpc, chunk);
-  int code = 0;
-  if (stats_start != nullptr) {
-    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_start), s));
-    if (code != 0) return code;
-  }
+  int code = mark(launch_start, s);
+  if (code == 0) code = mark(stats_start, s);
+  if (code != 0) return code;
   launch_hist(a, s);
   launch_finalize(a, kLut, static_cast<const float*>(ref_hist), src_scale, static_cast<float*>(lut),
                   table, is_float, s);
-  if (stats_end != nullptr) {
-    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_end), s));
-    if (code != 0) return code;
-  }
+  code = mark(stats_end, s);
+  if (code != 0) return code;
   launch_apply({a.x, out, table, n, p, c, apply_bpc, apply_chunk, is_float, vec}, s);
-  return static_cast<int>(cudaGetLastError());
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  return mark(launch_end, s);
 }
 
 // The transform's finalize alone, on given (c, 256) int32 counts: lut and

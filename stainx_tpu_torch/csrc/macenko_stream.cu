@@ -1180,10 +1180,11 @@ cudaError_t launch_cluster(const void* x, void* out, long long rows, long long p
                            int csize, long long S, long long R, int vec, int fallback,
                            long long idx99, const float* stain, const float* tmc, float out_scale,
                            RowParams* prm, uint32_t* keys, long long ref_row, RowParams* fit_prm,
-                           cudaStream_t s) {
+                           cudaStream_t s, cudaEvent_t start) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
-  const cudaError_t e = cluster_config<T, Fused>(rows, csize, R, s, cfg, attrs);
+  cudaError_t e = cluster_config<T, Fused>(rows, csize, R, s, cfg, attrs);
+  if (e == cudaSuccess && start != nullptr) e = cudaEventRecord(start, s);
   if (e != cudaSuccess) return e;
   return cudaLaunchKernelEx(&cfg, ClusterKernel<T>(cluster_kernel<T, Fused>),
                             static_cast<const T*>(x), static_cast<T*>(out),
@@ -1308,22 +1309,31 @@ const char* stainx_error_string(int code) {
 // of 16, at most S) resident in shared memory. vec: p a multiple of 16 /
 // sizeof(T) and x, out 16-byte aligned. keys: for float32 with R < S, a
 // 16-byte aligned key field of rows * csize * 2 * (S - R) uint32, else null.
+// launch_start and launch_end, where not null, are CUDA events of the
+// stream's device, made with timing: recorded just before the launch (after
+// its attributes are set) and just after it. The launch and the outputs are
+// the same with or without.
 int stainx_cluster_run(const void* x, void* out, long long n, long long p, int ipr, int is_uint8,
                        int vec, int csize, long long S, long long R, int fallback, long long idx99,
                        const void* stain, const void* tmc, float out_scale, void* prm,
-                       void* keys, void* stream) {
+                       void* keys, void* stream, void* launch_start, void* launch_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const float*>(stain);
   const auto* tm = static_cast<const float*>(tmc);
   auto* rp = static_cast<RowParams*>(prm);
   auto* kf = static_cast<uint32_t*>(keys);
+  const auto start = static_cast<cudaEvent_t>(launch_start);
   const long long rows = n / ipr;
-  const cudaError_t e =
+  cudaError_t e =
       is_uint8 ? launch_cluster<uint8_t, false>(x, out, rows, p, ipr, csize, S, R, vec, fallback,
                                                 idx99, st, tm, out_scale, rp, nullptr, 0, nullptr,
-                                                s)
+                                                s, start)
                : launch_cluster<float, false>(x, out, rows, p, ipr, csize, S, R, vec, fallback,
-                                              idx99, st, tm, out_scale, rp, kf, 0, nullptr, s);
+                                              idx99, st, tm, out_scale, rp, kf, 0, nullptr, s,
+                                              start);
+  if (e == cudaSuccess && launch_end != nullptr) {
+    e = cudaEventRecord(static_cast<cudaEvent_t>(launch_end), s);
+  }
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);
@@ -1338,21 +1348,25 @@ int stainx_cluster_run(const void* x, void* out, long long n, long long p, int i
 // float64 sums, and every image is reconstructed on its HE and maxC. One
 // cooperative cluster launch: the card must hold every row's cluster at
 // once (else cudaErrorCooperativeLaunchTooLarge). The other arguments as
-// stainx_cluster_run's.
+// stainx_cluster_run's, launch_start and launch_end too.
 int stainx_cluster_fit_transform(const void* x, void* out, long long n, long long p, int is_uint8,
                                  int vec, int csize, long long S, long long R, long long idx99,
                                  long long ref_row, float out_scale, void* prm, void* fit_prm,
-                                 void* keys, void* stream) {
+                                 void* keys, void* stream, void* launch_start, void* launch_end) {
   const auto s = static_cast<cudaStream_t>(stream);
   auto* rp = static_cast<RowParams*>(prm);
   auto* fp = static_cast<RowParams*>(fit_prm);
   auto* kf = static_cast<uint32_t*>(keys);
-  const cudaError_t e =
+  const auto start = static_cast<cudaEvent_t>(launch_start);
+  cudaError_t e =
       is_uint8 ? launch_cluster<uint8_t, true>(x, out, n, p, 1, csize, S, R, vec, 1, idx99,
                                                nullptr, nullptr, out_scale, rp, nullptr, ref_row,
-                                               fp, s)
+                                               fp, s, start)
                : launch_cluster<float, true>(x, out, n, p, 1, csize, S, R, vec, 1, idx99, nullptr,
-                                             nullptr, out_scale, rp, kf, ref_row, fp, s);
+                                             nullptr, out_scale, rp, kf, ref_row, fp, s, start);
+  if (e == cudaSuccess && launch_end != nullptr) {
+    e = cudaEventRecord(static_cast<cudaEvent_t>(launch_end), s);
+  }
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(e);

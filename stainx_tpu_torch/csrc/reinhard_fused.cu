@@ -398,6 +398,13 @@ void launch_apply(const void* x, void* out, const float* const (&stats)[4], int6
                                                  static_cast<unsigned>(p / V));
 }
 
+// Records `event` (a CUDA event, or null for none) on `s`; the CUDA error.
+int mark(void* event, cudaStream_t s) {
+  return event == nullptr
+             ? 0
+             : static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event), s));
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -456,26 +463,28 @@ int stainx_reinhard_apply(const void* x, void* out, const void* lab_mean, const 
 // device, made with timing: stats_start is recorded before the moments
 // launch and stats_end after their finalize, so the interval between them
 // holds the call-wide statistics and nothing the host or the apply does.
-// The launches, their order and the outputs are the same with or without.
+// launch_start and launch_end, where not null, are such events too:
+// recorded just before the first launch and just after the last, so the
+// interval holds the call's three launches. The launches, their order and
+// the outputs are the same with or without.
 int stainx_reinhard_transform(const void* x, void* out, void* partials, void* out6,
                               void* stats6, const void* ref_mean, const void* ref_std,
                               long long n, long long p, int is_uint8, int vec, int blocks,
-                              void* stream, void* stats_start, void* stats_end) {
+                              void* stream, void* stats_start, void* stats_end,
+                              void* launch_start, void* launch_end) {
   const auto s = static_cast<cudaStream_t>(stream);
-  int code = 0;
-  if (stats_start != nullptr) {
-    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_start), s));
-    if (code != 0) return code;
-  }
+  int code = mark(launch_start, s);
+  if (code == 0) code = mark(stats_start, s);
+  if (code != 0) return code;
   code = stainx_reinhard_moments(x, partials, out6, stats6, n, p, is_uint8, vec, blocks, stream);
   if (code != 0) return code;
-  if (stats_end != nullptr) {
-    code = static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(stats_end), s));
-    if (code != 0) return code;
-  }
+  code = mark(stats_end, s);
+  if (code != 0) return code;
   const auto* st = static_cast<const float*>(stats6);
-  return stainx_reinhard_apply(x, out, st, st + 3, ref_mean, ref_std, n, p, is_uint8, vec,
+  code = stainx_reinhard_apply(x, out, st, st + 3, ref_mean, ref_std, n, p, is_uint8, vec,
                                blocks, stream);
+  if (code != 0) return code;
+  return mark(launch_end, s);
 }
 
 }  // extern "C"

@@ -24,8 +24,11 @@ run vectors (:mod:`stainx_tpu_torch.profiling`).
   ``stainx_hm_transform`` two CUDA timing events from
   :func:`~stainx_tpu_torch.profiling.caller_timed`, which the C call
   records on the stream before the histogram launch and after the LUT
-  finalize, before the apply. With no session running it passes two nulls;
-  the launches, their order and the outputs are the same either way.
+  finalize, before the apply. With no session running it passes two nulls.
+  In a call that the call timeline samples it also passes the call's two
+  launch events (:func:`~stainx_tpu_torch.profiling.launch_events`),
+  recorded before the first launch and after the last; elsewhere two more
+  nulls. The launches, their order and the outputs are the same either way.
 - :func:`apply_lut`: a per-channel 256-entry lookup of (N, C, P) uint8
   through a (C, 256) float32 LUT: ``⌊clip(lut[c, v], 0, 255)⌋`` as uint8, or
   ``clip(lut[c, v] / 255, 0, 1)`` as float32. The (C, 256) table of either
@@ -243,7 +246,7 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_hm_fit.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i64, ptr]
         lib.stainx_hm_fit.restype = i32
         lib.stainx_hm_transform.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, i64, ptr, ptr, ptr]
+            [ptr] * 6 + [i64, i64, i32, i32, i64, f32, i32, i32, i32, i64] + [ptr] * 5
         )
         lib.stainx_hm_transform.restype = i32
         lib.stainx_hm_lut.argtypes = [ptr, ptr, ptr, ptr, i32, f32, i32, ptr]
@@ -378,8 +381,9 @@ def hm_transfer(values_u8: torch.Tensor, ref_hist: torch.Tensor, out_dtype: torc
                 lut.data_ptr(), table.data_ptr(), n, p, c, bpc, chunk,
                 _reciprocal(float(n * p) + 1e-8), int(out_dtype == torch.float32),
                 *_apply_launch(values_u8, out), kernels.current_stream(dev))
+        launch = profiling.launch_events(dev) or (None, None)
         with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
-            code = lib.stainx_hm_transform(*call, *(events or (None, None)))
+            code = lib.stainx_hm_transform(*call, *(events or (None, None)), *launch)
         kernels.check(lib, code, "hm_transfer")
         profiling.count("launch.B8a")
         profiling.count("launch.B8b")

@@ -9,8 +9,10 @@ launches in ``launch.B1`` or ``launch.B2`` (:mod:`stainx_tpu_torch.profiling`).
 In a profiler session B1's span holds the device interval of its launch
 alone (events recorded inside its C call) and names its body (``route``)
 and the blocks an SM holds (``blocks_per_sm``, asked of the card once a
-shape); each B1 launch also counts in ``resident.B1`` or ``l2.B1``, by
-body.
+shape); in a call that the call timeline samples the C call records the
+call's launch events (:func:`~stainx_tpu_torch.profiling.launch_events`),
+the same pair where both hold; each B1 launch also counts in
+``resident.B1`` or ``l2.B1``, by body.
 
 The plain versions repeat the kernels' arithmetic on batched tensors:
 
@@ -346,9 +348,11 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: 
     ``check`` the keys and selections of :func:`resident_selections`.
     Without ``check`` the launch counts in ``launch.B1`` and in its body's
     counter, ``resident.B1`` or ``l2.B1``. ``events``: None, or the two
-    event handles of :func:`~stainx_tpu_torch.profiling.caller_timed`, which
-    the C call records around the launch; given them, the span also notes
-    :func:`blocks_per_sm`."""
+    event handles of :func:`~stainx_tpu_torch.profiling.caller_timed` in a
+    profiler session, which the C call records around the launch; given
+    them, the span also notes :func:`blocks_per_sm`. Without them the C call
+    records the sampled call's :func:`~stainx_tpu_torch.profiling.launch_events`
+    (none outside a sampled call)."""
     _check_scale(images, scale, "macenko_transform_mega")
     kernels.check_cuda(images, "macenko_transform_mega")
     dev = images.device
@@ -372,12 +376,13 @@ def _transform(images, stain_matrix, target_max_conc, body, check: bool, scale: 
         return out, keys, sel
     is_uint8, vec4 = int(images.dtype == torch.uint8), int(_vec4(p, images, out))
     lib = _lib()
+    marks = events or (None if check else profiling.launch_events(dev)) or (None, None)
     with kernels.on_device(dev):
         code = lib.stainx_macenko_transform_mega(
             images.data_ptr(), out.data_ptr(), he.data_ptr(), tmc.data_ptr(), scale,
             n, p, is_uint8, vec4, static_nearest_rank_index(99, p), smem,
             keys.data_ptr() if check else None, sel.data_ptr() if check else None,
-            kernels.current_stream(dev), *(events or (None, None)),
+            kernels.current_stream(dev), *marks,
         )
     kernels.check(lib, code, "macenko_transform_mega")
     if not check:
@@ -414,7 +419,7 @@ def macenko_transform_mega(images, stain_matrix, target_max_conc, body: str | No
     (``ops.macenko.UNIT_SCALE`` writes [0, 1]; uint8 takes only 1). One
     launch per call, one thread block per image; ``body`` (``"resident"``
     or ``"l2"``) overrides :func:`transform_body`, for measurements."""
-    with profiling.caller_timed("stainx.kernel.B1", images.device) as events:
+    with profiling.caller_timed("stainx.kernel.B1", images.device, launch=True) as events:
         kernels.check_rgb_batch(images, "macenko_transform_mega")
         if images.device.type == "cpu":
             return macenko_transform_mega_plain(images, stain_matrix, target_max_conc, scale)

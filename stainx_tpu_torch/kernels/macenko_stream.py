@@ -38,7 +38,10 @@ arguments) and counts its C calls in ``launch.B4.<route>`` or
 ``keyfield.B4`` or ``keyfield.B5``, its bytes in the span's ``keyfield``
 argument (:mod:`stainx_tpu_torch.profiling`). The fused call is the span
 ``stainx.kernel.B4`` (its ``fit_row`` in the arguments), a ``launch.B4.cluster``
-and a ``fit.fused``.
+and a ``fit.fused``. In a call that the call timeline samples, a cluster-route
+C call (the fused one too) records the call's launch events around its
+launch (:func:`~stainx_tpu_torch.profiling.launch_events`); the streamed
+route records none.
 
 Nothing is read back to the host: ranks, statistics and selected values stay
 on the device, so a call can be captured in a CUDA graph. ``seed_state`` is
@@ -199,7 +202,7 @@ def _lib() -> ctypes.CDLL:
         f32 = ctypes.c_float
         lib.stainx_cluster_run.argtypes = [
             ptr, ptr, i64, i64, i32, i32, i32, i32, i64, i64, i32, i64, ptr, ptr, f32, ptr, ptr,
-            ptr
+            ptr, ptr, ptr
         ]
         lib.stainx_stream_run.argtypes = [
             ptr, ptr, i64, i64, i32, i32, i32, i32, i32, i32, i64, ptr, ptr, f32, ptr, ptr, ptr,
@@ -207,7 +210,8 @@ def _lib() -> ctypes.CDLL:
         ]
         lib.stainx_stream_fields.argtypes = [ptr, i64, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
         lib.stainx_cluster_fit_transform.argtypes = [
-            ptr, ptr, i64, i64, i32, i32, i32, i64, i64, i64, i64, f32, ptr, ptr, ptr, ptr
+            ptr, ptr, i64, i64, i32, i32, i32, i64, i64, i64, i64, f32, ptr, ptr, ptr, ptr, ptr,
+            ptr
         ]
         lib.stainx_cluster_occupancy.argtypes = [i32, i32, i64, ptr]
         for fn in (lib.stainx_cluster_run, lib.stainx_stream_run, lib.stainx_stream_fields,
@@ -261,19 +265,20 @@ def _run(images, out, stain, tmc, fit: bool, force: str | None = None,
         vec = p % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
         buf = torch.empty((buf_rows, PARAMS_WIDTH), dtype=torch.float32, device=dev)
         keys = buf.data_ptr() + rows * PARAMS_WIDTH * 4 if keyfield else null
+        events = profiling.launch_events(dev) or (null, null)
         with kernels.on_device(dev):
             if fit_into is not None:
                 code = lib.stainx_cluster_fit_transform(
                     images.data_ptr(), out.data_ptr(), n, p, int(is_uint8), int(vec), csize,
                     slice_, resident, idx99, fit_row, scale, buf.data_ptr(),
-                    fit_into.data_ptr(), keys, stream,
+                    fit_into.data_ptr(), keys, stream, *events,
                 )
             else:
                 code = lib.stainx_cluster_run(
                     images.data_ptr(), null if out is None else out.data_ptr(), n, p, per_row,
                     int(is_uint8), int(vec), csize, slice_, resident, int(not fit), idx99,
                     null if fit else stain.data_ptr(), null if fit else tmc.data_ptr(), scale,
-                    buf.data_ptr(), keys, stream,
+                    buf.data_ptr(), keys, stream, *events,
                 )
         kernels.check(lib, code, what)
         profiling.count(counter + take)

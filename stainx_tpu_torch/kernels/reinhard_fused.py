@@ -30,8 +30,11 @@ the C call records the span's device interval itself: the wrapper passes
 :func:`~stainx_tpu_torch.profiling.caller_timed`, and the C call records one
 on the stream before the moments launch and one after their finalize, then
 launches the apply. With no session running the wrapper passes two nulls
-and nothing is recorded; the launches, their order and the outputs are the
-same either way.
+and nothing is recorded. In a call that the call timeline samples it also
+passes the call's two launch events
+(:func:`~stainx_tpu_torch.profiling.launch_events`), recorded before the
+first launch and after the last; elsewhere two more nulls. The launches,
+their order and the outputs are the same either way.
 
 ``LAB_MOMENT_CENTER`` and :func:`moments_to_mean_std` are shared with
 :mod:`stainx_tpu_torch.ops.reinhard` and :mod:`stainx_tpu_torch.parallel`.
@@ -131,7 +134,7 @@ def _lib() -> ctypes.CDLL:
         lib.stainx_reinhard_apply.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32, ptr]
         lib.stainx_reinhard_apply.restype = i32
         lib.stainx_reinhard_transform.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32,
-                                                              ptr, ptr, ptr]
+                                                              ptr, ptr, ptr, ptr, ptr]
         lib.stainx_reinhard_transform.restype = i32
         lib._stainx_declared = True
     return lib
@@ -261,8 +264,9 @@ def reinhard_transfer(images: torch.Tensor, reference_mean, reference_std) -> to
         lib = _lib()
         call = (images.data_ptr(), out.data_ptr(), partials.data_ptr(), small.data_ptr(),
                 small.data_ptr() + 6 * 4, ref_mean.data_ptr(), ref_std.data_ptr(), *args)
+        launch = profiling.launch_events(dev) or (None, None)
         with kernels.on_device(dev), profiling.caller_timed("stainx.stats", dev) as events:
-            code = lib.stainx_reinhard_transform(*call, *(events or (None, None)))
+            code = lib.stainx_reinhard_transform(*call, *(events or (None, None)), *launch)
         kernels.check(lib, code, "reinhard_transfer")
         profiling.count("launch.B7b")
         profiling.count("launch.B7a")

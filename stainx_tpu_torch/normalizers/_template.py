@@ -2,8 +2,9 @@
 
 Counterpart of ``stainx_tpu/normalizers/_template.py``. There is no backend
 knob: the device decides the route (CUDA runs the hand-written kernels, the
-CPU runs their plain PyTorch versions). ``fit`` and ``transform`` are the
-spans ``stainx.fit`` and ``stainx.transform``, each with its device interval
+CPU runs their plain PyTorch versions). ``fit`` is the span ``stainx.fit``,
+with its device interval; ``transform`` is the root span ``stainx.transform``
+of a public call, which the call timeline samples
 (:mod:`stainx_tpu_torch.profiling`).
 """
 
@@ -47,7 +48,7 @@ class NormalizerTemplate(StainNormalizerBase):
 
     def transform(self, images: Any) -> torch.Tensor:
         """Transform images with the fitted parameters."""
-        with profiling.annotate("stainx.transform", device=self.device):
+        with profiling.call("stainx.transform"):
             if not self._is_fitted:
                 raise ValueError("Must call fit() before transform()")
             return self._transform_impl(self._as_device_tensor(images))

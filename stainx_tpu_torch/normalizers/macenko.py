@@ -113,7 +113,7 @@ class Macenko(NormalizerTemplate):
             return super()._fit_transform_at(batch, idx)
         with profiling.annotate("stainx.fit", device=self.device):
             self._validate_layout(batch, "fit")
-        with profiling.annotate("stainx.transform", device=self.device):
+        with profiling.call("stainx.transform"):
             out, self._stain_matrix, self._target_max_conc = macenko_ops.macenko_fit_transform(
                 batch, idx, scale=self._store_scale(batch))
         self._is_fitted = True
@@ -138,7 +138,7 @@ class Macenko(NormalizerTemplate):
     def _finalize_range(self, result: torch.Tensor) -> torch.Tensor:
         """The eager ÷255 of ``normalize_to_0_1``; ``result`` as it is without it."""
         if self.normalize_to_0_1:
-            with profiling.annotate("stainx.finalize", device=result.device):
+            with profiling.annotate("stainx.finalize"):
                 result = result / 255.0
         return result
 

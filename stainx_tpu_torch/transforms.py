@@ -234,7 +234,7 @@ class StainNormalizerTransform(nn.Module):
         the input's layout and the value range the module docstring sets.
         The call is the span ``stainx.forward``
         (:mod:`stainx_tpu_torch.profiling`)."""
-        with profiling.annotate("stainx.forward"):
+        with profiling.call("stainx.forward", outer=True):
             return self._forward(img)
 
     def _forward(self, img: Any) -> torch.Tensor:

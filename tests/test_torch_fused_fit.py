@@ -278,7 +278,7 @@ def test_the_plain_version_is_b5_then_b4():
 
 # --------------------------------------------------- the C call, recorded
 NAMES = ("x", "out", "n", "p", "is_uint8", "vec", "csize", "slice", "resident", "idx99",
-         "ref_row", "out_scale", "prm", "fit_prm", "keys", "stream")
+         "ref_row", "out_scale", "prm", "fit_prm", "keys", "stream", "launch_start", "launch_end")
 
 
 def _fused_call(monkeypatch, images, idx, scale=1.0):
@@ -356,7 +356,8 @@ def test_c_interface_takes_every_argument(monkeypatch):
     params = re.search(r"int stainx_cluster_fit_transform\((.*?)\) \{", SOURCE, re.S).group(1)
     names = [q.strip().split()[-1].lstrip("*") for q in params.split(",")]
     assert names == ["x", "out", "n", "p", "is_uint8", "vec", "csize", "S", "R", "idx99",
-                     "ref_row", "out_scale", "prm", "fit_prm", "keys", "stream"]
+                     "ref_row", "out_scale", "prm", "fit_prm", "keys", "stream", "launch_start",
+                     "launch_end"]
     argtypes = lib.stainx_cluster_fit_transform.argtypes
     assert len(argtypes) == len(names) and argtypes[names.index("out_scale")] is ctypes.c_float
     assert all(argtypes[names.index(k)] is ctypes.c_longlong for k in ("idx99", "ref_row"))

@@ -41,6 +41,15 @@ REF = _load("portbench_test_hm_reference", "portbench/reference/histogram_matchi
 oracle = _load("hm_reference_test_oracle", "tests/oracles/numpy_reference.py")
 
 
+def _launch_bounds(sess, spans) -> list:
+    """``(span, launch_ms)`` for each span whose call the timeline sampled:
+    that call's launch interval, the call matched by its root span's host
+    times."""
+    calls = [c for c in profiling.timeline() if c.launch_ms is not None]
+    return [(s, c.launch_ms) for s in spans for c in calls
+            if sess.spans[s.call].start_ns <= c.open_ns <= sess.spans[s.call].end_ns]
+
+
 def _tiles(n: int, size: int, seed: int) -> torch.Tensor:
     """``n`` seeded 3 x size x size uint8 tiles of the benchmark's kind."""
     g = gen.torch_generator(np.random.SeedSequence(seed), torch.device("cpu"))
@@ -186,7 +195,9 @@ def test_a_fault_is_not_correct(small_cell, fault):
 def test_the_stats_span_on_the_card():
     """On the card: a profiled and an unprofiled transform give equal bits
     and equal launch counts, and each profiled call holds one ``stainx.stats``
-    span, a child of ``stainx.kernel.B8``, with a device interval."""
+    span, a child of ``stainx.kernel.B8``, with a device interval inside
+    its call's launch interval on the timeline (the first two calls are a
+    sampled pair, whose second call records its launch interval)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the span's events are recorded by the C call")
     dev = torch.device("cuda", 0)
@@ -201,6 +212,7 @@ def test_the_stats_span_on_the_card():
         return out, {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
     plain, plain_launches = launches(lambda: system.transform(batch))
+    profiling._calls.state = 0  # the thread's next two calls are a sampled pair
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
         profiled, profiled_launches = launches(
@@ -215,8 +227,8 @@ def test_the_stats_span_on_the_card():
     for s in stats:
         assert sess.spans[s.parent].name == "stainx.kernel.B8"
         assert s.device_ms is not None and 0 < s.device_ms
-        whole = sess.spans[s.call]
-        assert whole.name == "stainx.transform" and s.device_ms < whole.device_ms
+    bounded = _launch_bounds(sess, stats)
+    assert len(bounded) == 1 and all(s.device_ms < launch_ms for s, launch_ms in bounded)
 
 
 @pytest.mark.cuda

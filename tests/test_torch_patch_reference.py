@@ -48,6 +48,15 @@ def _load(name: str, path: str):
 REF = _load("portbench_test_patch_reference", "portbench/reference/macenko.py")
 
 
+def _launch_bounds(sess, spans) -> list:
+    """``(span, launch_ms)`` for each span whose call the timeline sampled:
+    that call's launch interval, the call matched by its root span's host
+    times."""
+    calls = [c for c in profiling.timeline() if c.launch_ms is not None]
+    return [(s, c.launch_ms) for s in spans for c in calls
+            if sess.spans[s.call].start_ns <= c.open_ns <= sess.spans[s.call].end_ns]
+
+
 def _patches(n: int, seed: int, device=torch.device("cpu")) -> torch.Tensor:
     """``n`` seeded 3x96x96 uint8 patches of the benchmark's kind."""
     g = gen.torch_generator(np.random.SeedSequence(seed), torch.device(device))
@@ -128,14 +137,17 @@ def test_the_b1_span_and_counters_in_a_session():
     with a device interval (its launch alone, recorded inside the C call)
     inside its transform's, on the resident body with
     the blocks an SM the card reports, and counts one ``resident.B1`` and no
-    ``l2.B1``; the same call off a session gives the same bits and makes no
-    span."""
+    ``l2.B1``; in the second of the first two calls, a sampled pair, the
+    span's interval is the call's launch interval on the timeline, read from
+    the same events;
+    the same call off a session gives the same bits and makes no span."""
     dev = _card()
     system = Macenko(device=dev).fit(_patches(1, 5, dev))
     batch = _patches(512, 6, dev)
     plain = system.transform(batch)
     torch.cuda.synchronize(dev)
     before = profiling.counters()
+    profiling._calls.state = 0  # the thread's next two calls are a sampled pair
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
         profiled = [system.transform(batch) for _ in range(3)]
@@ -160,8 +172,8 @@ def test_the_b1_span_and_counters_in_a_session():
         if per_sm == 233_472:  # an H100: two 96² blocks an SM
             assert s.args["blocks_per_sm"] == 2, s.args
         assert s.device_ms is not None and 0 < s.device_ms
-        whole = sess.spans[s.call]
-        assert whole.name == "stainx.transform" and s.device_ms <= whole.device_ms
+    bounded = _launch_bounds(sess, b1)
+    assert len(bounded) == 1 and all(s.device_ms == launch_ms for s, launch_ms in bounded)
     # Off a session the same call opens no span: the session stays as it was.
     spans = list(sess.spans)
     again = system.transform(batch)

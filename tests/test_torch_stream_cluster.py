@@ -178,7 +178,8 @@ def _cluster_call(monkeypatch, images, fit):
     arguments by name)``. The stand-in C call only records its arguments."""
     calls = []
     names = ("x", "out", "n", "p", "ipr", "is_uint8", "vec", "csize", "slice", "resident",
-             "fallback", "idx99", "stain", "tmc", "out_scale", "prm", "keys", "stream")
+             "fallback", "idx99", "stain", "tmc", "out_scale", "prm", "keys", "stream",
+             "launch_start", "launch_end")
 
     class Lib:
         _stainx_declared = True

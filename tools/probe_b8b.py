@@ -201,6 +201,11 @@ def main() -> int:
         if code != 0:
             raise RuntimeError(f"stainx_apply_lut: CUDA error {code}")
 
+    def nulls(lib):
+        """Null event handles for every one the build's transform takes
+        after its stream (two before the launch interval's, four after)."""
+        return (None,) * (len(lib.stainx_hm_transform.argtypes) - 17)
+
     def transform_call(build, x, out):
         lib, planes = libs[build]
         shape = apply_shape(planes, x, out)
@@ -209,7 +214,7 @@ def main() -> int:
         code = lib.stainx_hm_transform(x.data_ptr(), out.data_ptr(), partials.data_ptr(),
                                        hist.data_ptr(), lut_out.data_ptr(), table_out.data_ptr(),
                                        n, p, c, bpc, chunk, hk._reciprocal(float(n * p) + 1e-8),
-                                       *shape, stream, None, None)
+                                       *shape, stream, *nulls(lib))
         if code != 0:
             raise RuntimeError(f"stainx_hm_transform: CUDA error {code}")
 

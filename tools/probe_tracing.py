@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""The port's spans and counters on a CUDA card: what a traced run's session
-holds, the host's time a call by layer, and what a span costs.
+"""The port's spans, counters and call timeline on a CUDA card: what a traced
+run's session and timeline hold, the host's time a call by layer, and what
+a span and the timeline's sampling cost.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
     python3 tools/probe_tracing.py session CELL SEED SECONDS
+    python3 tools/probe_tracing.py window CELL SEED SECONDS [BIN_S]
     python3 tools/probe_tracing.py split [SECONDS]
     python3 tools/probe_tracing.py cost
     python3 tools/probe_tracing.py off [ROUNDS]
@@ -13,15 +15,26 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   then ``stainx_tpu_torch.profiling.session()`` beside the run's notes: the
   root spans against ``traced_calls``, each span's host time and device
   interval per call (means, and the device intervals' quartiles with the
-  first call left out), the device intervals' sum against
-  ``busy_ms_per_call``, the session's counts, its ``launch.*`` counts per
+  first call left out), the session's counts, its ``launch.*`` counts per
   call and the kernel spans' route arguments, the ``finalize.folded`` count
-  per call (the ÷255 of ``normalize_to_0_1`` done in the kernels' store),
-  the device spans the session lacks (``stainx.finalize`` wherever the
-  division was folded) and, for the cells whose transform takes statistics
-  over the call (``reinhard-u8-512.store``: B7b and its finalize;
+  per call (the ÷255 of ``normalize_to_0_1`` done in the kernels' store)
+  and, for the cells whose transform takes statistics over the call
+  (``reinhard-u8-512.store``: B7b and its finalize;
   ``hm-u8-512.store-b256``: B8a and its LUT finalize), the ``stainx.stats``
   spans per call under ``per_call``: one a call, with a device interval.
+- ``window``: one traced ``portbench`` run of the cell in this process,
+  then ``stainx_tpu_torch.profiling.timeline()``: the run's metrics and
+  notes; the sampled pairs after the stretch and the events' hold; the
+  card's idle in their gaps (as read, the events' hold in each)
+  split by what the host was doing at each gap's midpoint (``caller``: no
+  span of the port open, between the pair's calls; ``root span``: the
+  public API's own code; ``kernel wrapper``: a ``stainx.kernel.*`` span
+  before its C call; ``C call``: from the C call's entry to the kernel
+  span's close; ``host ahead``: after the pair's second call returned, the
+  host in later calls or waiting on the card); and the whole window's
+  sampled calls in bins of ``BIN_S`` seconds (default 0.25): calls, how
+  many under the profiler, mean launch interval, gap and period, and the
+  rate the periods give.
 - ``split``: no profiler. The host's time a call in each layer of the two
   cells' calls (the API call, ``fit``, ``Macenko.transform``,
   ``Macenko._finalize_range``, the B4 and B5 wrappers and B4 with the fit
@@ -31,10 +44,17 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   A layer's time holds its children's: ``transform`` holds the B4 wrapper
   and the ÷255 where it divides (``_finalize_range``; none where the
   kernels' store does it).
-- ``cost``: the host's cost, in µs, of a span (with and without a device
-  interval), a count, a ``record_function``, a CUDA event pair and
+- ``cost``: the time the first sampled call takes to make the event pool
+  (s), the card time an event holds (``hold_ms``, three readings), and the
+  host's cost, in µs, of a span (with and without a device
+  interval), a ``caller_timed`` span, a root span (``profiling.call``) with
+  a kernel span and ``launch_events`` inside, in a sampled pair and
+  unsampled, a count, a ``record_function``, a CUDA event pair and
   ``torch.cuda.current_stream``, with no profiler running and inside a
-  ``torch.profiler`` session.
+  ``torch.profiler`` session; then the patch cell's call (512×3×96² uint8,
+  16 in flight, 3 s) timed on the host call by call: the median of the
+  pairs' calls, of the calls after them and of the others, and the means
+  of all and of the unsampled ones, in ms.
 - ``off``: what the spans and counts cost the cells' calls with no profiler,
   in one process: 1 s rounds (default 10) that alternate the real
   ``annotate``, ``note`` and ``count`` with stubs that do nothing (each
@@ -52,6 +72,7 @@ import os
 import statistics
 import sys
 import time
+from types import SimpleNamespace
 
 STARTED = time.perf_counter()
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -61,7 +82,6 @@ import torch  # noqa: E402
 from stainx_tpu_torch import profiling  # noqa: E402
 
 DEV = torch.device("cuda", 0)
-DEVICE_SPANS = ("stainx.fit", "stainx.transform", "stainx.finalize")
 
 
 def session(cell_name: str, seed: int, seconds: float) -> dict:
@@ -80,22 +100,81 @@ def session(cell_name: str, seed: int, seconds: float) -> dict:
                           "device_ms": sum(dev) / calls if dev else None}
         if len(dev) > 4:
             quartiles[name] = statistics.quantiles(dev[1:], n=4)
-    busy = res["notes"].get("busy_ms_per_call")
-    dev_sum = sum(per_call[n]["device_ms"] for n in DEVICE_SPANS
-                  if n in per_call and per_call[n]["device_ms"] is not None)
     return {"cell": cell_name, "seed": seed, "correct": res["correct"], "roots": calls,
-            "traced_calls": res["notes"].get("traced_calls"), "busy_ms_per_call": busy,
-            "device_ms_sum": dev_sum, "device_ms_sum_over_busy": dev_sum / busy if busy else None,
+            "traced_calls": res["notes"].get("traced_calls"),
+            "busy_ms_per_call": res["notes"].get("busy_ms_per_call"),
             "finalize_folded_per_call": sess.counts.get("finalize.folded", 0) / calls,
             "launches_per_call": {k: v / calls for k, v in sess.counts.items()
                                   if k.startswith("launch.")},
-            "absent_device_spans": [n for n in DEVICE_SPANS if n not in per_call],
             "per_call": per_call, "device_ms_quartiles": quartiles, "counts": sess.counts,
             "kernel_args": sorted({json.dumps(s.args, sort_keys=True) for s in sess.spans
                                    if s.name.startswith("stainx.kernel.") and s.args}),
             "metrics": {k: v["value"] for k, v in res["metrics"].items()},
             "idle_gaps": res.get("breakdown", {}).get("idle_gaps"),
             "traced_mpix_per_s": res["notes"].get("traced_mpix_per_s")}
+
+
+def _doing(first, second, t: float) -> str:
+    """What the host was doing at host time ``t`` in the gap between a
+    sampled pair's launches."""
+    if first.close_ns < t < second.open_ns:
+        return "caller"
+    for c in (first, second):
+        if c.open_ns <= t <= c.close_ns:
+            for name, opened, closed, parent in c.spans:
+                if name.startswith("stainx.kernel.") and opened <= t <= closed:
+                    c_call = c.c_open_ns is not None and opened <= c.c_open_ns <= t
+                    return "C call" if c_call else "kernel wrapper"
+            return "root span"
+    return "host ahead" if t > second.close_ns else "before the pair"
+
+
+def window(cell_name: str, seed: int, seconds: float, bin_s: float) -> dict:
+    from portbench import harness, spec
+    from portbench import timeline as readers
+
+    torch.set_num_threads(1)
+    cell = spec.cell(cell_name)
+    res = harness.run_cell(cell, seed, seconds, True, DEV, STARTED)
+    calls = profiling.timeline()
+    after = readers.of(SimpleNamespace(cell=cell)) or []
+    firsts = {c.pair: c for c in after if c.phase == 0}
+    idle: dict[str, float] = {}
+    for c in readers.pairs(after):
+        first = firsts[c.pair]
+        mid = (first.launch[1] + c.launch[0]) / 2
+        kind = _doing(first, c, mid)
+        idle[kind] = idle.get(kind, 0.0) + c.gap_ms
+    gaps = sum(idle.values())
+    _, h, w = cell.config["tile"]
+    pixels = cell.traffic["batch"] * h * w
+    t0 = min(c.open_ns for c in calls) if calls else 0
+    bins: dict[int, list] = {}
+    for c in calls:
+        bins.setdefault(int((c.open_ns - t0) / 1e9 / bin_s), []).append(c)
+
+    def mean(values):
+        values = [v for v in values if v is not None]
+        return statistics.fmean(values) if values else None
+
+    series = []
+    for b, found in sorted(bins.items()):
+        period = mean(c.period_ms for c in found)
+        series.append({"t_s": b * bin_s, "calls": len(found),
+                       "profiled": sum(c.profiled for c in found),
+                       "launch_ms": mean(c.launch_ms for c in found),
+                       "gap_ms": mean(c.gap_ms for c in found), "period_ms": period,
+                       "mpix_per_s": pixels / period / 1e3 if period else None})
+    return {"window": cell_name, "seed": seed, "correct": res["correct"],
+            "metrics": {k: v["value"] for k, v in res["metrics"].items()},
+            "notes": {k: res["notes"].get(k) for k in ("kernel_ms_per_call", "busy_ms_per_call",
+                                                       "traced_calls", "traced_mpix_per_s")},
+            "sampled": len(calls), "after_stretch": len(after),
+            "pairs_after_stretch": len(readers.pairs(after)),
+            "hold_ms": next((c.hold_ms for c in after if c.hold_ms is not None), None),
+            "idle_ms_by_host": idle,
+            "idle_share_by_host": {k: v / gaps for k, v in idle.items()} if gaps else {},
+            "series": series}
 
 
 def _cells():
@@ -200,6 +279,12 @@ def cost(n: int = 2000) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     stream = torch.cuda.current_stream(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    profiling._pool(0)  # what the first sampled call of a process makes
+    torch.cuda.synchronize()
+    made = {"pool_s": time.perf_counter() - t0, "pool_events": 3 * profiling.EVENT_PAIRS,
+            "hold_ms": [profiling._event_hold_ms(0) for _ in range(3)]}
 
     def span():
         with profiling.annotate("stainx.probe"):
@@ -218,7 +303,20 @@ def cost(n: int = 2000) -> dict:
         a.record(stream)
         b.record(stream)
 
-    parts = {"span": span, "span_with_device": device_span,
+    def caller_timed():  # the events handed out, left as they were recorded last
+        with profiling.caller_timed("stainx.probe", DEV):
+            pass
+
+    def root(state):
+        def run():
+            profiling._calls.state = state
+            with profiling.call("stainx.probe"):
+                with profiling.annotate("stainx.kernel.probe"):
+                    profiling.launch_events(DEV)
+        return run
+
+    parts = {"span": span, "span_with_device": device_span, "caller_timed": caller_timed,
+             "root_unsampled": root(3), "root_sampled": root(1),
              "count": lambda: profiling.count("stainx.probe"), "record_function": rf,
              "event_pair": event_pair, "current_stream": lambda: torch.cuda.current_stream(DEV)}
 
@@ -234,7 +332,42 @@ def cost(n: int = 2000) -> dict:
     off = {k: us(f) for k, f in parts.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         on = {k: us(f) for k, f in parts.items()}
-    return {"cost_us": {"off": off, "on": on}}
+    return {**made, "cost_us": {"off": off, "on": on}, "patch_call_ms": _sampled_calls()}
+
+
+def _sampled_calls(seconds: float = 3.0) -> dict:
+    """The patch cell's call timed on the host call by call, 16 in flight:
+    median of the sampled pairs' calls (calls 0 and 1 of every
+    SAMPLE_EVERY), of the call after each pair and of the others, mean of
+    all, in ms."""
+    from portbench import gen
+    from stainx_tpu_torch import Macenko
+
+    g = gen.torch_generator(gen.seed_streams(4100000002, 1)[0], DEV)
+    pool = gen.tile_batches(16, 512, (3, 96, 96), "uint8", (0.85, 1.15), g)
+    call = Macenko(device=DEV).fit(gen.tiles(1, (3, 96, 96), "uint8", (0.85, 1.15), g)).transform
+    events = [torch.cuda.Event() for _ in range(16)]
+    for batch in pool:
+        call(batch)
+    torch.cuda.synchronize()
+    times: dict[int, list] = {0: [], 1: [], 2: [], 3: []}
+    i, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        if i >= 16:
+            events[i % 16].synchronize()
+        phase = min(profiling._calls.state, 3)
+        a = time.perf_counter_ns()
+        call(pool[i % 16])
+        times[phase].append(time.perf_counter_ns() - a)
+        events[i % 16].record()
+        i += 1
+    torch.cuda.synchronize()
+    every = [t for found in times.values() for t in found]
+    return {"calls": i, "pair_median": statistics.median(times[0] + times[1]) / 1e6,
+            "after_pair_median": statistics.median(times[2]) / 1e6,
+            "unsampled_median": statistics.median(times[3]) / 1e6,
+            "mean": statistics.fmean(every) / 1e6,
+            "unsampled_mean": statistics.fmean(times[3]) / 1e6}
 
 
 def main(argv: list[str]) -> None:
@@ -243,6 +376,9 @@ def main(argv: list[str]) -> None:
     mode = argv[0] if argv else ""
     if mode == "session" and len(argv) == 4:
         results = [session(argv[1], int(argv[2]), float(argv[3]))]
+    elif mode == "window" and len(argv) in (4, 5):
+        results = [window(argv[1], int(argv[2]), float(argv[3]),
+                          float(argv[4]) if len(argv) == 5 else 0.25)]
     elif mode == "split" and len(argv) <= 2:
         results = split(float(argv[1]) if len(argv) == 2 else 4.0)
     elif mode == "cost" and len(argv) == 1:
