@@ -372,7 +372,7 @@ def fused_selections(x, he, mc, fit: bool, force: str) -> dict:
                        device=x.device)
     maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
     torch.cuda.synchronize()
-    stats = lambda t: torch.cat([t[:, :7], t[:, 8:24]], 1)  # noqa: E731 (no padding)
+    stats = lambda t: t[:, :24]  # noqa: E731 (no padding)
     return {"phi": torch.equal(_int_bits(phi), _int_bits(params[:, ms.PHI_COLUMNS])),
             "maxc": torch.equal(_int_bits(maxc), _int_bits(params[:, ms.MAXC_COLUMNS])),
             "repeat": torch.equal(_int_bits(stats(params)), _int_bits(stats(again))),
@@ -446,7 +446,7 @@ def od_once_checks(dev, seed: int, build) -> None:
         finally:
             kernels._libs["macenko_stream"] = saved
         torch.cuda.synchronize()
-        stats = torch.cat([params[:, :7], params[:, 8:24]], 1)  # no padding
+        stats = params[:, :24]  # no padding
         return stats, out
 
     def bits(t):

@@ -40,7 +40,11 @@
 //    many match the prefixes; once a block's matching keys fit kCand, the
 //    next pass also stores them in shared memory and the passes after it
 //    read only those (on H&E tiles: passes 0-2 over the pixels, pass 3 over
-//    about 2 000 stored keys a block). No uint8 key reaches device memory.
+//    about 2 000 stored keys a block). The angle selections' pass 0 also
+//    counts the second digit under the top byte of the members' mean
+//    direction, which on H&E rows is the one both selections take: they
+//    then skip pass 1, and a row takes 7 sweeps over its pixels, not 8
+//    (cluster_select2). No uint8 key reaches device memory.
 //    float32 rows take each pixel's OD once a call, not once a pass (the
 //    three logarithms were 39 % of B4 on 128x3x256^2 float32, paid on all 8
 //    passes): the resident planes are stored as OD, converted as they are
@@ -135,7 +139,7 @@ using namespace stainx;
 struct RowParams {
   float evs[6];  // v_mid (3), v_max (3)
   float use_all;  // 1 when the <3-pixel fallback took all pixels
-  float pad0;
+  float two_digit;  // 1 when the cluster route's angle selections skipped digit pass 1
   float he[6];  // HE row-major (3, 2)
   float m0[3];  // normal rows of the HE columns
   float m1[3];
@@ -165,6 +169,19 @@ __device__ __forceinline__ float angle_value(float o0, float o1, float o2, const
   const float t1 = o0 * v[3] + o1 * v[4] + o2 * v[5];
   const bool member = use_all || min3(o0, o1, o2) >= kBeta;
   return member ? pseudo_angle(t0, t1) : __int_as_float(0x7F800000);
+}
+
+// The top byte of the angle key of the members' mean OD (m: their kSums
+// totals of OD - 1; v: v_mid and v_max), the cluster route's guess of the
+// top byte both angle selections take. The projection of the mean is the
+// mean of the projections, so where the members' directions span less than
+// a half-turn that does not cross the angle's cut, the mean's angle lies
+// between the extreme ones; on H&E rows every member angle shares one top
+// byte, and this names it. The selections' first pass verifies it.
+__device__ __forceinline__ uint32_t mean_angle_byte(const double* m, const float* v) {
+  float o[3];
+  for (int c = 0; c < 3; ++c) o[c] = static_cast<float>(m[1 + c] / m[0]) + 1.0f;
+  return monotone_key(angle_value(o[0], o[1], o[2], v, true)) >> 24;
 }
 
 // Keys of selection 0 and 1 for one pixel: the angle twice, or the two
@@ -283,6 +300,7 @@ __device__ void row_scalars(const double* m, bool use_all, RowParams& row, Sel2&
   cov_from_moments(m, a);
   eigh3_top2(a, row.evs);
   row.use_all = use_all ? 1.0f : 0.0f;
+  row.two_digit = 0.0f;
   const long long cnt = static_cast<long long>(m[0]);
   sel_reset(st, nearest_rank_index(kAlpha, cnt), nearest_rank_index(100 - kAlpha, cnt));
 }
@@ -870,21 +888,25 @@ __device__ __forceinline__ void cand_push(ClusterShared& sh, int s, uint32_t k) 
 
 // Pass d's digits of every pixel of the block's slice; with Collect, the
 // keys that match their selection's prefix are also stored as candidates.
+// The angle selections' pass 0 counts two digits: histogram 0 the top digit
+// of every key (both selections start alike), histogram 1 the second digit
+// of the keys whose top byte is `guess` (cluster_select2).
 // With a key field (float32), pass 0 computes the keys of the pixels past
 // the resident ones from the input and writes them, and passes 1-3 read
 // them: their logarithms are taken in one pass of the selection, not four.
 template <typename T, int Mode, bool Collect>
 __device__ __forceinline__ void count_pixels(const Slice<T>& sl, const float* w, bool use_all,
-                                             ClusterShared& sh, int d) {
+                                             ClusterShared& sh, int d, uint32_t guess) {
   const int shift = 24 - 8 * d;
-  const bool shared_first = Mode == kAngle && d == 0;  // both angle ranks start alike
-  const uint32_t pre0 = sh.st.prefix[0], pre1 = sh.st.prefix[1];
+  const bool two_digit = Mode == kAngle && d == 0;
+  const int d1 = two_digit ? 1 : d;
+  const uint32_t pre0 = sh.st.prefix[0], pre1 = two_digit ? guess << 24 : sh.st.prefix[1];
   const bool live0 = !sh.st.empty[0], live1 = !sh.st.empty[1];
   auto tally = [&](bool ok, uint32_t k0, uint32_t k1) {
     const unsigned b0 = digit(ok, k0, pre0, d, shift);
-    const unsigned b1 = shared_first ? kBins : digit(ok, k1, pre1, d, shift);
+    const unsigned b1 = digit(ok, k1, pre1, d1, 24 - 8 * d1);
     rep_add<kClusterCopies>(sh.rep, 0, b0);
-    if (!shared_first) rep_add<kClusterCopies>(sh.rep, 1, b1);
+    rep_add<kClusterCopies>(sh.rep, 1, b1);
     if constexpr (Collect) {
       if (live0 && b0 < kBins) cand_push(sh, 0, k0);
       if (live1 && b1 < kBins) cand_push(sh, 1, k1);
@@ -922,25 +944,40 @@ __device__ __forceinline__ void count_pixels(const Slice<T>& sl, const float* w,
   csweep<T>(sl, sh.lut, from_od);
 }
 
+// Whether selection s has no element or took the guessed top byte.
+__device__ __forceinline__ bool on_guess(const Sel2& st, int s, uint32_t guess) {
+  return st.empty[s] || (st.prefix[s] >> 24) == guess;
+}
+
 // The row's two selections (angles or concentrations; w: v_mid and v_max,
 // or the normal rows), 4 passes of 8 key bits over the block's slice.
-// Starts from sh.st and leaves the selected keys there. Once the block's
+// Starts from sh.st (and, for angles, the members' sums in sh.sums) and
+// leaves the selected keys there. Once the block's
 // keys that match the prefixes fit kCand (its own histogram of the last pass
 // counts them exactly), the next pass stores them as it counts, and the
 // passes after it count only the stored keys. Angles and concentrations
 // fill a few bins of their leading digit, so on H&E tiles pass 2 collects
 // and pass 3 reads only the stored keys.
+// The angle selections' pass 0 decides nothing on H&E rows (every member
+// angle has one top byte), so it also counts the second digit of the keys
+// under the top byte of the members' mean direction (mean_angle_byte). Where
+// both selections take that byte (or have no element), that histogram is
+// the one pass 1 would count for each: they descend on it, pass 1 is
+// skipped and RowParams::two_digit is set. Else pass 1 runs. The selected
+// keys are the same either way.
 template <typename T, int Mode>
 __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all,
                                 ClusterShared& sh, cg::cluster_group& cluster) {
   const int warp = threadIdx.x >> 5;
+  const uint32_t guess = Mode == kAngle ? mean_angle_byte(sh.sums, w) : 0u;  // cluster-uniform
   if (threadIdx.x == 0) sh.cand_state = kSweep;
   __syncthreads();
-  for (int d = 0; d < 4; ++d) {
-    const int buf = d & 1, shift = 24 - 8 * d;
-    const bool shared_first = Mode == kAngle && d == 0;  // both angle ranks start alike
+  // buf alternates with the passes made, so one cluster.sync a pass is enough.
+  for (int d = 0, buf = 0; d < 4; ++d, buf ^= 1) {
+    const bool first = Mode == kAngle && d == 0;  // counts two digits
     const int state = sh.cand_state;  // block-uniform
     if (state == kFromBuffer) {
+      const int shift = 24 - 8 * d;
       const uint32_t pre0 = sh.st.prefix[0], pre1 = sh.st.prefix[1];
       const int split = sh.cand_split;  // selection 0 stored exactly split keys
       const int n = split + static_cast<int>(sh.cand_count[1]);
@@ -949,9 +986,9 @@ __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all
         rep_add<kClusterCopies>(sh.rep, s, digit(true, sh.cand[i], s ? pre1 : pre0, d, shift));
       }
     } else if (state == kCollect) {
-      count_pixels<T, Mode, true>(sl, w, use_all, sh, d);
+      count_pixels<T, Mode, true>(sl, w, use_all, sh, d, guess);
     } else {
-      count_pixels<T, Mode, false>(sl, w, use_all, sh, d);
+      count_pixels<T, Mode, false>(sl, w, use_all, sh, d, guess);
     }
     __syncthreads();
     for (int i = threadIdx.x; i < 2 * kBins; i += kCThreads) {
@@ -960,25 +997,40 @@ __device__ void cluster_select2(const Slice<T>& sl, const float* w, bool use_all
     cluster.sync();
     for (int i = threadIdx.x; i < 2 * kBins; i += kCThreads) {
       const int s = i / kBins, b = i % kBins;
-      unsigned* mine = &sh.hist[buf][shared_first ? 0 : s][b];
+      unsigned* mine = &sh.hist[buf][s][b];
       unsigned c = 0u;
 #pragma unroll 4  // the remote loads in flight together
       for (unsigned r = 0; r < cluster.num_blocks(); ++r) c += *cluster.map_shared_rank(mine, r);
       sh.merged[s][b] = c;
     }
     __syncthreads();
-    if (warp < 2) descend(sh.merged[warp], sh.st, warp, d);
+    if (first) {  // both descend on the top digits, then on the guess's second digits
+      if (warp < 2) descend(sh.merged[0], sh.st, warp, 0);
+      __syncthreads();
+      const bool hit = on_guess(sh.st, 0, guess) && on_guess(sh.st, 1, guess);  // cluster-uniform
+      __syncthreads();  // every thread has read the prefixes the next descent extends
+      if (hit) {
+        if (warp < 2) descend(sh.merged[1], sh.st, warp, 1);
+        d = 1;  // pass 1 is done
+      }
+      if (threadIdx.x == 0) sh.row.two_digit = hit ? 1.0f : 0.0f;
+    } else if (warp < 2) {
+      descend(sh.merged[warp], sh.st, warp, d);
+    }
     __syncthreads();
     if (threadIdx.x == 0 && d < 3) {
       if (state != kSweep) {
         sh.cand_state = kFromBuffer;  // the stored keys hold every later candidate
       } else if (d < 2) {  // a pass must follow the one that collects
         // This block's keys that match each new prefix: its own count of the
-        // chosen bin (none for a selection already known to be empty).
+        // chosen bin (none for a selection already known to be empty); after
+        // the angles' pass 0, both counts are in the histogram of the digit
+        // they took last.
+        const int shift = 24 - 8 * d;
         unsigned c[2];
         for (int s = 0; s < 2; ++s) {
           const unsigned bin = (sh.st.prefix[s] >> shift) & 0xFFu;
-          c[s] = sh.st.empty[s] ? 0u : sh.hist[buf][shared_first ? 0 : s][bin];
+          c[s] = sh.st.empty[s] ? 0u : sh.hist[buf][first ? d : s][bin];
         }
         if (c[0] + c[1] <= static_cast<unsigned>(kCand)) {
           sh.cand_state = kCollect;

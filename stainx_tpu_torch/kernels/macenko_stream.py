@@ -58,9 +58,12 @@ import torch
 
 from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels import macenko_fused as mf
-from stainx_tpu_torch.ops.percentile import static_nearest_rank_index
+from stainx_tpu_torch.kernels.selection import kth_smallest_pallas_plain, monotone_key
+from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
 
 PARAMS_WIDTH = 32  # float32 a row of csrc/macenko_stream.cu RowParams
+EVS_COLUMNS = slice(0, 6)  # RowParams.evs, v_mid then v_max
+TWO_DIGIT_COLUMN = 7  # RowParams.two_digit (two_digit_plain)
 HE_COLUMNS = slice(8, 14)  # RowParams.he, HE row-major (3, 2)
 PHI_COLUMNS = slice(20, 22)  # RowParams.phi, the selected pseudo-angles
 MAXC_COLUMNS = slice(22, 24)  # RowParams.maxc
@@ -96,6 +99,32 @@ def macenko_fit_transform_stream_plain(images, idx: int, scale: float = 1.0):
     fit of image ``idx``, then B4's plain transform on it."""
     he, maxc = macenko_fit_stream_plain(images[idx:idx + 1])
     return macenko_transform_stream_plain(images, he, maxc, scale), he, maxc
+
+
+def two_digit_plain(od: torch.Tensor, member: torch.Tensor, evecs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the cluster route's ``RowParams.two_digit``: for
+    rows of OD (R, 3, P), their angle selections' members (R, P) (the
+    beta mask, or every pixel under the <3-pixel fallback) and eigenvectors
+    (R, 3, 2) (v_mid, v_max), 1.0 where each angle selection has no element
+    or takes the top key byte of the members' mean direction (then the first
+    pass of the kernel's angle selections also settles their second digit,
+    and their pass 1 is skipped), else 0.0. The mean is the float64 sum of
+    the members' float32 ``OD − 1`` over their count, in float32, plus 1."""
+    cnt = member.sum(-1)
+    y = torch.where(member[:, None], od - 1.0, 0.0).to(torch.float64).sum(-1)
+    mean = (y / cnt[:, None]).to(torch.float32) + 1.0
+    v_mid, v_max = evecs[..., 0], evecs[..., 1]
+
+    def dot(u, v):
+        return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
+
+    guess = monotone_key(mf.pseudo_angle(dot(mean, v_mid), dot(mean, v_max))) >> 24
+    angles = mf.pseudo_angle(mf._project(od, v_mid), mf._project(od, v_max))
+    ranks = torch.stack([nearest_rank_index(mf.ALPHA, cnt),
+                         nearest_rank_index(100 - mf.ALPHA, cnt)], -1)
+    chosen = kth_smallest_pallas_plain(torch.where(member, angles, torch.inf), ranks)
+    hit = (cnt == 0) | (monotone_key(chosen) >> 24 == guess[:, None]).all(-1)
+    return hit.to(torch.float32)
 
 
 # ------------------------------------------------------------ host logic

@@ -294,14 +294,15 @@ def test_the_training_forward_folds_on_the_card():
 # The uint8 transform kernels' SASS instruction counts as nvcc compiled them
 # before the float32 store took a scale (``cuobjdump -sass``, CUDA 12.9 on an
 # H100 machine; the resident kernels' since their histogram copies were
-# packed, one word a bin for both selections), by a fragment of each
+# packed, one word a bin for both selections; the cluster kernel's since the
+# first pass of its angle selections counts two digits), by a fragment of each
 # kernel's mangled name (its length, so ``resident_kernel`` is not
 # ``fit_resident_kernel``; ``Ih`` the uint8 instantiation, ``Lb0E`` the
 # cluster kernel without the fused fit): the uint8 store takes no scale, so
 # each must compile to the same instructions.
 UINT8_SASS_NVCC = "V12.9"
 UINT8_SASS = {
-    "macenko_stream": {"14cluster_kernelIhLb0E": 16_736, "18stream_reconstructIhLi1E": 504,
+    "macenko_stream": {"14cluster_kernelIhLb0E": 17_472, "18stream_reconstructIhLi1E": 504,
                        "18stream_reconstructIhLi4E": 712},
     "macenko_fused": {"16transform_kernelIhLi1E": 5_088, "16transform_kernelIhLi4E": 5_880,
                       "15resident_kernelIhLi1ELb0E": 7_552, "15resident_kernelIhLi1ELb1E": 7_880,

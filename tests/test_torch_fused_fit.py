@@ -547,12 +547,12 @@ def test_a_stale_fused_state_fails_the_training_check(monkeypatch):
 
 
 # The transform-only cluster kernels' SASS instruction counts (cuobjdump
-# -sass, CUDA 12.9 on an H100 machine) as compiled before the fused mode was
-# added, by a fragment of each kernel's mangled name (``Lb0E``: Fused
-# false): the fused mode is a template parameter, so each must compile to
-# the same instructions.
+# -sass, CUDA 12.9 on an H100 machine), by a fragment of each kernel's
+# mangled name (``Lb0E``: Fused false): the fused mode is a template
+# parameter, so each must compile to the instructions it has without it
+# (counted since the first pass of the angle selections counts two digits).
 SASS_NVCC = "V12.9"
-TRANSFORM_ONLY_SASS = {"14cluster_kernelIhLb0E": 16_736, "14cluster_kernelIfLb0E": 42_240}
+TRANSFORM_ONLY_SASS = {"14cluster_kernelIhLb0E": 17_472, "14cluster_kernelIfLb0E": 43_200}
 
 
 @pytest.mark.cuda

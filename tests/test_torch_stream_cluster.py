@@ -10,27 +10,38 @@ clusters of each size the card holds at once, as
 ``cudaOccupancyMaxActiveClusters`` reports them). The
 plain versions, which the wrappers run on a CPU tensor whatever the route,
 are held against B1's and B2's plain versions and the JAX package's
-streaming kernels in interpret mode on seeded tiles.
+streaming kernels in interpret mode on seeded tiles. The plain version of
+the cluster route's two-digit first angle pass (``two_digit_plain``) is held
+on tile-store tiles, a two-colour row and a <3-pixel row; on the card
+(marker ``cuda``) the kernel's ``RowParams.two_digit`` against it, and its
+selections and outputs against B6's plain version on the kernel's keys and
+against the same source built with the guess never taken.
+
+Imports JAX (and the numpy oracle) only inside the CPU tests that compare
+with it, so that on a card's machine the ``cuda`` cases run as
+``python -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_stream_cluster.py``.
 """
 
 import contextlib
+import ctypes
 import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from stainx_tpu.kernels.macenko_stream import macenko_fit_stream as jax_fit_stream
-from stainx_tpu.kernels.macenko_stream import macenko_transform_stream as jax_transform_stream
-from stainx_tpu.ops import macenko as jax_mk
+from portbench import gen
 from stainx_tpu_torch import kernels, profiling
 from stainx_tpu_torch.kernels import macenko_fused as mf
 from stainx_tpu_torch.kernels import macenko_stream as ms
+from stainx_tpu_torch.kernels import selection_stream as ss
+from stainx_tpu_torch.ops.eigh3 import eigh3_top2
+from stainx_tpu_torch.ops.percentile import nearest_rank_index, static_nearest_rank_index
 
-from tests.oracles import numpy_reference as oracle
-
+ROOT = Path(__file__).resolve().parent.parent
 H100_SMEM = 232_448
 H100_ACTIVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}  # clusters of c blocks at once
 
@@ -41,6 +52,8 @@ SOURCE = (kernels.CSRC / "macenko_stream.cu").read_text()
 
 
 def _tiles(n, h, w, seed, he_scale=1.0):
+    from tests.oracles import numpy_reference as oracle
+
     return np.concatenate(
         [oracle.synthetic_he_tile(h, w, seed=seed + i, he_scale=he_scale) for i in range(n)]
     )
@@ -130,6 +143,8 @@ class TestClusterShape:
             fields[name] = slice(offset, offset + int(width or 1))
             offset += int(width or 1)
         assert offset == ms.PARAMS_WIDTH
+        assert fields["evs"] == ms.EVS_COLUMNS
+        assert fields["two_digit"] == slice(ms.TWO_DIGIT_COLUMN, ms.TWO_DIGIT_COLUMN + 1)
         assert fields["he"] == ms.HE_COLUMNS
         assert fields["phi"] == ms.PHI_COLUMNS
         assert fields["maxc"] == ms.MAXC_COLUMNS
@@ -332,9 +347,267 @@ class TestClusterKeyField:
         assert count.count("csweep<T, kResident>(sl, sh.lut, from_od);") == 1
 
 
+# ------------------------------------------------ two-digit first angle pass
+STORE_TILE = (3, 256, 256)  # the tile store's tiles (portbench/configs/macenko-u8-256.json)
+STORE_SCALE = (0.85, 1.15)
+
+
+def _store_tiles(n: int, seed: int, dev="cpu") -> torch.Tensor:
+    """``n`` uint8 tiles of the tile store's shape, as ``portbench`` makes
+    them from ``seed``."""
+    stream = gen.seed_streams(seed, 1)[0]
+    return gen.tiles(n, STORE_TILE, "uint8", STORE_SCALE,
+                     gen.torch_generator(stream, torch.device(dev)))
+
+
+def _two_colour_tile(side: int, seed: int) -> torch.Tensor:
+    """A (1, 3, side, side) uint8 tile of two stains far apart, OD along
+    (1, 0.2, 0.2) and (0.2, 0.2, 1): its 1st and 99th percentile angles lie
+    on either side of zero, in two top-byte bins of the key."""
+    g = torch.Generator().manual_seed(seed)
+    p = side * side
+    dirs = torch.tensor([[1.0, 0.2, 0.2], [0.2, 0.2, 1.0]])
+    od = dirs[torch.randint(0, 2, (p,), generator=g)] * (0.4 + 1.2 * torch.rand(p, 1, generator=g))
+    values = (mf.IO * torch.exp(-od) - 1.0).round().clamp(0, 255).to(torch.uint8)
+    return values.T.reshape(1, 3, side, side).contiguous()
+
+
+def _fallback_tile(side: int) -> torch.Tensor:
+    """A near-white (1, 3, side, side) uint8 tile with two pixels past beta:
+    the transform's <3-pixel fallback takes every pixel."""
+    x = torch.full((1, 3, side, side), 250, dtype=torch.uint8)
+    x[0, :, 5, 7] = 40
+    x[0, :, 9, 3] = torch.tensor([60, 30, 90], dtype=torch.uint8)
+    return x
+
+
+def _plain_rows(x: torch.Tensor, fallback: bool):
+    """OD (R, 3, P), the angle selections' members (R, P) and eigenvectors
+    (R, 3, 2) of a batch's rows, as the plain pipeline takes them."""
+    od = mf.od_from_planes(x.reshape(x.shape[0], 3, -1), x.dtype == torch.uint8)
+    member = od.amin(1) >= mf.BETA
+    if fallback:
+        member = member | (member.sum(-1, keepdim=True) < 3)
+    cnt, sums = mf.masked_moments(od, member)
+    return od, member, eigh3_top2(mf.cov_from_moments(cnt, sums))
+
+
+def _top_bytes(od, member, evecs):
+    """The top key bytes of each row's member angles, as a set a row, and of
+    its 1st and 99th percentile angles."""
+    from stainx_tpu_torch.kernels.selection import kth_smallest_pallas_plain, monotone_key
+
+    angles = mf.pseudo_angle(mf._project(od, evecs[..., 0]), mf._project(od, evecs[..., 1]))
+    cnt = member.sum(-1)
+    ranks = torch.stack([nearest_rank_index(mf.ALPHA, cnt),
+                         nearest_rank_index(100 - mf.ALPHA, cnt)], -1)
+    chosen = kth_smallest_pallas_plain(torch.where(member, angles, torch.inf), ranks)
+    every = [set((monotone_key(a[m]) >> 24).tolist()) for a, m in zip(angles, member, strict=True)]
+    return every, (monotone_key(chosen) >> 24).tolist()
+
+
+class TestTwoDigitPlain:
+    @pytest.mark.parametrize("seed", [7, 2**31 + 12_345, 90_210])
+    def test_tile_store_rows_hit(self, seed):
+        """On the tile store's tiles every member angle has one top key byte,
+        both percentiles take it, and so does the members' mean direction:
+        every row's first angle pass settles two digits."""
+        od, member, evecs = _plain_rows(_store_tiles(8, seed), fallback=True)
+        every, chosen = _top_bytes(od, member, evecs)
+        assert all(len(b) == 1 for b in every)
+        assert all(c[0] == c[1] == next(iter(b)) for b, c in zip(every, chosen, strict=True))
+        assert torch.equal(ms.two_digit_plain(od, member, evecs), torch.ones(8))
+
+    def test_two_colour_row_misses(self):
+        """Percentile angles in two top-byte bins: no one guess holds both,
+        so pass 1 runs."""
+        od, member, evecs = _plain_rows(_two_colour_tile(64, 3), fallback=True)
+        _, [(lo, hi)] = _top_bytes(od, member, evecs)
+        assert lo != hi and int(member.sum()) > 3
+        assert torch.equal(ms.two_digit_plain(od, member, evecs), torch.zeros(1))
+
+    def test_fallback_row(self):
+        """Two pixels past beta: the transform's selections take every pixel,
+        all but two of one colour, whose angle both percentiles and the mean
+        take; the fit's take the two alone."""
+        x = _fallback_tile(64)
+        od, member, evecs = _plain_rows(x, fallback=True)
+        assert int(member.sum()) == 64 * 64
+        _, [(lo, hi)] = _top_bytes(od, member, evecs)
+        assert lo == hi
+        assert torch.equal(ms.two_digit_plain(od, member, evecs), torch.ones(1))
+        od, member, evecs = _plain_rows(x, fallback=False)
+        assert int(member.sum()) == 2
+        _, [(lo, hi)] = _top_bytes(od, member, evecs)
+        assert lo == hi
+        assert torch.equal(ms.two_digit_plain(od, member, evecs), torch.ones(1))
+
+    def test_row_without_members_is_settled(self):
+        """No pixel past beta and no fallback (a fit): both selections have
+        no element, which any guess settles."""
+        od, member, evecs = _plain_rows(torch.full((2, 3, 16, 16), 250, dtype=torch.uint8),
+                                        fallback=False)
+        assert not member.any()
+        assert torch.equal(ms.two_digit_plain(od, member, evecs), torch.ones(2))
+
+
+# The cluster kernel's test that takes the guess, and what it becomes in a
+# build where the guess is never taken (every angle selection makes its
+# pass 1, as before the first pass counted two digits).
+HIT = "const bool hit = on_guess(sh.st, 0, guess) && on_guess(sh.st, 1, guess);"
+ONE_DIGIT_DIR = ROOT / "build" / "one_digit"
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the two-digit pass runs in the CUDA kernel")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def one_digit_lib():
+    """``csrc/macenko_stream.cu`` built with the guess never taken, into
+    ``build/one_digit/``."""
+    _card()
+    assert SOURCE.count(HIT) == 1
+    ONE_DIGIT_DIR.mkdir(parents=True, exist_ok=True)
+    for header in kernels.CSRC.glob("*.cuh"):
+        (ONE_DIGIT_DIR / header.name).write_text(header.read_text())
+    src = ONE_DIGIT_DIR / "macenko_stream.cu"
+    src.write_text(SOURCE.replace(HIT, "const bool hit = false;"))
+    lib = ONE_DIGIT_DIR / "libmacenko_stream_one_digit.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    loaded = ctypes.CDLL(str(lib))
+    loaded.stainx_error_string.argtypes = [ctypes.c_int]
+    loaded.stainx_error_string.restype = ctypes.c_char_p
+    return loaded
+
+
+def _card_rows(dtype, dev) -> torch.Tensor:
+    """Six tile-store tiles (hits), the two-colour tile (a miss) and the
+    <3-pixel tile, 256^2, on the card."""
+    x = torch.cat([_store_tiles(6, 41), _two_colour_tile(256, 5), _fallback_tile(256)])
+    x = x.to(dev)
+    return x if dtype == torch.uint8 else x.to(torch.float32) / 255.0
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.uint8)
+
+
+def _stats(params: torch.Tensor) -> torch.Tensor:
+    """RowParams without two_digit and the padding."""
+    return torch.cat([params[:, :ms.TWO_DIGIT_COLUMN], params[:, 8:24]], 1)
+
+
+def _call(x, shape, lib=None, fit_row=None):
+    """B4's cluster route on ``shape`` (the fused fit of ``fit_row`` where
+    given), with ``lib`` in place of the built library where given: returns
+    the RowParams, the output and the fused fit's own RowParams row."""
+    saved = kernels.library("macenko_stream")
+    if lib is not None:
+        kernels._libs["macenko_stream"] = lib
+    he = torch.tensor(gen.HE_REF, device=x.device)
+    mc = torch.tensor([1.9, 1.1], device=x.device)
+    out = torch.empty_like(x)
+    fit_prm = None if fit_row is None else torch.empty(ms.PARAMS_WIDTH, device=x.device)
+    try:
+        params = ms._run(x, out, he, mc, fit=False, force="cluster", shape=shape,
+                         fit_into=fit_prm, fit_row=fit_row or 0)
+    finally:
+        kernels._libs["macenko_stream"] = saved
+    torch.cuda.synchronize()
+    return params, out, None if fit_prm is None else fit_prm[None]
+
+
+def _assert_two_digit_is_plain(x, params, fallback: bool):
+    """Column 7 against the plain twin on the row's OD, members and the
+    eigenvectors the kernel took (its RowParams)."""
+    od = mf.od_from_planes(x.reshape(x.shape[0], 3, -1), x.dtype == torch.uint8)
+    member = od.amin(1) >= mf.BETA
+    if fallback:
+        member = member | (params[:, 6] != 0)[:, None]
+    evecs = params[:, ms.EVS_COLUMNS].reshape(-1, 2, 3).transpose(1, 2)
+    assert torch.equal(params[:, ms.TWO_DIGIT_COLUMN], ms.two_digit_plain(od, member, evecs))
+
+
+def _assert_b6_on_kernel_keys(x, params):
+    """The selected angles and maxC, bit for bit B6's plain version on the
+    keys the kernel selected on."""
+    angles, conc = ms.kernel_keys(x, params, fit=False)
+    cnt = (angles < torch.inf).sum(1)
+    ranks = torch.stack([nearest_rank_index(mf.ALPHA, cnt),
+                         nearest_rank_index(100 - mf.ALPHA, cnt)], 1)
+    top = torch.where(angles < torch.inf, angles, -torch.inf).amax(1)
+    phi = ss.kth_smallest_streaming_plain(angles, ranks, (angles.amin(1), top, cnt))
+    idx99 = torch.full((conc.shape[0], 1), static_nearest_rank_index(99, angles.shape[1]),
+                       device=x.device)
+    maxc = ss.kth_smallest_streaming_plain(conc, idx99).reshape(-1, 2)
+    assert torch.equal(_bits(phi), _bits(params[:, ms.PHI_COLUMNS]))
+    assert torch.equal(_bits(maxc), _bits(params[:, ms.MAXC_COLUMNS]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("csize", [1, 2, 16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["uint8", "float32"])
+def test_two_digit_on_the_card(dtype, csize, one_digit_lib):
+    """Clusters of ``csize`` blocks: the tile-store rows settle two digits in
+    their first angle pass and the two-colour row does not, as the plain
+    twin states; the selections are B6's plain version on the kernel's keys,
+    and RowParams and outputs are those of the build that never takes the
+    guess, bit for bit."""
+    dev = _card()
+    x = _card_rows(dtype, dev)
+    itemsize = x.element_size()
+    slice_ = kernels.ceil_to(-(-x[0, 0].numel() // csize), ms.SLICE_QUANTUM)
+    budget = ms.resident_budget(itemsize, kernels.device_limits(dev.index)[1])
+    shape = (csize, slice_, min(slice_, budget))
+    params, out, _ = _call(x, shape)
+    want, want_out, _ = _call(x, shape, one_digit_lib)
+    two = params[:, ms.TWO_DIGIT_COLUMN].tolist()
+    assert two[:6] == [1.0] * 6 and two[6] == 0.0 and params[7, 6] == 1.0, two
+    assert torch.equal(want[:, ms.TWO_DIGIT_COLUMN], torch.zeros(8, device=dev))
+    _assert_two_digit_is_plain(x, params, fallback=True)
+    _assert_b6_on_kernel_keys(x, params)
+    assert torch.equal(_bits(_stats(params)), _bits(_stats(want)))
+    assert torch.equal(_bits(out), _bits(want_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["uint8", "float32"])
+def test_two_digit_in_the_fused_fit_on_the_card(dtype, one_digit_lib):
+    """Batch mode's fit inside B4's launch, of a hit row, the miss row and
+    the <3-pixel row (whose fit takes no fallback): the fit's two_digit as
+    the plain twin states, its selections B6's plain version on its keys,
+    and everything the build that never takes the guess gives, bit for
+    bit."""
+    dev = _card()
+    x = _card_rows(dtype, dev)
+    n, _, h, w = x.shape
+    shape = ms.fused_shape(n, h * w, x.element_size(), kernels.device_limits(dev.index)[1],
+                           ms.active_clusters(dev.index, x.dtype))
+    for row in (0, 6, 7):
+        params, out, fit = _call(x, shape, fit_row=row)
+        want, want_out, want_fit = _call(x, shape, one_digit_lib, fit_row=row)
+        _assert_two_digit_is_plain(x, params, fallback=True)
+        _assert_two_digit_is_plain(x[row:row + 1], fit, fallback=False)
+        assert (fit[0, ms.TWO_DIGIT_COLUMN] == 0.0) == (row == 6)
+        _assert_b6_on_kernel_keys(x, params)
+        _assert_b6_on_kernel_keys(x[row:row + 1], fit)
+        assert torch.equal(_bits(_stats(params)), _bits(_stats(want)))
+        assert torch.equal(_bits(_stats(fit)), _bits(_stats(want_fit)))
+        assert torch.equal(_bits(out), _bits(want_out))
+
+
 # ----------------------------------------------------------- plain versions
 @pytest.fixture(scope="module")
 def fitted():
+    import jax.numpy as jnp
+
+    from stainx_tpu.ops import macenko as jax_mk
+    from tests.oracles import numpy_reference as oracle
+
     he, mc = jax_mk.macenko_fit(jnp.asarray(oracle.synthetic_he_tile(64, 64, seed=42)))
     return torch.as_tensor(np.array(he)), torch.as_tensor(np.array(mc))
 
@@ -358,6 +631,10 @@ class TestPlainVersions:
         assert torch.equal(he, he2) and torch.equal(mc, mc2)
 
     def test_fit_plain_matches_jax_stream_kernel(self):
+        import jax.numpy as jnp
+
+        from stainx_tpu.kernels.macenko_stream import macenko_fit_stream as jax_fit_stream
+
         pool = _tiles(2, 96, 80, seed=23, he_scale=0.95)
         he_j, mc_j = jax_fit_stream(jnp.asarray(pool), interpret=True)
         he, mc = ms.macenko_fit_stream_plain(torch.as_tensor(pool))
@@ -365,6 +642,13 @@ class TestPlainVersions:
         np.testing.assert_allclose(mc.numpy(), np.asarray(mc_j).reshape(-1), rtol=1e-4)
 
     def test_transform_plain_matches_jax_stream_kernel(self, fitted):
+        import jax.numpy as jnp
+
+        from stainx_tpu.kernels.macenko_stream import (
+            macenko_transform_stream as jax_transform_stream,
+        )
+        from tests.oracles import numpy_reference as oracle
+
         he, mc = fitted
         src = oracle.synthetic_he_tile(160, 200, seed=29, he_scale=1.1)
         want = jax_transform_stream(jnp.asarray(src), he.numpy(), mc.numpy(), interpret=True)

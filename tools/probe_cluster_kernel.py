@@ -8,11 +8,12 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 Builds ``stainx_tpu_torch/csrc/macenko_stream.cu`` as it is and in variants
 with one part of the cluster kernel taken out (the angle selections, the
 concentration selections, the reconstruction, digit passes 2 and 3 of both
-selections, the histogram atomics, the uint8 OD table, the float32 OD's
-division and accurate logarithm), then times each from CUDA-graph replays
-on the main path's shapes, B4 on 64x3x512^2 and 256x3x224^2 uint8 and B5 on
-the 1x3x512^2 reference, and on the batch-mode training shapes, B4 on
-128x3x256^2 float32 and B5 on its first 1x3x256^2 tile. A variant's time
+selections, the angle selections' digit pass 1, the histogram atomics, the
+uint8 OD table, the float32 OD's division and accurate logarithm), then
+times each from CUDA-graph replays on the main path's shapes, B4 on
+64x3x512^2 and 256x3x224^2 uint8 and B5 on the 1x3x512^2 reference, on the
+tile store's B4 on 128x3x256^2 uint8, and on the batch-mode training
+shapes, B4 on 128x3x256^2 float32 and B5 on its first 1x3x256^2 tile. A variant's time
 against the full kernel's is what that part costs. The variants compute
 wrong results on purpose; only the full kernel's are checked, against the
 streamed route. Builds go to ``build/probe_cluster/`` (git-ignored).
@@ -38,8 +39,23 @@ VARIANTS = {
     "no angle selections": [("  cluster_select2<T, kAngle>(sl, w, use_all, sh, cluster);\n", "")],
     "no concentration selections": [("  cluster_select2<T, kConc>(sl, w, use_all, sh, cluster);\n", "")],
     "no reconstruction": [("  if (out == nullptr) return;\n", "  return;\n")],
-    "no digit passes 2 and 3": [("  for (int d = 0; d < 4; ++d) {\n    const int buf = d & 1, shift = 24 - 8 * d;",
-                                 "  for (int d = 0; d < 2; ++d) {\n    const int buf = d & 1, shift = 24 - 8 * d;")],
+    "no digit passes 2 and 3": [("  for (int d = 0, buf = 0; d < 4; ++d, buf ^= 1) {",
+                                 "  for (int d = 0, buf = 0; d < 2; ++d, buf ^= 1) {")],
+    # The angle selections go from pass 0 to a pass 2 that collects: the
+    # sweeps a row takes when its first pass settles two digits. Since that
+    # pass does (cluster_select2), this takes out only the pass 1 of rows
+    # whose guess misses: none on H&E tiles.
+    "no angle pass 1": [("    const int state = sh.cand_state;  // block-uniform\n",
+                         "    if (Mode == kAngle && d == 1) {\n"
+                         "      if (threadIdx.x == 0) {\n"
+                         "        sh.cand_state = kCollect;\n"
+                         "        sh.cand_count[0] = sh.cand_count[1] = 0u;\n"
+                         "        sh.cand_split = kCand / 2;\n"
+                         "      }\n"
+                         "      __syncthreads();\n"
+                         "      continue;\n"
+                         "    }\n"
+                         "    const int state = sh.cand_state;  // block-uniform\n")],
     # A flag that is never set keeps the keys computed but skips the atomics.
     "no histogram atomics": [("using namespace stainx;\n", "using namespace stainx;\n__device__ int g_never;\n"),
                              ("  if (bin < kBins) atomicAdd(rep +", "  if (bin < kBins && g_never) atomicAdd(rep +")],
@@ -115,6 +131,7 @@ def main() -> int:
     he, mc = mf.macenko_fit_mega_plain(ref[0])
     batch = [u8(64, 512, 123), u8(64, 512, 124, 1.1)]
     tiles = [u8(256, 224, 227), u8(256, 224, 228, 1.1)]
+    store = [u8(128, 256, 129), u8(128, 256, 130, 1.1)]
     train = [u8(128, 256, 125).float() / 255.0, u8(128, 256, 126, 1.1).float() / 255.0]
 
     def transform(x):
@@ -124,7 +141,8 @@ def main() -> int:
         return ms.macenko_fit_stream(x, force="cluster")
 
     cases = [("B4 64x3x512^2 u8", transform, batch), ("B4 256x3x224^2 u8", transform, tiles),
-             ("B5 1x3x512^2 u8", fit, ref), ("B4 128x3x256^2 f32", transform, train),
+             ("B5 1x3x512^2 u8", fit, ref), ("B4 128x3x256^2 u8", transform, store),
+             ("B4 128x3x256^2 f32", transform, train),
              ("B5 1x3x256^2 f32", fit, [t[:1] for t in train])]
 
     def replay_ms(fn, xs, iters=30):

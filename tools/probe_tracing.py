@@ -21,7 +21,12 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
   and, for the cells whose transform takes statistics over the call
   (``reinhard-u8-512.store``: B7b and its finalize;
   ``hm-u8-512.store-b256``: B8a and its LUT finalize), the ``stainx.stats``
-  spans per call under ``per_call``: one a call, with a device interval.
+  spans per call under ``per_call``: one a call, with a device interval;
+  and for B4 and B5, the share of rows whose cluster-route angle selections
+  settled two digits in their first pass (``RowParams.two_digit``) in the
+  last call of each kind (``two_digit``: ``B4`` its rows, ``B4.fit`` the
+  fused fit's row, ``B5`` the pool's row; null where none ran), read after
+  the run and a sync of its own.
 - ``window``: one traced ``portbench`` run of the cell in this process,
   then ``stainx_tpu_torch.profiling.timeline()``: the run's metrics and
   notes; the sampled pairs after the stretch and the events' hold; the
@@ -84,11 +89,40 @@ from stainx_tpu_torch import profiling  # noqa: E402
 DEV = torch.device("cuda", 0)
 
 
+def _keep_row_params(ms) -> tuple[dict, object]:
+    """Wraps ``ms._run`` so that it keeps, by reference, the RowParams of
+    the last call of each kind (``B4``, ``B4.fit``: a fused fit's own row,
+    ``B5``), for :func:`two_digit_shares`; returns them and the original."""
+    run, kept = ms._run, {}
+
+    def keeping(images, out, *args, fit_into=None, **kwargs):
+        params = run(images, out, *args, fit_into=fit_into, **kwargs)
+        kept["B4" if out is not None else "B5"] = params
+        if fit_into is not None:
+            kept["B4.fit"] = fit_into[None]
+        return params
+
+    ms._run = keeping
+    return kept, run
+
+
+def two_digit_shares(kept: dict, ms) -> dict:
+    """The share of each kept call's rows with ``two_digit`` set."""
+    torch.cuda.synchronize()
+    return {kind: (float(kept[kind][:, ms.TWO_DIGIT_COLUMN].mean()) if kind in kept else None)
+            for kind in ("B4", "B4.fit", "B5")}
+
+
 def session(cell_name: str, seed: int, seconds: float) -> dict:
     from portbench import harness, spec
+    from stainx_tpu_torch.kernels import macenko_stream as ms
 
     torch.set_num_threads(1)
-    res = harness.run_cell(spec.cell(cell_name), seed, seconds, True, DEV, STARTED)
+    kept, run = _keep_row_params(ms)
+    try:
+        res = harness.run_cell(spec.cell(cell_name), seed, seconds, True, DEV, STARTED)
+    finally:
+        ms._run = run
     sess = profiling.session()
     calls = len(sess.roots())
     per_call, quartiles = {}, {}
@@ -109,6 +143,7 @@ def session(cell_name: str, seed: int, seconds: float) -> dict:
             "per_call": per_call, "device_ms_quartiles": quartiles, "counts": sess.counts,
             "kernel_args": sorted({json.dumps(s.args, sort_keys=True) for s in sess.spans
                                    if s.name.startswith("stainx.kernel.") and s.args}),
+            "two_digit": two_digit_shares(kept, ms),
             "metrics": {k: v["value"] for k, v in res["metrics"].items()},
             "idle_gaps": res.get("breakdown", {}).get("idle_gaps"),
             "traced_mpix_per_s": res["notes"].get("traced_mpix_per_s")}
